@@ -9,11 +9,30 @@ Phases (any failure raises and the script exits non-zero):
    build the CUDA kernels from csrc/ (one nvcc per source, in parallel)
    and print the build time.
 2. Each kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it, with its stated tolerance; CUDA-event
-   times (median of 30 runs) of both, of one PyTorch call computing the
-   same function where there is one, and the kernel's bound: the larger
-   of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s (the
-   H100's published HBM rate and float32 peak).
+   shapes the main path gives it, with its stated tolerance, and its
+   times:
+   - `ms`: device time of one wrapper call, host work out of the window
+     (device_ms: the call captured once in a CUDA graph, 50 replays
+     queued behind a torch.cuda._sleep that outlasts their enqueue,
+     CUDA events around the replays; median of 5 rounds). The same timer
+     gives `library_ms`, one PyTorch call computing the same function,
+     where there is one.
+   - `host_ms`: host-clock time of one wrapper call with no synchronise,
+     median of 50 calls (the port is host-bound, so this matters too).
+   - `plain_ms`: CUDA events around single calls of the plain version,
+     host work included (median of 30; 10 for local BA): no yardstick.
+   - `bound_ms`: the larger of its bytes over 3.35 TB/s and its
+     operations over 67 TFLOP/s (the H100's published HBM rate and
+     float32 peak). The gather's bytes count the image's 32-byte sectors
+     that its windows cover, not the whole image.
+   The gather is timed at each pyramid level's budget (434 31x31
+   windows at level 0, and the sum over the levels), FAST+NMS at level 0
+   and over the levels, local BA also at 0 and 1 iterations. Local BA
+   and the pose LM are cluster kernels (8 CTAs holding their share of
+   the points / observations in shared memory); for local BA the script
+   also prints where a solve's time goes, phase by phase, from the
+   kernel's own clock64() counts on its first CTA, what those clocks
+   cost, and each cluster kernel's capacity (points, observations).
 3. The main path at full width: SlamConfig() (1241x376, 2000 features,
    3072 tracked landmarks, local BA over 8 keyframes x 1024 points), 48
    synthetic frames on a +0.8 m/frame track,
@@ -51,8 +70,65 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 30) -> float:
-    """Median CUDA-event time of fn() in ms, after 3 warm-up calls."""
+def device_ms(fn, n: int = 50, rounds: int = 5) -> float:
+    """Device time of one fn() call in ms, with the host's work out of the
+    event window.
+
+    fn() runs once to warm up, then is captured once in a CUDA graph
+    (the ctypes launch goes to the current stream, the capture stream).
+    Each round enqueues a torch.cuda._sleep, the start event, n replays
+    of the graph and the end event. The sleep is doubled until it
+    outlasts the host's enqueue of the n replays, so the device runs them
+    back to back. The result is the median over rounds of elapsed / n:
+    the kernel with whatever device work its wrapper enqueues (dtype
+    casts of the inputs), and no host time."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    cycles, times = 1 << 20, []
+    while len(times) < rounds:
+        slept, start, end = (torch.cuda.Event(enable_timing=True)
+                             for _ in range(3))
+        slept.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            graph.replay()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        if slept.elapsed_time(start) < 1.5 * enqueue_ms:
+            cycles *= 2                    # the device caught up: again
+            continue
+        times.append(start.elapsed_time(end) / n)
+    del graph
+    return float(np.median(times))
+
+
+def host_ms(fn, n: int = 50) -> float:
+    """Median host-clock time of one fn() call in ms, with no synchronise
+    inside the timed call (the queue is drained every 10 calls, outside
+    the window, so that it never fills)."""
+    fn()
+    times = []
+    for i in range(n):
+        if i % 10 == 0:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return float(np.median(times))
+
+
+def call_ms(fn, reps: int = 30) -> float:
+    """Median CUDA-event time of single fn() calls in ms, host work
+    included: the plain versions' timer (they are no yardstick of speed)."""
     for _ in range(3):
         fn()
     times = []
@@ -65,6 +141,12 @@ def time_ms(fn, reps: int = 30) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def row_times(kernel_fn, plain_fn, plain_reps: int = 30) -> dict:
+    """The timing columns of a kernel row with no library call."""
+    return {"ms": device_ms(kernel_fn), "host_ms": host_ms(kernel_fn),
+            "plain_ms": call_ms(plain_fn, plain_reps), "library_ms": None}
 
 
 def to_dev(a, dev) -> torch.Tensor:
@@ -104,38 +186,91 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def window_bytes(img, ys, xs, side: int) -> int:
+    """Bytes of img that side x side windows at corners (ys, xs) must read:
+    the 32-byte sectors (the unit the memory system moves) that hold a
+    pixel of their union, marked in a mask of the image, its rows laid
+    end to end from an aligned start."""
+    h, w = img.shape
+    mask = torch.zeros(h, w, dtype=torch.bool, device=img.device)
+    r = torch.arange(side, device=img.device)
+    mask[(ys.long()[:, None] + r)[:, :, None],
+         (xs.long()[:, None] + r)[:, None, :]] = True
+    per = 32 // img.element_size()
+    flat = torch.nn.functional.pad(mask.flatten(), (0, -mask.numel() % per))
+    return int(flat.view(-1, per).any(1).sum()) * 32
+
+
 # ---------------------------------------------------------------- phase 2
-def check_gather(dev, rng):
+def _gather_case(img, k: int, side: int, rng):
+    """k random window corners inside img, the kernel's and the plain
+    version's calls, and one PyTorch call for the same function: an
+    advanced-index gather of the image's window view (unfold)."""
     from slam_toolkit_tpu_torch.ops import patches
-    h, w, k = 376, 1241, 2048
+    h, w = img.shape
+    ys = to_dev(rng.integers(0, h - side + 1, k).astype(np.int32), img.device)
+    xs = to_dev(rng.integers(0, w - side + 1, k).astype(np.int32), img.device)
+    win = img.unfold(0, side, 1).unfold(1, side, 1)
+    yl, xl = ys.long(), xs.long()
+    return (ys, xs,
+            lambda: patches.gather_blocks_cuda(img, ys, xs, side, side),
+            lambda: patches.gather_blocks_plain(img, ys, xs, side, side),
+            lambda: win[yl, xl])
+
+
+def check_gather(dev, rng):
+    """Exact at 2048 windows of 31x31 and 37x37; timed at the main path's
+    shapes: 31x31 BRIEF windows at each pyramid level's budget (434 at
+    level 0), on an image of that level's size."""
+    from slam_toolkit_tpu_torch.config import ExtractorConfig
+    from slam_toolkit_tpu_torch.ops import patches, pyramid
+    from slam_toolkit_tpu_torch.ops.extractor import level_budgets
+    h, w, side = 376, 1241, 31
     img = to_dev(rng.uniform(0, 255, (h, w)).astype(np.float32), dev)
-    err, times = 0.0, {}
-    for side in (31, 37):
-        ys = to_dev(rng.integers(0, h - side + 1, k).astype(np.int32), dev)
-        xs = to_dev(rng.integers(0, w - side + 1, k).astype(np.int32), dev)
-        out = patches.gather_blocks_cuda(img, ys, xs, side, side)
-        ref = patches.gather_blocks_plain(img, ys, xs, side, side)
+    err = 0.0
+    for s in (31, 37):
+        _, _, kern, plain, lib = _gather_case(img, 2048, s, rng)
+        out, ref = kern(), plain()
         e = float((out - ref).abs().max())
-        print(f"[phase2] gather {k}x{side}x{side}: max_abs_err {e}")
-        if not torch.equal(out, ref):
-            raise AssertionError(f"gather {side}x{side} is not exact")
+        print(f"[phase2] gather 2048x{s}x{s}: max_abs_err {e}")
+        if not (torch.equal(out, ref) and torch.equal(lib(), ref)):
+            raise AssertionError(f"gather {s}x{s}: kernel, plain and unfold "
+                                 "disagree")
         err = max(err, e)
-        if side == 31:                     # the BRIEF shape of the main path
-            # one PyTorch call: an advanced-index gather of a window view
-            win = img.unfold(0, side, 1).unfold(1, side, 1)
-            yl, xl = ys.long(), xs.long()
-            if not torch.equal(win[yl, xl], ref):
-                raise AssertionError("unfold gather disagrees")
-            times = {"ms": time_ms(lambda: patches.gather_blocks_cuda(
-                img, ys, xs, side, side)),
-                "plain_ms": time_ms(lambda: patches.gather_blocks_plain(
-                    img, ys, xs, side, side)),
-                "library_ms": time_ms(lambda: win[yl, xl]),
-                **bound(nbytes(img, ys, xs, out), 0)}
+        if s == side:
+            print(f"[phase2] gather 2048x31x31: kernel {device_ms(kern):.4f}"
+                  f" ms, unfold {device_ms(lib):.4f} ms (device)")
+    cfg = ExtractorConfig()
+    row, sums = None, [0.0, 0.0, 0.0]
+    for (lh, lw), k in zip(pyramid.level_shapes(h, w, cfg),
+                           level_budgets(cfg)):
+        if k == 0:
+            continue
+        img_l = to_dev(rng.uniform(0, 255, (lh, lw)).astype(np.float32), dev)
+        ys, xs, kern, plain, lib = _gather_case(img_l, k, side, rng)
+        out = kern()
+        if not torch.equal(out, plain()):
+            raise AssertionError(f"gather {k}x31x31 on {lh}x{lw} not exact")
+        t_k, t_l = device_ms(kern), device_ms(lib)
+        # the image sectors the windows cover, the corners, the output
+        read = window_bytes(img_l, ys, xs, side)
+        b = bound(read + nbytes(ys, xs, out), 0)
+        sums[0] += t_k
+        sums[1] += t_l
+        sums[2] += b["bound_ms"]
+        if row is None:                            # level 0
+            row = {"ms": t_k, "host_ms": host_ms(kern),
+                   "plain_ms": call_ms(plain), "library_ms": t_l, **b}
+            print(f"[phase2] gather level 0, {k}x31x31 of {lh}x{lw}: kernel "
+                  f"{t_k:.4f} ms, unfold {t_l:.4f} ms (device); the windows "
+                  f"cover {read} of the image's {nbytes(img_l)} bytes")
+    print(f"[phase2] gather, all levels' budgets of a frame: kernel "
+          f"{sums[0]:.4f} ms, unfold {sums[1]:.4f} ms (device), bound "
+          f"{sums[2]:.6f} ms (summed)")
     return {"name": "patch_gather",
             "source": "slam_toolkit_tpu_torch/csrc/patch_gather.cu",
             "replaces": "slam_toolkit_tpu/ops/patches.py:113",
-            "kernel": patches.KERNEL, "max_abs_err": err, **times}
+            "kernel": patches.KERNEL, "max_abs_err": err, **row}
 
 
 def check_topk2(dev, rng):
@@ -165,9 +300,8 @@ def check_topk2(dev, rng):
             "source": "slam_toolkit_tpu_torch/csrc/match_topk2.cu",
             "replaces": "slam_toolkit_tpu/ops/match_kernel.py:139",
             "kernel": mk.KERNEL, "max_abs_err": err,
-            "ms": time_ms(lambda: mk.topk2_match_cuda(*t, r)),
-            "plain_ms": time_ms(lambda: mk.topk2_match_plain(*t, r)),
-            "library_ms": None,
+            **row_times(lambda: mk.topk2_match_cuda(*t, r),
+                        lambda: mk.topk2_match_plain(*t, r)),
             # per pair: 8 xor + 8 popcount + 7 adds, the pixel gate (2 sub,
             # 2 mul, 1 add, 2 compares) and the running top-2 (~6)
             **bound(nbytes(*t, out), m * n * 36)}
@@ -205,9 +339,8 @@ def check_pose_lm(dev, rng):
             "source": "slam_toolkit_tpu_torch/csrc/pose_lm.cu",
             "replaces": "slam_toolkit_tpu/ops/pose_lm_kernel.py:224",
             "kernel": plk.KERNEL, "max_abs_err": err,
-            "ms": time_ms(lambda: plk.optimize_pose_cuda(*args, cfg)),
-            "plain_ms": time_ms(lambda: plk.optimize_pose_plain(*args, cfg)),
-            "library_ms": None,
+            **row_times(lambda: plk.optimize_pose_cuda(*args, cfg),
+                        lambda: plk.optimize_pose_plain(*args, cfg)),
             # per observation and iteration: ~186 operations for the
             # normal equations, ~40 for the trial cost; 80 for the first
             # cost and the final r2
@@ -240,9 +373,8 @@ def check_sad(dev, rng):
             "source": "slam_toolkit_tpu_torch/csrc/stereo_sad.cu",
             "replaces": "slam_toolkit_tpu/ops/stereo_sad.py:128",
             "kernel": sad.KERNEL, "max_abs_err": err,
-            "ms": time_ms(lambda: sad.sad_curve_cuda(*args)),
-            "plain_ms": time_ms(lambda: sad.sad_curve_plain(*args)),
-            "library_ms": None,
+            **row_times(lambda: sad.sad_curve_cuda(*args),
+                        lambda: sad.sad_curve_plain(*args)),
             # 121-pixel window, per shift: subtract, absolute value, add
             **bound(nbytes(*args[:5], out), out.numel() * 121 * 3)}
 
@@ -303,15 +435,19 @@ def ba_ops(W: int, P: int, iters: int) -> int:
     return iters * per_iter + W * P * 70
 
 
+def _ba_kw(lb) -> dict:
+    return dict(iters=lb.num_iterations, huber_delta=lb.huber_delta,
+                lambda0=lb.lm_lambda0, lambda_up=lb.lm_lambda_up,
+                lambda_down=lb.lm_lambda_down, trim_sigma=lb.trim_sigma)
+
+
 def check_local_ba(dev, rng):
     from slam_toolkit_tpu_torch.config import LocalBAConfig
     from slam_toolkit_tpu_torch.ops import ba_kernel
     lb = LocalBAConfig()                  # trim_sigma 5.0, 10 iterations
     W, P = lb.window_keyframes, lb.max_points
     p = _ba_problem(dev, rng, W, P)
-    kw = dict(iters=lb.num_iterations, huber_delta=lb.huber_delta,
-              lambda0=lb.lm_lambda0, lambda_up=lb.lm_lambda_up,
-              lambda_down=lb.lm_lambda_down, trim_sigma=lb.trim_sigma)
+    kw = _ba_kw(lb)
     out = ba_kernel.solve_ba_cuda(p, **kw)
     ref = ba_kernel.solve_ba_plain(p, **kw)
     start = ba_kernel.solve_ba_plain(p, **dict(kw, iters=0))
@@ -335,16 +471,51 @@ def check_local_ba(dev, rng):
         raise AssertionError("local BA did not lower the cost")
     ins = [p.T_cw, p.pose_fixed, p.Xw, p.z, p.inv_sigma, p.obs_mask,
            p.stereo_mask, p.point_valid, p.point_free]
+    # the fixed cost (set-up, first cost, outputs) against the cost of an
+    # iteration: the same solve at 0, 1 and 10 iterations
+    split = {n: device_ms(lambda n=n: ba_kernel.solve_ba_cuda(
+        p, **dict(kw, iters=n)), n=20) for n in (0, 1, lb.num_iterations)}
+    print(f"[phase2] local BA device ms at iters 0 / 1 / "
+          f"{lb.num_iterations}: " + " / ".join(
+              f"{split[n]:.4f}" for n in sorted(split)))
     return {"name": "local_ba",
             "source": "slam_toolkit_tpu_torch/csrc/local_ba.cu",
             "replaces": "slam_toolkit_tpu/ops/ba_kernel.py:408",
             "kernel": ba_kernel.KERNEL, "max_abs_err": max(err_T, err_X),
-            "ms": time_ms(lambda: ba_kernel.solve_ba_cuda(p, **kw)),
-            "plain_ms": time_ms(lambda: ba_kernel.solve_ba_plain(p, **kw),
-                                reps=10),
-            "library_ms": None,
+            "split_ms": split,
+            **row_times(lambda: ba_kernel.solve_ba_cuda(p, **kw),
+                        lambda: ba_kernel.solve_ba_plain(p, **kw),
+                        plain_reps=10),
             **bound(nbytes(*ins, out.T_cw, out.Xw, out.edge_r2) + 8,
                     ba_ops(W, P, lb.num_iterations))}
+
+
+def ba_phases(dev, ba_ms: float) -> None:
+    """Where a local-BA solve's time goes: the kernel's clock64() cycles
+    per phase on the cluster's first CTA, as shares of the solve and
+    scaled to ba_ms (its device time) in microseconds; and what the
+    clocks cost, the solve's device time with them on and off."""
+    from slam_toolkit_tpu_torch.config import LocalBAConfig
+    from slam_toolkit_tpu_torch.ops import ba_kernel
+    lb = LocalBAConfig()
+    p = _ba_problem(dev, np.random.default_rng(0), lb.window_keyframes,
+                    lb.max_points)
+    cyc = torch.zeros(len(ba_kernel.PHASES), dtype=torch.int64, device=dev)
+    kw = _ba_kw(lb)
+    ba_kernel.solve_ba_cuda(p, **kw, phase_cycles=cyc)
+    c = cyc.cpu().numpy().astype(np.float64)
+    on, off = (device_ms(lambda buf=buf: ba_kernel.solve_ba_cuda(
+        p, **kw, phase_cycles=buf), n=20) for buf in (cyc, None))
+    print(f"[phase2] local BA device ms with the phase clocks on {on:.4f}, "
+          f"off {off:.4f}")
+    us = c / c.sum() * ba_ms * 1e3
+    per_it = [1 <= i <= 9 for i in range(len(c))]
+    print(f"[phase2] local BA phases ({int(c.sum())} cycles; us of the "
+          f"{ba_ms:.4f} ms solve, 'per it.' over {lb.num_iterations} "
+          "iterations): " + ", ".join(
+              f"{n} {u / lb.num_iterations if it else u:.2f} us"
+              f"{' per it.' if it else ''} ({100 * u / us.sum():.1f}%)"
+              for n, u, it in zip(ba_kernel.PHASES, us, per_it)))
 
 
 def fast_ops(h: int, w: int, dual: bool) -> int:
@@ -377,7 +548,7 @@ def check_fast_nms(dev, rng):
           f"({n_corners} corners)")
     lv0 = levels[0]
     args = (lv0, thr[0], thr[1], border)
-    all_ms = sum(time_ms(lambda lv=lv: fast_kernel.detect_fused_cuda(
+    all_ms = sum(device_ms(lambda lv=lv: fast_kernel.detect_fused_cuda(
         lv, thr[0], thr[1], border)) for lv in levels)
     print(f"[phase2] FAST+NMS kernel, all {len(levels)} levels of a frame: "
           f"{all_ms:.4f} ms")
@@ -385,10 +556,18 @@ def check_fast_nms(dev, rng):
             "source": "slam_toolkit_tpu_torch/csrc/fast_nms.cu",
             "replaces": "slam_toolkit_tpu/ops/fast_kernel.py:149",
             "kernel": fast_kernel.KERNEL, "max_abs_err": 0.0,
-            "ms": time_ms(lambda: fast_kernel.detect_fused_cuda(*args)),
-            "plain_ms": time_ms(lambda: fast_kernel.detect_fused_plain(*args)),
-            "library_ms": None,
+            **row_times(lambda: fast_kernel.detect_fused_cuda(*args),
+                        lambda: fast_kernel.detect_fused_plain(*args)),
             **bound(2 * nbytes(lv0), fast_ops(*lv0.shape, True))}
+
+
+def phase2(dev) -> list:
+    """Every kernel against its plain version, with its times: one row
+    each, on inputs made from seed 0."""
+    rng = np.random.default_rng(0)
+    return [check_gather(dev, rng), check_topk2(dev, rng),
+            check_pose_lm(dev, rng), check_sad(dev, rng),
+            check_local_ba(dev, rng), check_fast_nms(dev, rng)]
 
 
 # ---------------------------------------------------------------- phase 3
@@ -441,18 +620,21 @@ def main() -> int:
     print(lib.build_log)
 
     # ---- phase 2
-    dev = torch.device("cuda")
-    rng = np.random.default_rng(0)
-    rows = [check_gather(dev, rng), check_topk2(dev, rng),
-            check_pose_lm(dev, rng), check_sad(dev, rng),
-            check_local_ba(dev, rng), check_fast_nms(dev, rng)]
+    rows = phase2(torch.device("cuda"))
     for r in rows:
         lib_ms = "none" if r["library_ms"] is None else \
             f"{r['library_ms']:.4f} ms"
-        print(f"[phase2] {label} {r['name']}: kernel {r['ms']:.4f} ms, "
-              f"plain {r['plain_ms']:.4f} ms, library {lib_ms}, bound "
+        print(f"[phase2] {label} {r['name']}: kernel {r['ms']:.4f} ms "
+              f"(device), wrapper {r['host_ms']:.4f} ms (host), plain "
+              f"{r['plain_ms']:.4f} ms (one call), library {lib_ms}, bound "
               f"{r['bound_ms']:.6f} ms ({r['bound_by']})")
     kernels = {r["name"]: r["kernel"] for r in rows}
+    ba_phases(torch.device("cuda"),
+              next(r["ms"] for r in rows if r["name"] == "local_ba"))
+    from slam_toolkit_tpu_torch.ops import ba_kernel, pose_lm_kernel
+    print(f"[phase2] one launch holds: local BA "
+          f"{ba_kernel.max_points(8, torch.cuda.current_device())} points "
+          f"at W=8, pose LM {pose_lm_kernel.max_obs()} observations")
 
     # ---- phase 3: the main path (fused_fast off, as SlamConfig())
     from slam_toolkit_tpu_torch.config import SlamConfig
@@ -537,8 +719,8 @@ def main() -> int:
         raise AssertionError(f"CUDA and CPU paths diverge: {max(dt):.3f} m")
 
     # ---- phase 6
-    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+    keys = ("max_abs_err", "ms", "host_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     table = [{"name": r["name"], "route": "cuda", "source": r["source"],
               "replaces": r["replaces"], "launches": launches[r["name"]],
               **{k: r[k] for k in keys}} for r in rows]

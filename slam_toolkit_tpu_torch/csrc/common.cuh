@@ -5,6 +5,7 @@
 // Python wrapper can raise on a launch the CUDA runtime refused.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -17,27 +18,60 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
-// Sums v[0..NV) over a block of kWarps warps into out[0..NV) (shared),
-// in a fixed order (warp shuffle tree, then the warps in index order).
-// NV <= 32. Every thread must call it; it synchronises twice.
-template <int NV, int kWarps>
-__device__ void block_sum(float (&v)[NV], float (*red)[32], float* out) {
+// One stage of a transposing butterfly over v[0..32) of a warp: each lane
+// keeps the half of the values its bit O selects and adds the partner's.
+template <int O>
+__device__ __forceinline__ void fold(float (&v)[32], bool up) {
+#pragma unroll
+  for (int k = 0; k < O; ++k) {
+    const float send = up ? v[k] : v[k + O];
+    const float keep = up ? v[k + O] : v[k];
+    v[k] = keep + __shfl_xor_sync(0xFFFFFFFFu, send, O);
+  }
+}
+
+// Sums v[0..NV) of every thread of a cluster of kCluster CTAs of kWarps
+// warps into out[0..nv) (shared) of every CTA, in a fixed order: within a
+// warp a shuffle tree (for NV == 32 a transposing butterfly, 31 shuffles
+// for the 32 values), the warp's sums into part ([kWarps][NV], this
+// CTA's), one cluster.sync(), then every rank's part read through
+// distributed shared memory and added rank by rank, warp by warp. Every
+// CTA gets the same sums bit for bit, with no atomics. nv <= NV <= 32;
+// v is consumed. Every thread of every CTA must call it; it ends with a
+// __syncthreads(). A CTA writes part before it waits at the
+// cluster.sync(), so two calls on the same part need another
+// cluster.sync() between them, or the caller alternates two buffers.
+template <int NV, int kWarps, int kCluster>
+__device__ void cluster_sum(cooperative_groups::cluster_group& cluster,
+                            float (&v)[NV], int nv, float (*part)[NV],
+                            float* out) {
+  static_assert(NV <= 32, "one value per lane");
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if constexpr (NV == 32) {
+    fold<16>(v, lane & 16);
+    fold<8>(v, lane & 8);
+    fold<4>(v, lane & 4);
+    fold<2>(v, lane & 2);
+    fold<1>(v, lane & 1);
+    part[warp][lane] = v[0];             // the warp's sum of v[lane]
+  } else {
 #pragma unroll
-  for (int k = 0; k < NV; ++k) {
-    float x = v[k];
+    for (int k = 0; k < NV; ++k) {
+      float x = v[k];
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xFFFFFFFFu, x, o);
-    v[k] = x;
+      for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xFFFFFFFFu, x, o);
+      if (lane == 0) part[warp][k] = x;
+    }
   }
-  if (lane == 0) {
-#pragma unroll
-    for (int k = 0; k < NV; ++k) red[warp][k] = v[k];
-  }
-  __syncthreads();
-  if (threadIdx.x < NV) {
+  cluster.sync();
+  if (threadIdx.x < nv) {
     float s = 0.0f;
-    for (int w = 0; w < kWarps; ++w) s += red[w][threadIdx.x];
+#pragma unroll
+    for (int r = 0; r < kCluster; ++r) {
+      const float(*rp)[NV] = cluster.map_shared_rank(part, r);
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) s += rp[w][threadIdx.x];
+    }
     out[threadIdx.x] = s;
   }
   __syncthreads();

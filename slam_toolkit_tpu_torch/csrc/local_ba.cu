@@ -1,4 +1,5 @@
-// Local bundle adjustment: the whole Levenberg-Marquardt solve in one launch.
+// Local bundle adjustment: the whole Levenberg-Marquardt solve in one
+// launch of one thread-block cluster.
 //
 // Replaces slam_toolkit_tpu/ops/ba_kernel.py::_ba_pallas (the
 // pl.pallas_call at ba_kernel.py:408). Same semantics as the plain
@@ -15,59 +16,97 @@
 //
 // What bounds it on an H100: latency. The inputs are ~0.25 MB and the
 // arithmetic ~0.2 GFLOP in all (about 3 us at the f32 peak), but each
-// iteration is a chain of dependent phases separated by block barriers:
-// the edge pass, the per-pose reductions, the S_off product, 48 serial
-// Gauss-Jordan steps (two barriers each) and the trial cost.
+// iteration is a chain of dependent phases: the edge pass, the Schur
+// terms, a reduction over all points, a 48-step serial solve and the
+// trial cost.
 //
-// Design: one block of 256 threads runs every iteration. The TPU
-// kernel's (W, P) tiles, a-major concatenations, one-hot assembly and
-// block-diagonal masks exist only for Mosaic and are not carried over.
-// - Edge pass, point-major: a thread owns points p = tid + k * 256 and
-//   walks their W edges, keeping the point's 3x3 block in registers and
-//   writing each edge's 21 + 6 pose terms and its 6x3 Hpl block to a
-//   global scratch (L2-resident, ~2.3 MB at W=8, P=1024), point index
-//   fastest so that stores coalesce. The owner inverts its point block in
-//   closed form (the +-1e-12 determinant clamp of _inv3_rows), then forms
-//   A = Hpl Hll^-1 and the rhs coupling terms.
-// - Per-pose sums: one warp per sum over the P points, lanes strided,
-//   then a shuffle tree: a fixed order and no atomics, so a run repeats
-//   bit for bit.
-// - S_off = A . Hpl^T (48 x 3P times 3P x 48): a shared-memory tiled
-//   product, 32-column k tiles staged transposed, each of 16 x 16 threads
-//   holding a 3 x 3 block of the result in registers.
-// - The (48 x 49) augmented system lives in shared memory; each
-//   Gauss-Jordan step is one barrier-separated row/column broadcast and
-//   one parallel update. Row order is pose-major (6 w + a), like the
-//   plain solver's reshape.
-// - Thread w < W applies exp(dp_w) to pose w; points step X + dl * valid
-//   with dl zeroed where the point is inactive; the trial cost is a block
-//   reduction; accept swaps the point buffers instead of copying them.
+// Design: one cluster of 8 CTAs (the portable cluster size; up to 1,136
+// points fit at W = 8), 256 threads each. The points are split into 8
+// contiguous ranges; a CTA keeps everything about its points in shared
+// memory for the whole solve (edge inputs, current and trial X, per edge
+// the 6x3 Hpl block and A = Hpl Hll^-1, per point Hll^-1 and bl), so
+// nothing goes through global memory between phases. Per iteration:
+// - Edge pass: warp w owns pose w, lanes stride over the CTA's points;
+//   each lane keeps its 27 Hpp / bp terms of pose w in registers, a
+//   shuffle tree sums them. Per edge Hpl goes to shared memory, and the
+//   edge's Hll and bl terms into the slot A takes later.
+// - Point pass: a thread per point sums its W edges' Hll and bl (in w
+//   order), inverts in closed form (+-1e-12 determinant clamp) and
+//   overwrites its slots with A. Warp w then sums the rhs coupling A bl
+//   of pose w, and 208 threads form this CTA's part of the upper
+//   triangle of S_off (2x3 register blocks of the 36 pose pairs;
+//   per-pose strides padded to 6 mod 32 banks, so the pose blocks a
+//   warp reads fall in different banks).
+// - Reduction: the 264 pose sums and 1,176 S_off entries of every CTA
+//   are read through distributed shared memory after one cluster.sync()
+//   and summed in rank order by every CTA: all 8 hold the same reduced
+//   system bit for bit, with no atomics and no broadcast. One buffer of
+//   partials suffices: the trial cost's cluster.sync() separates this
+//   iteration's remote reads from the next iteration's writes.
+// - Solve: every CTA assembles S (the lower triangle mirrors S_off's
+//   upper) and runs the Gauss-Jordan with the matrix in registers, 245
+//   threads each holding a tenth of a column, one barrier a step, no
+//   branch in a step; W < 8 pads the system with identity rows. Each element update is the one-block kernel's arithmetic, in
+//   the same pose-major row order.
+// - Every CTA forms the trial poses from the same dp, back-substitutes
+//   its own points, and a second cluster reduction in rank order of
+//   [trial cost, observations in front, non-finite flag]
+//   (slam::cluster_sum) gives every CTA the same accept decision and
+//   damping.
+// A final cluster.sync() keeps every CTA resident until no other can
+// still read its shared memory. Given a phase_cycles buffer, thread 0 of
+// rank 0 adds up the clock64() cycles of each phase (see Phase), read at
+// the barriers that end them, and writes them there at exit.
+#include <cooperative_groups.h>
 #include <math.h>
 
 #include "common.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
+constexpr int kCluster = 8;            // CTAs: the portable cluster size
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxW = 8;
-constexpr int kMaxN = 6 * kMaxW;      // rows of the reduced system
-constexpr int kTerms = 33;            // per edge: 21 Hpp, 6 bp, 6 rhs coupling
-constexpr int kTileK = 32;            // k-columns of one S_off tile
-constexpr int kPtState = 10;          // per point: Hll^-1 (6), bl (3), active
+constexpr int kN = 6 * kMaxW;          // rows of the (padded) reduced system
+constexpr int kTerms = 33;             // per pose: 21 Hpp, 6 bp, 6 rhs coupling
+constexpr int kSumsLen = kMaxW * kTerms;
+constexpr int kPart = kSumsLen + kN * (kN + 1) / 2;  // + S_off upper triangle
+constexpr int kBlk = 18;               // a 6x3 block per edge, [c][a]
+constexpr int kEdgeF = 6;              // per edge: z (3), 1/sigma, obs, stereo
+constexpr int kPtF = 12;               // per point: Hll^-1 (6), bl (3), act, valid, free
+constexpr int kPairs = kMaxW * (kMaxW + 1) / 2;       // pose pairs wi <= wj
+constexpr int kSubs = 6;               // 2x3 blocks of a pair's 6x6 S_off block
+constexpr int kGJGroups = 5;           // row groups of a solve column
+constexpr int kGJThreads = (kN + 1) * kGJGroups;     // 245 of the 256
+constexpr int kGJRows = (kN + kGJGroups - 1) / kGJGroups;
+constexpr int kGJPad = kGJRows * kGJGroups;          // 50 rows
+constexpr unsigned kFull = 0xFFFFFFFFu;
+// Phases whose clock64() cycles rank 0's thread 0 adds up when the caller
+// asks for them: set-up and first cost, then per iteration 1-9 in the
+// order below, then the outputs.
+enum Phase {
+  kSetup, kEdgePass, kPointPass, kPartials, kReduce, kAssemble, kSolve,
+  kBackSub, kTrialCost, kAccept, kOutputs, kPhases
+};
 
 struct Params {
   int W, P, iters;
   float delta, lam0, lam_up, lam_down, trim;
 };
 
-struct Scratch {
-  float* ept;   // [W * kTerms][P]  per-edge pose terms
-  float* hpl;   // [6W][3P]         Hpl, row 6w+a, column b*P + p
-  float* ahi;   // [6W][3P]         A = Hpl Hll^-1, column c*P + p
-  float* pts;   // [kPtState][P]    per-point state
-  float* xa;    // [P][3]           point buffers (current / trial)
-  float* xb;
+// Points per CTA and the shared-memory layout (in floats) for W, P.
+struct Layout {
+  int pc;     // point slots per CTA
+  int ws;     // per-pose stride of the 6x3 block arrays
+  int floats;
+  __host__ __device__ Layout(int W, int P) {
+    pc = (P + kCluster - 1) / kCluster;
+    ws = pc * kBlk + (((6 - pc * kBlk) % 32) + 32) % 32;   // == 6 mod 32
+    floats = 2 * W * ws + kEdgeF * W * pc + 6 * pc + kPtF * pc;
+  }
 };
 
 struct Edge {
@@ -75,17 +114,18 @@ struct Edge {
 };
 
 __device__ __forceinline__ Edge edge_at(const float* T, float X0, float X1,
-                                        float X2, const float* z, float isg,
-                                        float ow, float sw, float bl) {
+                                        float X2, float z0, float z1,
+                                        float z2, float isg, float ow,
+                                        float sw, float bl) {
   Edge e;
   e.x = T[0] * X0 + T[1] * X1 + T[2] * X2 + T[3];
   e.y = T[4] * X0 + T[5] * X1 + T[6] * X2 + T[7];
   e.zc = T[8] * X0 + T[9] * X1 + T[10] * X2 + T[11];
   const bool good = e.zc > 1e-3f;
   e.iz = 1.0f / (good ? e.zc : 1.0f);
-  e.r0 = (e.x * e.iz - z[0]) * isg;
-  e.r1 = (e.y * e.iz - z[1]) * isg;
-  e.r2 = ((e.x - bl) * e.iz - z[2]) * isg;
+  e.r0 = (e.x * e.iz - z0) * isg;
+  e.r1 = (e.y * e.iz - z1) * isg;
+  e.r2 = ((e.x - bl) * e.iz - z2) * isg;
   e.w0 = good ? ow : 0.0f;
   e.w2 = good ? ow * sw : 0.0f;
   return e;
@@ -100,20 +140,34 @@ __device__ __forceinline__ float huber(float rn, float delta) {
   return rn <= delta ? 0.5f * rn * rn : delta * (rn - 0.5f * delta);
 }
 
+// This CTA's edges in shared memory: field f of edge (w, q) at
+// e[f * W * pc + w * pc + q].
+struct Edges {
+  const float* e;
+  int wp, pc;
+  __device__ __forceinline__ Edge at(const float* T, int w, int q, float X0,
+                                     float X1, float X2, float bl) const {
+    const int i = w * pc + q;
+    return edge_at(T, X0, X1, X2, e[i], e[wp + i], e[2 * wp + i],
+                   e[3 * wp + i], e[4 * wp + i], e[5 * wp + i], bl);
+  }
+  __device__ __forceinline__ float ow(int w, int q) const {
+    return e[4 * wp + w * pc + q];
+  }
+};
+
 // This thread's share of [sum of trimmed Huber costs over active edges,
-// sum of w0 (observations in front of their camera)] at poses sT, points X.
-__device__ void cost_terms(float (*sT)[16], const float* X,
-                           const float* Z, const float* ISG, const float* OW,
-                           const float* SW, float bl, const Params& prm,
-                           float (&acc)[2]) {
+// sum of w0 (observations in front of their camera)] over the CTA's np
+// points X ([3][pc]) at poses T.
+__device__ void cost_terms(const float (*T)[16], const float* X,
+                           const Edges& E, int W, int np, float bl,
+                           const Params& prm, float (&acc)[3]) {
   const float c_trim = huber(prm.trim, prm.delta);
   acc[0] = acc[1] = 0.0f;
-  for (int p = threadIdx.x; p < prm.P; p += kThreads) {
-    const float X0 = X[p * 3], X1 = X[p * 3 + 1], X2 = X[p * 3 + 2];
-    for (int w = 0; w < prm.W; ++w) {
-      const int i = w * prm.P + p;
-      const Edge e = edge_at(sT[w], X0, X1, X2, Z + i * 3, ISG[i], OW[i],
-                             SW[i], bl);
+  for (int q = threadIdx.x; q < np; q += kThreads) {
+    const float X0 = X[q], X1 = X[E.pc + q], X2 = X[2 * E.pc + q];
+    for (int w = 0; w < W; ++w) {
+      const Edge e = E.at(T[w], w, q, X0, X1, X2, bl);
       const float rn = edge_norm(e);
       const float c = rn <= prm.trim ? huber(rn, prm.delta) : c_trim;
       if (e.w0 > 0.0f) acc[0] += c;
@@ -143,76 +197,187 @@ __device__ __forceinline__ float sym3(const float (&h)[6], int a, int b) {
   return h[lo == 0 ? hi : (lo == 1 ? 2 + hi : 5)];
 }
 
-// Index of (a, b), a <= b, in the row-major upper triangle of a 6x6.
-__device__ __forceinline__ int tri6(int a, int b) {
+// Index of (a, b), a <= b, in the row-major upper triangle of an n x n.
+__device__ __forceinline__ int tri(int a, int b, int n) {
   if (a > b) { const int t = a; a = b; b = t; }
-  return a * 6 - a * (a - 1) / 2 + (b - a);
+  return a * n - a * (a - 1) / 2 + (b - a);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Jacobi-scaled, unpivoted Gauss-Jordan of the (kN x kN+1) augmented
+// system M (the rhs is column kN) by the block, one barrier a step:
+// thread (j, g) = (tid / kGJGroups, tid % kGJGroups) keeps column j of
+// rows g, g + kGJGroups, ... in registers (rows padded to kGJPad, so a
+// step has no branch: the padding rows stay out of every real row and
+// column); after each step the owners of the next pivot row and column
+// publish them to the other half of the ping-pong buffers rowb / colb.
+// Writes dp[i] = x[i] * fp[i / 6]. Every thread must call it.
+__device__ __forceinline__ void gauss_jordan(const float (*M)[kN + 1],
+                                             const float* fp,
+                                             float (*rowb)[kN + 1],
+                                             float (*colb)[kGJPad],
+                                             float* dp) {
+  const int tid = threadIdx.x;
+  const bool on = tid < kGJThreads;
+  const int j = tid / kGJGroups, g = tid - j * kGJGroups;
+  const float dj = on && j < kN ? rsqrtf(fmaxf(M[j][j], 1e-30f)) : 1.0f;
+  float v[kGJRows];
+#pragma unroll
+  for (int m = 0; m < kGJRows; ++m) {
+    const int i = g + kGJGroups * m;
+    v[m] = 0.0f;
+    if (on && i < kN) {
+      const float di = rsqrtf(fmaxf(M[i][i], 1e-30f));
+      v[m] = j < kN ? M[i][j] * di * dj : M[i][kN] * di;
+      if (i == 0) rowb[0][j] = v[m];
+    }
+    if (on && j == 0) colb[0][i] = v[m];
+  }
+  __syncthreads();
+  for (int k = 0; k < kN; ++k) {
+    const int b = k & 1;
+    if (on) {
+      float piv = colb[b][k];
+      if (fabsf(piv) < 1e-12f) piv = piv < 0.0f ? -1e-12f : 1e-12f;
+      const float r = rowb[b][j] / piv;
+      float c[kGJRows];
+#pragma unroll
+      for (int m = 0; m < kGJRows; ++m) c[m] = colb[b][g + kGJGroups * m];
+      float next = 0.0f;          // this thread's entry of row k + 1
+#pragma unroll
+      for (int m = 0; m < kGJRows; ++m) {
+        const int i = g + kGJGroups * m;
+        v[m] = i == k ? r : v[m] - c[m] * r;
+        next = i == k + 1 ? v[m] : next;
+      }
+      if (g == (k + 1) % kGJGroups) rowb[b ^ 1][j] = next;
+      if (j == k + 1) {
+#pragma unroll
+        for (int m = 0; m < kGJRows; ++m) colb[b ^ 1][g + kGJGroups * m] = v[m];
+      }
+    }
+    __syncthreads();
+  }
+  if (on && j == kN) {
+#pragma unroll
+    for (int m = 0; m < kGJRows; ++m) {
+      const int i = g + kGJGroups * m;
+      if (i < kN) dp[i] = v[m] * rsqrtf(fmaxf(M[i][i], 1e-30f)) * fp[i / 6];
+    }
+  }
+}
+
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
 local_ba_kernel(const float* __restrict__ T_in, const float* __restrict__ FP,
                 const float* __restrict__ X_in, const float* __restrict__ Z,
                 const float* __restrict__ ISG, const float* __restrict__ OW,
                 const float* __restrict__ SW, const float* __restrict__ PV,
                 const float* __restrict__ PF,
-                const float* __restrict__ baseline, Params prm, Scratch s,
+                const float* __restrict__ baseline, Params prm,
                 float* __restrict__ T_out, float* __restrict__ X_out,
-                float* __restrict__ cost_out, float* __restrict__ r2_out) {
+                float* __restrict__ cost_out, float* __restrict__ r2_out,
+                long long* __restrict__ phase_cycles) {
+  extern __shared__ float dyn[];
   __shared__ float sT[kMaxW][16], sTtry[kMaxW][16];
   __shared__ float sFp[kMaxW];
-  __shared__ float sSum[kMaxW * kTerms];
-  __shared__ float sM[kMaxN][kMaxN + 1];
-  __shared__ float sDsc[kMaxN], sDp[kMaxN], sRow[kMaxN + 1], sCol[kMaxN];
-  __shared__ float sA[kTileK][kMaxN], sB[kTileK][kMaxN];
-  __shared__ float red[kWarps][32];
-  __shared__ float sums[32];
-  __shared__ float s_cost, s_ow_sum;
+  // This CTA's partials. The other CTAs read them in step 4, after the
+  // cluster.sync() that ends step 3; this CTA rewrites them (steps 1 and
+  // 3 of the next iteration) only after the cluster.sync() of step 7's
+  // cost reduction, which no CTA passes before every CTA has finished
+  // step 4: one buffer does. The cost partials likewise: read after step
+  // 7's cluster.sync(), rewritten after the next step 3's.
+  __shared__ float sPart[kPart];
+  __shared__ float sRed[kPart];          // the cluster's sums
+  __shared__ float sCost[kWarps][3];     // this CTA's cost partials
+  __shared__ float sCostRed[3];
+  __shared__ float sM[kN][kN + 1];
+  __shared__ float sRowB[2][kN + 1], sColB[2][kGJPad];   // solve's pivots
+  __shared__ float sDp[kN];
 
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int W = prm.W, P = prm.P, n6 = 6 * W, KP = 3 * P;
+  const int W = prm.W, P = prm.P, n6 = 6 * W;
+  const Layout lay(W, P);
+  const int pc = lay.pc, ws = lay.ws, wp = W * pc;
+  const int p0 = rank * pc;
+  const int np = max(0, min(pc, P - p0));     // points this CTA owns
+  float* hpl = dyn;                           // [W][ws]: [q][c][a]
+  float* ahi = hpl + W * ws;                  // A; first the edge Hll, bl
+  float* edg = ahi + W * ws;                  // [kEdgeF][W][pc]
+  float* xs = edg + kEdgeF * wp;              // [2][3][pc] current / trial
+  float* pts = xs + 6 * pc;                   // [kPtF][pc]
+  const Edges E{edg, wp, pc};
   const float bl = baseline[0];
   const float delta = prm.delta;
   const float behind_pen = delta * (1e3f - 0.5f * delta);
+  // per-phase cycles, counted at the barrier that ends each phase
+  const bool clocked = phase_cycles != nullptr && rank == 0 && tid == 0;
+  long long cycles[kPhases] = {};
+  long long t_mark = clock64();
+  auto mark = [&](Phase ph) {
+    if (clocked) {
+      const long long t = clock64();
+      cycles[ph] += t - t_mark;
+      t_mark = t;
+    }
+  };
 
+  // ---- load this CTA's points and edges
   for (int i = tid; i < W * 16; i += kThreads) sT[i / 16][i % 16] = T_in[i];
-  if (tid < W) sFp[tid] = FP[tid];
-  float* Xc = s.xa;
-  float* Xt = s.xb;
-  for (int i = tid; i < P * 3; i += kThreads) Xc[i] = X_in[i];
-  __syncthreads();
-
-  {
-    float c3[3];
-    float acc[2];
-    cost_terms(sT, Xc, Z, ISG, OW, SW, bl, prm, acc);
-    c3[0] = acc[0];
-    c3[1] = acc[1];
-    c3[2] = 0.0f;
-    for (int i = tid; i < W * P; i += kThreads) c3[2] += OW[i];
-    slam::block_sum<3, kWarps>(c3, red, sums);
-    if (tid == 0) {
-      s_ow_sum = sums[2];
-      s_cost = sums[0] + behind_pen * (sums[2] - sums[1]);
+  if (tid < kMaxW) sFp[tid] = tid < W ? FP[tid] : 0.0f;
+  for (int i = tid; i < kPart; i += kThreads) sPart[i] = 0.0f;
+  for (int i = tid; i < wp; i += kThreads) {
+    const int w = i / pc, q = i - w * pc;
+    if (q < np) {
+      const size_t g = static_cast<size_t>(w) * P + p0 + q;
+      edg[i] = Z[g * 3];
+      edg[wp + i] = Z[g * 3 + 1];
+      edg[2 * wp + i] = Z[g * 3 + 2];
+      edg[3 * wp + i] = ISG[g];
+      edg[4 * wp + i] = OW[g];
+      edg[5 * wp + i] = SW[g];
     }
   }
-  float lam = prm.lam0;        // every thread tracks the same value
+  for (int q = tid; q < np; q += kThreads) {
+    const int p = p0 + q;
+    bool seen = false;
+    for (int w = 0; w < W; ++w) seen = seen || OW[static_cast<size_t>(w) * P + p] > 0.0f;
+    for (int k = 0; k < 3; ++k) xs[k * pc + q] = X_in[p * 3 + k];
+    pts[9 * pc + q] = PV[p] * PF[p] > 0.0f && seen ? 1.0f : 0.0f;
+    pts[10 * pc + q] = PV[p];
+    pts[11 * pc + q] = PF[p];
+  }
   __syncthreads();
 
+  int cur = 0;                 // current X buffer
+  float cost, ow_sum;          // every thread holds the same values
+  {
+    float c3[3];
+    cost_terms(sT, xs, E, W, np, bl, prm, c3);
+    c3[2] = 0.0f;
+    for (int i = tid; i < W * np; i += kThreads) c3[2] += E.ow(i / np, i % np);
+    slam::cluster_sum<3, kWarps, kCluster>(cluster, c3, 3, sCost, sCostRed);
+    ow_sum = sCostRed[2];
+    cost = sCostRed[0] + behind_pen * (sCostRed[2] - sCostRed[1]);
+  }
+  float lam = prm.lam0;
+  mark(kSetup);
+
   for (int it = 0; it < prm.iters; ++it) {
-    // ---- 1. edge pass: pose terms, point blocks, Hpl, A, rhs coupling
-    for (int p = tid; p < P; p += kThreads) {
-      const float X0 = Xc[p * 3], X1 = Xc[p * 3 + 1], X2 = Xc[p * 3 + 2];
-      const float pf = PF[p];
-      float hll[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-      float blv[3] = {0.0f, 0.0f, 0.0f};
-      bool seen = false;
-      for (int w = 0; w < W; ++w) {
-        const int i = w * P + p;
-        const float* T = sT[w];
-        const float isg = ISG[i];
-        const Edge e = edge_at(T, X0, X1, X2, Z + i * 3, isg, OW[i], SW[i],
-                               bl);
-        seen = seen || OW[i] > 0.0f;
+    const float* Xc = xs + cur * 3 * pc;
+    float* Xt = xs + (cur ^ 1) * 3 * pc;
+
+    // ---- 1. edge pass: warp w = pose w; Hpp, bp sums; Hpl; edge Hll, bl
+    if (warp < W) {
+      const int w = warp;
+      const float* T = sT[w];
+      float acc[27];
+#pragma unroll
+      for (int k = 0; k < 27; ++k) acc[k] = 0.0f;
+      for (int q = lane; q < np; q += 32) {
+        const int i = w * pc + q;
+        const float isg = edg[3 * wp + i];
+        const Edge e = E.at(T, w, q, Xc[q], Xc[pc + q], Xc[2 * pc + q], bl);
         const float rn = edge_norm(e);
         const float keep = rn <= prm.trim ? 1.0f : 0.0f;
         const float hub = fminf(1.0f, delta / fmaxf(rn, 1e-12f)) * keep;
@@ -236,46 +401,69 @@ local_ba_kernel(const float* __restrict__ T_in, const float* __restrict__ FP,
             jl[r][j] = c0 * T[j] + c1 * T[4 + j] + c2 * T[8 + j];
         }
         const float rr[3] = {e.r0, e.r1, e.r2};
-        float* ep = s.ept + (size_t)(w * kTerms) * P + p;
         int k = 0;
 #pragma unroll
         for (int a = 0; a < 6; ++a) {
 #pragma unroll
           for (int b = a; b < 6; ++b) {
-            ep[(size_t)(k++) * P] = v0 * (jp[0][a] * jp[0][b] + jp[1][a] * jp[1][b]) +
-                                    v2 * jp[2][a] * jp[2][b];
+            acc[k++] += v0 * (jp[0][a] * jp[0][b] + jp[1][a] * jp[1][b]) +
+                        v2 * jp[2][a] * jp[2][b];
           }
         }
 #pragma unroll
         for (int a = 0; a < 6; ++a) {
-          ep[(size_t)(21 + a) * P] =
-              -(v0 * (jp[0][a] * rr[0] + jp[1][a] * rr[1]) + v2 * jp[2][a] * rr[2]);
+          acc[21 + a] += -(v0 * (jp[0][a] * rr[0] + jp[1][a] * rr[1]) +
+                           v2 * jp[2][a] * rr[2]);
         }
         // point blocks: free points only
+        const float pf = pts[11 * pc + q];
         const float v0l = v0 * pf, v2l = v2 * pf;
+        float* hl = ahi + w * ws + q * kBlk;     // the edge's Hll (6), bl (3)
         k = 0;
 #pragma unroll
         for (int a = 0; a < 3; ++a) {
 #pragma unroll
           for (int b = a; b < 3; ++b) {
-            hll[k++] += v0l * (jl[0][a] * jl[0][b] + jl[1][a] * jl[1][b]) +
-                        v2l * jl[2][a] * jl[2][b];
+            hl[k++] = v0l * (jl[0][a] * jl[0][b] + jl[1][a] * jl[1][b]) +
+                      v2l * jl[2][a] * jl[2][b];
           }
-          blv[a] += -(v0l * (jl[0][a] * rr[0] + jl[1][a] * rr[1]) +
-                      v2l * jl[2][a] * rr[2]);
+          hl[6 + a] = -(v0l * (jl[0][a] * rr[0] + jl[1][a] * rr[1]) +
+                        v2l * jl[2][a] * rr[2]);
         }
+        float* hp = hpl + w * ws + q * kBlk;
 #pragma unroll
         for (int a = 0; a < 6; ++a) {
 #pragma unroll
           for (int b = 0; b < 3; ++b) {
-            s.hpl[(size_t)(w * 6 + a) * KP + b * P + p] =
-                v0l * (jp[0][a] * jl[0][b] + jp[1][a] * jl[1][b]) +
-                v2l * jp[2][a] * jl[2][b];
+            hp[b * 6 + a] = v0l * (jp[0][a] * jl[0][b] + jp[1][a] * jl[1][b]) +
+                            v2l * jp[2][a] * jl[2][b];
           }
         }
       }
+#pragma unroll
+      for (int k = 0; k < 27; ++k) {
+        float x = acc[k];
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
+        if (lane == 0) sPart[w * kTerms + k] = x;
+      }
+    }
+    __syncthreads();
+    mark(kEdgePass);
+
+    // ---- 2. point pass: Hll^-1 and bl per point, then A = Hpl Hll^-1
+    for (int q = tid; q < np; q += kThreads) {
+      float hll[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+      float blv[3] = {0.0f, 0.0f, 0.0f};
+      for (int w = 0; w < W; ++w) {
+        const float* hl = ahi + w * ws + q * kBlk;
+#pragma unroll
+        for (int k = 0; k < 6; ++k) hll[k] += hl[k];
+#pragma unroll
+        for (int k = 0; k < 3; ++k) blv[k] += hl[6 + k];
+      }
       // damping and the guard for empty / fixed / invalid points
-      const bool act = PV[p] * pf > 0.0f && seen;
+      const bool act = pts[9 * pc + q] > 0.0f;
       float h[6], hi[6];
       h[0] = act ? hll[0] * (1.0f + lam) + 1e-4f : 1.0f;
       h[1] = act ? hll[1] : 0.0f;
@@ -286,141 +474,148 @@ local_ba_kernel(const float* __restrict__ T_in, const float* __restrict__ FP,
       if (!act) blv[0] = blv[1] = blv[2] = 0.0f;
       inv3_sym(h, hi);
 #pragma unroll
-      for (int k = 0; k < 6; ++k) s.pts[(size_t)k * P + p] = hi[k];
+      for (int k = 0; k < 6; ++k) pts[k * pc + q] = hi[k];
 #pragma unroll
-      for (int k = 0; k < 3; ++k) s.pts[(size_t)(6 + k) * P + p] = blv[k];
-      s.pts[(size_t)9 * P + p] = act ? 1.0f : 0.0f;
-      // A = Hpl Hll^-1 and the rhs coupling (A bl) per pose dof
+      for (int k = 0; k < 3; ++k) pts[(6 + k) * pc + q] = blv[k];
       for (int w = 0; w < W; ++w) {
+        const float* hp = hpl + w * ws + q * kBlk;
+        float* A = ahi + w * ws + q * kBlk;
 #pragma unroll
         for (int a = 0; a < 6; ++a) {
-          const size_t row = (size_t)(w * 6 + a) * KP + p;
-          const float h0 = s.hpl[row], h1 = s.hpl[row + P], h2 = s.hpl[row + 2 * P];
-          float rc = 0.0f;
+          const float h0 = hp[a], h1 = hp[6 + a], h2 = hp[12 + a];
 #pragma unroll
           for (int c = 0; c < 3; ++c) {
-            const float v = h0 * sym3(hi, 0, c) + h1 * sym3(hi, 1, c) +
-                            h2 * sym3(hi, 2, c);
-            s.ahi[row + (size_t)c * P] = v;
-            rc += v * blv[c];
+            A[c * 6 + a] = h0 * sym3(hi, 0, c) + h1 * sym3(hi, 1, c) +
+                           h2 * sym3(hi, 2, c);
           }
-          s.ept[(size_t)(w * kTerms + 27 + a) * P + p] = rc;
         }
       }
     }
     __syncthreads();
+    mark(kPointPass);
 
-    // ---- 2. per-pose sums: one warp per sum, a fixed order
-    for (int q = warp; q < W * kTerms; q += kWarps) {
-      const float* src = s.ept + (size_t)q * P;
-      float v = 0.0f;
-      for (int p = lane; p < P; p += 32) v += src[p];
+    // ---- 3. this CTA's partials: rhs coupling (A bl) per pose, S_off
+    if (warp < W) {
+      const int w = warp;
+      float rc[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+      for (int q = lane; q < np; q += 32) {
+        const float* A = ahi + w * ws + q * kBlk;
+        const float b0 = pts[6 * pc + q], b1 = pts[7 * pc + q],
+                    b2 = pts[8 * pc + q];
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xFFFFFFFFu, v, o);
-      if (lane == 0) sSum[q] = v;
-    }
-
-    // ---- 3. S_off = A . Hpl^T, 3x3 register blocks over 16 x 16 threads
-    const int tx = tid & 15, ty = tid >> 4;
-    float so[3][3] = {{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f},
-                      {0.0f, 0.0f, 0.0f}};
-    for (int k0 = 0; k0 < KP; k0 += kTileK) {
-      for (int q = tid; q < kTileK * kMaxN; q += kThreads) {
-        const int r = q / kTileK, kk = q % kTileK, k = k0 + kk;
-        const bool ok = r < n6 && k < KP;
-        sA[kk][r] = ok ? s.ahi[(size_t)r * KP + k] : 0.0f;
-        sB[kk][r] = ok ? s.hpl[(size_t)r * KP + k] : 0.0f;
+        for (int a = 0; a < 6; ++a) rc[a] += A[a] * b0 + A[6 + a] * b1 + A[12 + a] * b2;
       }
-      __syncthreads();
-#pragma unroll 8
-      for (int kk = 0; kk < kTileK; ++kk) {
-        const float a0 = sA[kk][ty * 3], a1 = sA[kk][ty * 3 + 1], a2 = sA[kk][ty * 3 + 2];
-        const float b0 = sB[kk][tx * 3], b1 = sB[kk][tx * 3 + 1], b2 = sB[kk][tx * 3 + 2];
-        so[0][0] += a0 * b0; so[0][1] += a0 * b1; so[0][2] += a0 * b2;
-        so[1][0] += a1 * b0; so[1][1] += a1 * b1; so[1][2] += a1 * b2;
-        so[2][0] += a2 * b0; so[2][1] += a2 * b1; so[2][2] += a2 * b2;
+#pragma unroll
+      for (int a = 0; a < 6; ++a) {
+        float x = rc[a];
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
+        if (lane == 0) sPart[w * kTerms + 27 + a] = x;
       }
-      __syncthreads();
     }
-
-    // ---- 4. the reduced system S = Hpp_d - S_off, frozen rows, rhs
+    if (tid < kPairs * kSubs) {
+      int wi = 0, rem = tid / kSubs;
+      while (rem >= kMaxW - wi) {
+        rem -= kMaxW - wi;
+        ++wi;
+      }
+      const int wj = wi + rem;
+      const int a0 = (tid % kSubs) / 2 * 2, b0 = (tid % 2) * 3;
+      if (wj < W && !(wi == wj && a0 > b0 + 2)) {
+        float so[2][3] = {{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}};
+        const float* Ai = ahi + wi * ws + a0;
+        const float* Hj = hpl + wj * ws + b0;
+        for (int q = 0; q < np; ++q) {
 #pragma unroll
-    for (int ii = 0; ii < 3; ++ii) {
-#pragma unroll
-      for (int jj = 0; jj < 3; ++jj) {
-        const int i = ty * 3 + ii, j = tx * 3 + jj;
-        if (i < n6 && j < n6) {
-          const int wi = i / 6, a = i % 6, wj = j / 6, b = j % 6;
-          float v = -so[ii][jj];
-          if (wi == wj) {
-            float hv = sSum[wi * kTerms + tri6(a, b)];
-            if (a == b) hv = hv * (1.0f + lam) + 1e-6f;
-            v += hv;
+          for (int c = 0; c < 3; ++c) {
+            const int o = q * kBlk + c * 6;
+            const float x0 = Ai[o], x1 = Ai[o + 1];
+            const float y0 = Hj[o], y1 = Hj[o + 1], y2 = Hj[o + 2];
+            so[0][0] += x0 * y0; so[0][1] += x0 * y1; so[0][2] += x0 * y2;
+            so[1][0] += x1 * y0; so[1][1] += x1 * y1; so[1][2] += x1 * y2;
           }
-          v = v * sFp[wi] * sFp[wj];
-          if (i == j) v += 1.0f - sFp[wi];
-          sM[i][j] = v;
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+#pragma unroll
+          for (int t = 0; t < 3; ++t) {
+            const int i = 6 * wi + a0 + r, j = 6 * wj + b0 + t;
+            if (i <= j) sPart[kSumsLen + tri(i, j, n6)] = so[r][t];
+          }
         }
       }
     }
-    if (tid < n6) {
-      const int w = tid / 6, a = tid % 6;
-      sM[tid][n6] = (sSum[w * kTerms + 21 + a] - sSum[w * kTerms + 27 + a]) * sFp[w];
-    }
-    __syncthreads();
-    if (tid < n6) sDsc[tid] = rsqrtf(fmaxf(sM[tid][tid], 1e-30f));
-    __syncthreads();
-    for (int q = tid; q < n6 * (n6 + 1); q += kThreads) {
-      const int i = q / (n6 + 1), j = q % (n6 + 1);
-      sM[i][j] = j < n6 ? sM[i][j] * sDsc[i] * sDsc[j] : sM[i][j] * sDsc[i];
-    }
-    __syncthreads();
+    cluster.sync();
+    mark(kPartials);
 
-    // ---- 5. Jacobi-scaled, unpivoted Gauss-Jordan
-    for (int k = 0; k < n6; ++k) {
-      if (tid <= n6) {
-        float piv = sM[k][k];
-        if (fabsf(piv) < 1e-12f) piv = piv < 0.0f ? -1e-12f : 1e-12f;
-        sRow[tid] = sM[k][tid] / piv;
-      }
-      if (tid < n6) sCol[tid] = sM[tid][k];
-      __syncthreads();
-      for (int q = tid; q < n6 * (n6 + 1); q += kThreads) {
-        const int i = q / (n6 + 1), j = q % (n6 + 1);
-        sM[i][j] = i == k ? sRow[j] : sM[i][j] - sCol[i] * sRow[j];
-      }
-      __syncthreads();
+    // ---- 4. every CTA sums the 8 ranks' partials in rank order
+    const int n_part = kSumsLen + n6 * (n6 + 1) / 2;
+    for (int e = tid; e < n_part; e += kThreads) {
+      float s = 0.0f;
+#pragma unroll
+      for (int r = 0; r < kCluster; ++r) s += cluster.map_shared_rank(sPart, r)[e];
+      sRed[e] = s;
     }
-    if (tid < n6) sDp[tid] = sM[tid][n6] * sDsc[tid] * sFp[tid / 6];
     __syncthreads();
+    mark(kReduce);
 
-    // ---- 6. back-substitution, trial points and poses
+    // ---- 5. S = Hpp_d - S_off with frozen rows and the rhs, padded to kN
+    for (int e = tid; e < kN * (kN + 1); e += kThreads) {
+      const int i = e / (kN + 1), j = e - i * (kN + 1);
+      float v;
+      if (i >= n6) {
+        v = j == i ? 1.0f : 0.0f;
+      } else if (j == kN) {
+        const int w = i / 6, a = i % 6;
+        v = (sRed[w * kTerms + 21 + a] - sRed[w * kTerms + 27 + a]) * sFp[w];
+      } else if (j >= n6) {
+        v = 0.0f;
+      } else {
+        const int wi = i / 6, a = i % 6, wj = j / 6, b = j % 6;
+        v = -sRed[kSumsLen + tri(i, j, n6)];
+        if (wi == wj) {
+          float hv = sRed[wi * kTerms + tri(a, b, 6)];
+          if (a == b) hv = hv * (1.0f + lam) + 1e-6f;
+          v += hv;
+        }
+        v = v * sFp[wi] * sFp[wj];
+        if (i == j) v += 1.0f - sFp[wi];
+      }
+      sM[i][j] = v;
+    }
+    __syncthreads();
+    mark(kAssemble);
+    gauss_jordan(sM, sFp, sRowB, sColB, sDp);
+    __syncthreads();
+    mark(kSolve);
+
+    // ---- 6. back-substitution of this CTA's points, trial poses
     int bad = 0;
-    for (int p = tid; p < P; p += kThreads) {
+    for (int q = tid; q < np; q += kThreads) {
       float hi[6], t[3];
 #pragma unroll
-      for (int k = 0; k < 6; ++k) hi[k] = s.pts[(size_t)k * P + p];
-      const bool act = s.pts[(size_t)9 * P + p] > 0.0f;
+      for (int k = 0; k < 6; ++k) hi[k] = pts[k * pc + q];
+      const bool act = pts[9 * pc + q] > 0.0f;
 #pragma unroll
       for (int b = 0; b < 3; ++b) {
         float hd = 0.0f;
         for (int w = 0; w < W; ++w) {
+          const float* hp = hpl + w * ws + q * kBlk + b * 6;
           float v = 0.0f;
 #pragma unroll
-          for (int a = 0; a < 6; ++a)
-            v += s.hpl[(size_t)(w * 6 + a) * KP + b * P + p] * sDp[w * 6 + a];
+          for (int a = 0; a < 6; ++a) v += hp[a] * sDp[w * 6 + a];
           hd += v;
         }
-        t[b] = s.pts[(size_t)(6 + b) * P + p] - hd;
+        t[b] = pts[(6 + b) * pc + q] - hd;
       }
-      const float pv = PV[p];
+      const float pv = pts[10 * pc + q];
 #pragma unroll
       for (int b = 0; b < 3; ++b) {
         float dl = sym3(hi, b, 0) * t[0] + sym3(hi, b, 1) * t[1] +
                    sym3(hi, b, 2) * t[2];
         dl = act ? dl : 0.0f;
         bad |= !isfinite(dl);
-        Xt[p * 3 + b] = Xc[p * 3 + b] + dl * pv;
+        Xt[b * pc + q] = Xc[b * pc + q] + dl * pv;
       }
     }
     if (tid < n6) bad |= !isfinite(sDp[tid]);
@@ -431,56 +626,81 @@ local_ba_kernel(const float* __restrict__ T_in, const float* __restrict__ FP,
         for (int k = 0; k < 16; ++k) sTtry[tid][k] = sT[tid][k];
       }
     }
-    const bool finite = !__syncthreads_or(bad);
+    __syncthreads();
+    mark(kBackSub);
 
-    // ---- 7. trial cost, accept or reject
+    // ---- 7. trial cost and the non-finite flag over the cluster
     {
-      float c2[2];
-      cost_terms(sTtry, Xt, Z, ISG, OW, SW, bl, prm, c2);
-      slam::block_sum<2, kWarps>(c2, red, sums);
+      float c3[3];
+      cost_terms(sTtry, Xt, E, W, np, bl, prm, c3);
+      c3[2] = bad ? 1.0f : 0.0f;
+      slam::cluster_sum<3, kWarps, kCluster>(cluster, c3, 3, sCost, sCostRed);
     }
-    const float cost_try = sums[0] + behind_pen * (s_ow_sum - sums[1]);
-    const bool accept = finite && cost_try < s_cost;
-    __syncthreads();                       // everyone has read s_cost, sums
+    mark(kTrialCost);
+    const float cost_try = sCostRed[0] + behind_pen * (ow_sum - sCostRed[1]);
+    const bool accept = sCostRed[2] == 0.0f && cost_try < cost;
     if (accept) {
       for (int i = tid; i < W * 16; i += kThreads) sT[i / 16][i % 16] = sTtry[i / 16][i % 16];
-      if (tid == 0) s_cost = cost_try;
-      float* tmp = Xc;
-      Xc = Xt;
-      Xt = tmp;
+      cost = cost_try;
+      cur ^= 1;
       lam = fmaxf(lam * prm.lam_down, 1e-7f);
     } else {
       lam = lam * prm.lam_up;
     }
     __syncthreads();
+    mark(kAccept);
   }
 
-  // ---- final edge r2, poses, points, cost
-  for (int p = tid; p < P; p += kThreads) {
-    const float X0 = Xc[p * 3], X1 = Xc[p * 3 + 1], X2 = Xc[p * 3 + 2];
+  // ---- final edge r2 and points of this CTA; poses and cost from rank 0
+  const float* Xc = xs + cur * 3 * pc;
+  for (int q = tid; q < np; q += kThreads) {
+    const int p = p0 + q;
+    const float X0 = Xc[q], X1 = Xc[pc + q], X2 = Xc[2 * pc + q];
     for (int w = 0; w < W; ++w) {
-      const int i = w * P + p;
-      const Edge e = edge_at(sT[w], X0, X1, X2, Z + i * 3, ISG[i], OW[i],
-                             SW[i], bl);
-      r2_out[i] = e.r0 * e.r0 * e.w0 + e.r1 * e.r1 * e.w0 + e.r2 * e.r2 * e.w2;
+      const Edge e = E.at(sT[w], w, q, X0, X1, X2, bl);
+      r2_out[static_cast<size_t>(w) * P + p] =
+          e.r0 * e.r0 * e.w0 + e.r1 * e.r1 * e.w0 + e.r2 * e.r2 * e.w2;
     }
     X_out[p * 3] = X0;
     X_out[p * 3 + 1] = X1;
     X_out[p * 3 + 2] = X2;
   }
-  for (int i = tid; i < W * 16; i += kThreads) T_out[i] = sT[i / 16][i % 16];
-  if (tid == 0) cost_out[0] = s_cost;
+  if (rank == 0) {
+    for (int i = tid; i < W * 16; i += kThreads) T_out[i] = sT[i / 16][i % 16];
+    if (tid == 0) cost_out[0] = cost;
+  }
+  // no CTA leaves while another may still read its shared memory
+  cluster.sync();
+  mark(kOutputs);
+  if (clocked) {
+    for (int k = 0; k < kPhases; ++k) phase_cycles[k] = cycles[k];
+  }
 }
 
-size_t scratch_floats(int W, int P) {
-  return (size_t)W * kTerms * P + 2 * (size_t)(6 * W) * (3 * P) +
-         (size_t)kPtState * P + 6 * (size_t)P;
+// Dynamic shared memory a CTA may take on the current device, in bytes.
+int dyn_limit_bytes(int* out) {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaFuncAttributes fa;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, local_ba_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *out = optin - static_cast<int>(fa.sharedSizeBytes);
+  return 0;
 }
 
 }  // namespace
 
-SLAM_API long long slam_local_ba_scratch_floats(int W, int P) {
-  return static_cast<long long>(scratch_floats(W, P));
+// The largest P one cluster holds for a window of W poses (0 if none), or
+// -1 on a CUDA error.
+SLAM_API int slam_local_ba_max_points(int W) {
+  int limit = 0;
+  if (W < 1 || W > kMaxW || dyn_limit_bytes(&limit) != 0) return -1;
+  int P = 0;
+  while (Layout(W, P + kCluster).floats * static_cast<int>(sizeof(float)) <= limit)
+    P += kCluster;
+  return P;
 }
 
 SLAM_API int slam_local_ba(const float* T_in, const float* free_pose,
@@ -490,22 +710,36 @@ SLAM_API int slam_local_ba(const float* T_in, const float* free_pose,
                            const float* pt_free, const float* baseline, int W,
                            int P, int iters, float delta, float lam0,
                            float lam_up, float lam_down, float trim,
-                           float* scratch, float* T_out, float* X_out,
-                           float* cost_out, float* r2_out,
+                           float* T_out, float* X_out, float* cost_out,
+                           float* r2_out, long long* phase_cycles,
                            cudaStream_t stream) {
   if (W < 1 || W > kMaxW || P < 1 || iters < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Scratch s;
-  s.ept = scratch;
-  s.hpl = s.ept + (size_t)W * kTerms * P;
-  s.ahi = s.hpl + (size_t)(6 * W) * (3 * P);
-  s.pts = s.ahi + (size_t)(6 * W) * (3 * P);
-  s.xa = s.pts + (size_t)kPtState * P;
-  s.xb = s.xa + 3 * (size_t)P;
+  // the opt-in above 48 KB: queried and set once per device, so a call
+  // inside a CUDA graph capture only launches
+  static int limits[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (limits[dev] == 0) {
+    int limit = 0;
+    const int e = dyn_limit_bytes(&limit);
+    if (e != 0) return e;
+    err = cudaFuncSetAttribute(local_ba_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               limit);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    limits[dev] = limit;
+  }
+  const size_t bytes = Layout(W, P).floats * sizeof(float);
+  if (bytes > static_cast<size_t>(limits[dev])) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const Params prm{W, P, iters, delta, lam0, lam_up, lam_down, trim};
-  local_ba_kernel<<<1, kThreads, 0, stream>>>(
+  local_ba_kernel<<<kCluster, kThreads, bytes, stream>>>(
       T_in, free_pose, X_in, Z, inv_sigma, obs_w, stereo_w, pt_valid, pt_free,
-      baseline, prm, s, T_out, X_out, cost_out, r2_out);
+      baseline, prm, T_out, X_out, cost_out, r2_out, phase_cycles);
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,13 +3,16 @@
 Counterpart of slam_toolkit_tpu/ops/ba_kernel.py::solve_ba. For CUDA
 tensors the wrapper launches the hand-written kernel (csrc/local_ba.cu,
 replacing the Pallas _ba_pallas: the whole 10-iteration LM in one
-block); for CPU tensors it runs the plain version, optim/local_ba.solve_ba,
-the solver the JAX engine uses wherever the Pallas kernel does not run.
+cluster of 8 CTAs, each holding its share of the points in shared
+memory); for CPU tensors it runs the plain version,
+optim/local_ba.solve_ba, the solver the JAX engine uses wherever the
+Pallas kernel does not run.
 """
 
 from __future__ import annotations
 
-import ctypes
+import functools
+from typing import Optional
 
 import torch
 
@@ -25,26 +28,48 @@ KERNEL = CudaKernel("slam_local_ba", PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR,
                     FLOAT, PTR, PTR, PTR, PTR, PTR)
 
 MAX_WINDOW = 8        # the kernel's reduced system holds 6 * 8 rows
+# the kernel's phases, in the order of csrc/local_ba.cu's Phase: set-up,
+# nine per iteration, outputs
+PHASES = ("setup", "edge pass", "point pass", "partials + sync", "reduce",
+          "assemble", "solve", "back-substitution", "trial cost + sync",
+          "accept", "outputs")
 
 solve_ba_plain = local_ba.solve_ba
 
 
-def _scratch_floats(W: int, P: int) -> int:
-    fn = cuda_lib.library().cdll.slam_local_ba_scratch_floats
-    fn.argtypes = [INT, INT]
-    fn.restype = ctypes.c_longlong
-    return int(fn(W, P))
+@functools.lru_cache(maxsize=None)
+def max_points(W: int, device_index: int) -> int:
+    """The most points one launch holds for a window of W poses on that
+    device: the cluster's 8 CTAs keep every point's state in shared
+    memory."""
+    fn = cuda_lib.library().cdll.slam_local_ba_max_points
+    fn.argtypes = [INT]
+    fn.restype = INT
+    with torch.cuda.device(device_index):
+        n = int(fn(W))
+    if n < 0:
+        raise RuntimeError("slam_local_ba_max_points: CUDA error")
+    return n
 
 
 def solve_ba_cuda(p: BAProblem, iters: int = 10,
                   huber_delta: float = 2.4477468, lambda0: float = 1e-4,
                   lambda_up: float = 10.0, lambda_down: float = 0.1,
-                  trim_sigma: float = 1e9) -> BAResult:
+                  trim_sigma: float = 1e9,
+                  phase_cycles: Optional[torch.Tensor] = None) -> BAResult:
+    """phase_cycles: None, or an int64 CUDA tensor of len(PHASES) that
+    receives the cycles the cluster's first CTA spent in each phase
+    (a measurement; the solve is the same)."""
     W, P = p.T_cw.shape[0], p.Xw.shape[0]
     if W > MAX_WINDOW:
         raise ValueError(f"local BA kernel: window of {W} poses > "
                          f"{MAX_WINDOW}")
     dev = p.Xw.device
+    cap = max_points(W, dev.index if dev.index is not None
+                     else torch.cuda.current_device())
+    if P > cap:
+        raise ValueError(f"local BA kernel: {P} points > the {cap} that fit "
+                         f"in shared memory at W={W}")
     w_mask = p.obs_mask & p.pose_valid[:, None] & p.point_valid[None, :]
     free_pt = p.point_valid if p.point_free is None \
         else (p.point_valid & p.point_free)
@@ -67,17 +92,18 @@ def solve_ba_cuda(p: BAProblem, iters: int = 10,
               "baseline": (1,)}
     for name, t in args.items():
         check_cuda(t, name, torch.float32, shapes[name], dev)
-    scratch = torch.empty((_scratch_floats(W, P),), dtype=torch.float32,
-                          device=dev)
+    if phase_cycles is not None:
+        check_cuda(phase_cycles, "phase_cycles", torch.int64, (len(PHASES),),
+                   dev)
     T_out = torch.empty((W, 16), dtype=torch.float32, device=dev)
     X_out = torch.empty((P, 3), dtype=torch.float32, device=dev)
     cost = torch.empty((1,), dtype=torch.float32, device=dev)
     r2 = torch.empty((W, P), dtype=torch.float32, device=dev)
     KERNEL(dev, *[t.data_ptr() for t in args.values()], W, P, int(iters),
            float(huber_delta), float(lambda0), float(lambda_up),
-           float(lambda_down), float(trim_sigma), scratch.data_ptr(),
-           T_out.data_ptr(), X_out.data_ptr(), cost.data_ptr(),
-           r2.data_ptr())
+           float(lambda_down), float(trim_sigma), T_out.data_ptr(),
+           X_out.data_ptr(), cost.data_ptr(), r2.data_ptr(),
+           None if phase_cycles is None else phase_cycles.data_ptr())
     return BAResult(T_cw=T_out.reshape(W, 4, 4), Xw=X_out, cost=cost[0],
                     edge_r2=r2)
 

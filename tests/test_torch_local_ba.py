@@ -32,6 +32,7 @@ from slam_toolkit_tpu_torch.mapping import ba_adapter as t_ad
 from slam_toolkit_tpu_torch.ops import ba_kernel as t_bak
 from slam_toolkit_tpu_torch.optim import local_ba as t_ba
 from slam_toolkit_tpu_torch.utils import convert
+from torch_ba_problems import as_float64, ba_problem
 
 torch.set_num_threads(1)
 
@@ -239,3 +240,23 @@ def test_local_ba_step_matches_jax(jax_map):
                                   np.asarray(jw.mp_valid))
     np.testing.assert_allclose(tw.mp_invd.numpy(), np.asarray(jw.mp_invd),
                                rtol=1e-6)
+
+
+@pytest.mark.parametrize("one_outlier", [False, True])
+def test_plain_float32_against_float64(one_outlier):
+    """Why tests/test_torch_cuda.py holds the kernel against a float64 run
+    where points carry several outlier edges: at W=8, P=1000 without the
+    trim, such points are so flat that float32 rounding alone puts the
+    plain solver's float32 run more than 2e-2 from its float64 run in X;
+    with at most one outlier edge a point, the two agree within 2e-2.
+    The poses agree within 3e-3 either way."""
+    p = ba_problem(torch.device("cpu"), W=8, P=1000, seed=1008,
+                   one_outlier=one_outlier)
+    f32 = t_ba.solve_ba(p, iters=10)
+    f64 = t_ba.solve_ba(as_float64(p), iters=10)
+    assert f64.Xw.dtype == torch.float64
+    pv = p.point_valid
+    spread = float((f32.Xw[pv].double() - f64.Xw[pv]).abs().max())
+    assert (spread <= 2e-2) == one_outlier, spread
+    torch.testing.assert_close(f32.T_cw.double(), f64.T_cw, rtol=0,
+                               atol=3e-3)
