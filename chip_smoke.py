@@ -25,9 +25,13 @@ Phases (any failure raises and the script exits non-zero):
      operations over 67 TFLOP/s (the H100's published HBM rate and
      float32 peak). The gather's bytes count the image's 32-byte sectors
      that its windows cover, not the whole image.
-   The gather is timed at each pyramid level's budget (434 31x31
-   windows at level 0, and the sum over the levels), FAST+NMS at level 0
-   and over the levels, local BA also at 0 and 1 iterations. Local BA
+   The gather is timed as the main path launches it, a frame's 31x31
+   windows at every pyramid level's budget in one launch (its bound and
+   its library time, one unfold call a level, summed over the levels),
+   and level 0's 434 windows alone. The top-2 matcher is exact in every
+   column, with the share of its pairs inside r and 2r. FAST+NMS is
+   timed at level 0 and over the levels, local BA also at 0 and 1
+   iterations. Local BA
    and the pose LM are cluster kernels (8 CTAs holding their share of
    the points / observations in shared memory); for local BA the script
    also prints where a solve's time goes, phase by phase, from the
@@ -38,8 +42,12 @@ Phases (any failure raises and the script exits non-zero):
    synthetic frames on a +0.8 m/frame track,
    ChunkedSlamEngine(chunk_size=16, device="cuda"), 3 chunks, then
    trajectory_refined(). Every kernel's launch count is reset just
-   before and read just after; kernels 1-5 must have launched, local BA
-   once per keyframe after the bootstrap; ATE must stay <= 0.138 m.
+   before and read just after; kernels 1-5 must have launched, the
+   gather once a frame, local BA once per keyframe after the bootstrap;
+   ATE must stay <= 0.138 m. The inputs projection_match hands to the
+   top-2 matcher on one mid-run frame are kept on the card; after the
+   run the kernel must be exact against the plain version on them, and
+   its device time there is printed beside the synthetic case's.
 4. The same 48 frames with extractor.fused_fast=True: counts reset
    before and read after; FAST launches on every level of every frame,
    keyframe flags equal phase 3's, translations within 1e-4 m of it.
@@ -218,10 +226,26 @@ def _gather_case(img, k: int, side: int, rng):
             lambda: win[yl, xl])
 
 
+def _frame_gather(patches, imgs, ys, xs, counts, side):
+    """A frame's gather as the package launches it: all levels in one
+    multi-image launch; for a package that has no multi-image entry (an
+    older commit paired by tools/kernel_ab.py), one launch per level."""
+    if hasattr(patches, "gather_blocks_multi_cuda"):
+        return lambda: patches.gather_blocks_multi_cuda(imgs, ys, xs, counts,
+                                                        side, side)
+    offs = np.cumsum([0] + counts)
+    return lambda: [patches.gather_blocks_cuda(
+        img, ys[a:b], xs[a:b], side, side)
+        for img, a, b in zip(imgs, offs[:-1], offs[1:])]
+
+
 def check_gather(dev, rng):
-    """Exact at 2048 windows of 31x31 and 37x37; timed at the main path's
-    shapes: 31x31 BRIEF windows at each pyramid level's budget (434 at
-    level 0), on an image of that level's size."""
+    """Exact at 2048 windows of 31x31 and 37x37 on one image; then the
+    main path's launch: a frame's 31x31 BRIEF windows at each pyramid
+    level's budget (434 at level 0), all levels in one launch, exact
+    against the per-level plain gather. Level 0's one-image launch is
+    timed too. The row's bound sums the levels' bounds, its library time
+    the levels' unfold calls (one a level)."""
     from slam_toolkit_tpu_torch.config import ExtractorConfig
     from slam_toolkit_tpu_torch.ops import patches, pyramid
     from slam_toolkit_tpu_torch.ops.extractor import level_budgets
@@ -241,32 +265,50 @@ def check_gather(dev, rng):
             print(f"[phase2] gather 2048x31x31: kernel {device_ms(kern):.4f}"
                   f" ms, unfold {device_ms(lib):.4f} ms (device)")
     cfg = ExtractorConfig()
-    row, sums = None, [0.0, 0.0, 0.0]
+    imgs, ys, xs, counts, libs, read = [], [], [], [], [], 0
     for (lh, lw), k in zip(pyramid.level_shapes(h, w, cfg),
                            level_budgets(cfg)):
         if k == 0:
             continue
         img_l = to_dev(rng.uniform(0, 255, (lh, lw)).astype(np.float32), dev)
-        ys, xs, kern, plain, lib = _gather_case(img_l, k, side, rng)
-        out = kern()
-        if not torch.equal(out, plain()):
-            raise AssertionError(f"gather {k}x31x31 on {lh}x{lw} not exact")
-        t_k, t_l = device_ms(kern), device_ms(lib)
-        # the image sectors the windows cover, the corners, the output
-        read = window_bytes(img_l, ys, xs, side)
-        b = bound(read + nbytes(ys, xs, out), 0)
-        sums[0] += t_k
-        sums[1] += t_l
-        sums[2] += b["bound_ms"]
-        if row is None:                            # level 0
-            row = {"ms": t_k, "host_ms": host_ms(kern),
-                   "plain_ms": call_ms(plain), "library_ms": t_l, **b}
-            print(f"[phase2] gather level 0, {k}x31x31 of {lh}x{lw}: kernel "
-                  f"{t_k:.4f} ms, unfold {t_l:.4f} ms (device); the windows "
-                  f"cover {read} of the image's {nbytes(img_l)} bytes")
-    print(f"[phase2] gather, all levels' budgets of a frame: kernel "
-          f"{sums[0]:.4f} ms, unfold {sums[1]:.4f} ms (device), bound "
-          f"{sums[2]:.6f} ms (summed)")
+        y, x, kern, _, lib = _gather_case(img_l, k, side, rng)
+        # the image sectors the windows cover
+        cover = window_bytes(img_l, y, x, side)
+        if not imgs:                               # level 0, one image
+            print(f"[phase2] gather level 0 alone, {k}x31x31 of {lh}x{lw}: "
+                  f"kernel {device_ms(kern):.4f} ms, unfold "
+                  f"{device_ms(lib):.4f} ms (device); the windows cover "
+                  f"{cover} of the image's {nbytes(img_l)} bytes")
+        imgs.append(img_l)
+        ys.append(y)
+        xs.append(x)
+        counts.append(k)
+        libs.append(lib)
+        read += cover
+    ys, xs = torch.cat(ys), torch.cat(xs)
+    kern = _frame_gather(patches, imgs, ys, xs, counts, side)
+
+    def plain():
+        offs = np.cumsum([0] + counts)
+        return torch.cat([patches.gather_blocks_plain(
+            img, ys[a:b], xs[a:b], side, side)
+            for img, a, b in zip(imgs, offs[:-1], offs[1:])])
+    out, ref = kern(), plain()
+    if isinstance(out, list):
+        out = torch.cat(out)
+    if not torch.equal(out, ref):
+        raise AssertionError(f"gather of a frame's {len(counts)} levels "
+                             "differs from the per-level plain gather")
+    # the image sectors, the corners, the output
+    b = bound(read + nbytes(ys, xs, out), 0)
+    row = {"ms": device_ms(kern), "host_ms": host_ms(kern),
+           "plain_ms": call_ms(plain),
+           "library_ms": sum(device_ms(lib) for lib in libs), **b}
+    print(f"[phase2] gather, a frame's {len(counts)} levels ({sum(counts)} "
+          f"windows 31x31, budgets {counts}) in one launch: kernel "
+          f"{row['ms']:.4f} ms (device), wrapper {row['host_ms']:.4f} ms "
+          f"(host), unfold {row['library_ms']:.4f} ms ({len(counts)} calls, "
+          f"summed), bound {row['bound_ms']:.6f} ms (summed), exact")
     return {"name": "patch_gather",
             "source": "slam_toolkit_tpu_torch/csrc/patch_gather.cu",
             "replaces": "slam_toolkit_tpu/ops/patches.py:113",
@@ -284,27 +326,87 @@ def check_topk2(dev, rng):
     b_xy[: n // 2] = a_uv[: n // 2] + rng.normal(0, 20, (n // 2, 2))
     a_uv[m - 256:] = 1e7                   # invisible landmarks
     t = [to_dev(x, dev) for x in (a_desc, b_desc, a_uv, b_xy)]
-    out = mk.topk2_match_cuda(*t, r)
-    ref = mk.topk2_match_plain(*t, r)
-    for c in (0, 1, 3, 4):
-        if not torch.equal(out[:, c], ref[:, c]):
-            raise AssertionError(f"top-2 column {c} differs")
-    for c in (2, 5):
-        has = ref[:, c - 2] < 1e8
-        if not torch.equal(out[has, c], ref[has, c]):
-            raise AssertionError(f"top-2 argbest column {c} differs")
-    err = float((out[:, [0, 1, 3, 4]] - ref[:, [0, 1, 3, 4]]).abs().max())
-    print(f"[phase2] top-2 M={m} N={n} r={r}: exact (max_abs_err {err}), "
-          f"rows with a match in r: {int((ref[:, 0] < 1e8).sum())}")
+    err = topk2_exact(t, r, "synthetic")
+    row = row_times(lambda: mk.topk2_match_cuda(*t, r),
+                    lambda: mk.topk2_match_plain(*t, r))
+    print(f"[phase2] top-2 M={m} N={n} r={r}: exact, {gate_shares(t, r)}, "
+          f"rows with a match in r: "
+          f"{int((mk.topk2_match_plain(*t, r)[:, 0] < 1e8).sum())}")
     return {"name": "topk2_match",
             "source": "slam_toolkit_tpu_torch/csrc/match_topk2.cu",
             "replaces": "slam_toolkit_tpu/ops/match_kernel.py:139",
-            "kernel": mk.KERNEL, "max_abs_err": err,
-            **row_times(lambda: mk.topk2_match_cuda(*t, r),
-                        lambda: mk.topk2_match_plain(*t, r)),
+            "kernel": mk.KERNEL, "max_abs_err": err, **row,
             # per pair: 8 xor + 8 popcount + 7 adds, the pixel gate (2 sub,
             # 2 mul, 1 add, 2 compares) and the running top-2 (~6)
-            **bound(nbytes(*t, out), m * n * 36)}
+            **bound(nbytes(*t) + m * 8 * 4, m * n * 36)}
+
+
+def topk2_exact(t, r: float, what: str) -> float:
+    """The kernel against the plain version, every column exact (empty
+    rows included: BIG and argbest 0); returns the max abs error (0)."""
+    from slam_toolkit_tpu_torch.ops import match_kernel as mk
+    out = mk.topk2_match_cuda(*t, r)
+    ref = mk.topk2_match_plain(*t, r)
+    if not torch.equal(out, ref):
+        bad = sorted({int(c) for c in torch.nonzero(out != ref)[:, 1]})
+        raise AssertionError(f"top-2 on the {what} case: columns {bad} "
+                             "differ from the plain version")
+    return float((out - ref).abs().max())
+
+
+def gate_shares(t, r: float) -> str:
+    """The share of the (M, N) pairs inside r and inside 2r, and of the
+    rows (landmarks) that are visible (u below 1e6)."""
+    from slam_toolkit_tpu_torch.ops import match_kernel as mk
+    _, _, a_uv, b_xy = t
+    du = a_uv[:, None, 0] - b_xy[None, :, 0]
+    dv = a_uv[:, None, 1] - b_xy[None, :, 1]
+    d2 = du * du + dv * dv
+    r1sq, r2sq = mk._gates(r)
+    return (f"pairs inside r {100 * float((d2 <= r1sq).float().mean()):.3f}%"
+            f", inside 2r {100 * float((d2 <= r2sq).float().mean()):.3f}%, "
+            f"visible rows {int((a_uv[:, 0] < 1e6).sum())} of "
+            f"{a_uv.shape[0]}")
+
+
+class MatchCapture:
+    """Keeps, on the card, the inputs that projection_match hands to the
+    top-2 matcher on its `call`-th call (one mid-run frame); the matcher
+    itself runs as before, once a call."""
+
+    def __init__(self, call: int):
+        from slam_toolkit_tpu_torch.frontend import matching
+        self.matching, self.orig = matching, matching.topk2_match
+        self.call, self.calls, self.args = call, 0, None
+        matching.topk2_match = self
+
+    def __call__(self, *args):
+        self.calls += 1
+        if self.calls == self.call:
+            self.args = [a.clone() if isinstance(a, torch.Tensor) else a
+                         for a in args]
+        return self.orig(*args)
+
+    def close(self):
+        self.matching.topk2_match = self.orig
+
+
+def check_topk2_frame(cap: MatchCapture, synthetic_ms: float, label: str):
+    """The top-2 kernel on the captured main-path frame: exact against
+    the plain version, the gate shares there, and its device time beside
+    the synthetic case's."""
+    from slam_toolkit_tpu_torch.ops import match_kernel as mk
+    if cap.args is None:
+        raise AssertionError(f"the matcher was called {cap.calls} times, "
+                             f"no call {cap.call} to capture")
+    *t, r = cap.args
+    m, n = t[0].shape[0], t[1].shape[0]
+    topk2_exact(t, r, f"main-path frame (call {cap.call})")
+    ms = device_ms(lambda: mk.topk2_match_cuda(*t, r))
+    print(f"[phase3] {label} top-2 on the main path's call {cap.call} "
+          f"(M={m} N={n} r={r}): exact, {gate_shares(t, r)}; kernel "
+          f"{ms:.4f} ms (device) there, {synthetic_ms:.4f} ms on the "
+          "synthetic case")
 
 
 def check_pose_lm(dev, rng):
@@ -646,10 +748,12 @@ def main() -> int:
     print(f"[phase3] rendered {len(frames)} stereo pairs "
           f"{frames.shape[-1]}x{frames.shape[-2]} in "
           f"{time.perf_counter() - t0:.1f} s")
+    cap = MatchCapture(call=len(frames) // 2)
     for k in kernels.values():
         k.launches = 0
     eng, chunk_s = run_engine(cfg, frames, 16, "cuda")
     launches = {n: k.launches for n, k in kernels.items()}
+    cap.close()
     traj = eng.trajectory_refined()
     if len(traj) != len(frames) or not all(np.isfinite(T).all() for T in traj):
         raise AssertionError("trajectory missing frames or not finite")
@@ -678,8 +782,14 @@ def main() -> int:
         raise AssertionError(f"local BA launched {launches['local_ba']} "
                              f"times for {n_kf - 1} keyframes after the "
                              "bootstrap")
+    if launches["patch_gather"] != len(frames):
+        raise AssertionError(f"the gather launched "
+                             f"{launches['patch_gather']} times for "
+                             f"{len(frames)} frames, expected one a frame")
     if not ate <= 0.138:
         raise AssertionError(f"ATE {ate:.4f} m above 0.138 m")
+    check_topk2_frame(cap, next(r["ms"] for r in rows
+                                if r["name"] == "topk2_match"), label)
 
     # ---- phase 4: the same frames with the fused FAST+NMS kernel
     cfg_f = cfg.replace(extractor=dataclasses.replace(cfg.extractor,
@@ -698,6 +808,10 @@ def main() -> int:
     if launches_f["fast_nms"] != len(frames) * n_levels:
         raise AssertionError(f"FAST launched {launches_f['fast_nms']} "
                              f"times, expected {len(frames)} x {n_levels}")
+    if launches_f["patch_gather"] != len(frames):
+        raise AssertionError(f"the gather launched "
+                             f"{launches_f['patch_gather']} times for "
+                             f"{len(frames)} frames, expected one a frame")
     if [n for n, v in launches_f.items() if v == 0]:
         raise AssertionError(f"kernels not launched on the fused path: "
                              f"{launches_f}")

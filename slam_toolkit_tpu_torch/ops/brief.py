@@ -14,11 +14,13 @@ jax); a test checks the two patterns are equal.
 from __future__ import annotations
 
 import functools
+from typing import Sequence
 
 import numpy as np
 import torch
 
-from slam_toolkit_tpu_torch.ops.patches import gather_blocks
+from slam_toolkit_tpu_torch.ops.patches import (gather_blocks,
+                                                gather_blocks_multi)
 
 PATCH_RADIUS = 15
 NUM_PAIRS = 256
@@ -72,6 +74,28 @@ def upright_patch_descriptors(blurred: torch.Tensor,
     y0 = torch.clamp(cy - r, 0, h - side)
     x0 = torch.clamp(cx - r, 0, w - side)
     patches = gather_blocks(blurred, y0, x0, side, side)    # (K, 31, 31)
-    flat = patches.reshape(patches.shape[0], side * side)
-    idx_a, idx_b = _pick_indices(blurred.device)
+    return _pick_and_pack(patches)
+
+
+def upright_patch_descriptors_levels(blurred_levels: Sequence[torch.Tensor],
+                                     xy_levels: Sequence[torch.Tensor]
+                                     ) -> torch.Tensor:
+    """upright_patch_descriptors of every level, concatenated in level
+    order: one gather of all levels' patches (the gather clamps each
+    corner into its level, as upright_patch_descriptors clamps it), then
+    one pick and pack."""
+    r = PATCH_RADIUS
+    side = 2 * r + 1
+    corner = (torch.round(torch.cat(list(xy_levels))).int() - r).T \
+        .contiguous()                                     # (2, K): x, y
+    patches = gather_blocks_multi(blurred_levels, corner[1], corner[0],
+                                  [xy.shape[0] for xy in xy_levels], side,
+                                  side)
+    return _pick_and_pack(patches)
+
+
+def _pick_and_pack(patches: torch.Tensor) -> torch.Tensor:
+    """(K, 31, 31) patches -> (K, 8) int32 words of the 256 comparisons."""
+    flat = patches.reshape(patches.shape[0], -1)
+    idx_a, idx_b = _pick_indices(patches.device)
     return pack_bits(flat[:, idx_a] < flat[:, idx_b])

@@ -55,7 +55,7 @@ def extract(image: torch.Tensor, cfg: ExtractorConfig) -> FrameFeatures:
     levels = pyramid.build_pyramid(image, cfg)
     border = cfg.patch_radius + 1
     dev = image.device
-    parts = []
+    parts, blurred_levels, xy_levels = [], [], []
     for lvl, (img_l, n_l) in enumerate(zip(levels, level_budgets(cfg))):
         if n_l == 0:
             continue
@@ -81,21 +81,27 @@ def extract(image: torch.Tensor, cfg: ExtractorConfig) -> FrameFeatures:
         raw = eff[ix[:, 1], ix[:, 0]]
         resp = torch.where(valid, torch.where(raw >= 1e4, raw - 1e4, raw),
                            torch.zeros_like(raw))
-        blurred = pyramid.gaussian_blur(img_l, 7, cfg.blur_sigma)
-        desc = brief.upright_patch_descriptors(blurred, xy)
+        blurred_levels.append(pyramid.gaussian_blur(img_l, 7, cfg.blur_sigma))
+        xy_levels.append(xy)
         scale = cfg.scale_factor ** lvl
-        parts.append(FrameFeatures(
-            xy=xy * scale,
-            response=resp,
-            octave=torch.full((n_l,), lvl, dtype=torch.int32, device=dev),
-            angle=torch.zeros((n_l,), dtype=torch.float32, device=dev),
-            sigma2=torch.full((n_l,), scale * scale, dtype=torch.float32,
-                              device=dev),
-            desc=desc,
-            valid=valid,
+        parts.append((
+            xy * scale,
+            resp,
+            torch.full((n_l,), lvl, dtype=torch.int32, device=dev),
+            torch.zeros((n_l,), dtype=torch.float32, device=dev),
+            torch.full((n_l,), scale * scale, dtype=torch.float32,
+                       device=dev),
+            valid,
         ))
 
-    feats = FrameFeatures(*[torch.cat(f, dim=0) for f in zip(*parts)])
+    # the descriptors of all levels at once: one gather, one pick and pack
+    xy, response, octave, angle, sigma2, valid = (
+        torch.cat(f, dim=0) for f in zip(*parts))
+    feats = FrameFeatures(
+        xy=xy, response=response, octave=octave, angle=angle, sigma2=sigma2,
+        desc=brief.upright_patch_descriptors_levels(blurred_levels,
+                                                    xy_levels),
+        valid=valid)
     pad = cfg.max_keypoints - feats.xy.shape[0]
     if pad > 0:
         feats = FrameFeatures(

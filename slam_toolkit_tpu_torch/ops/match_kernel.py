@@ -2,9 +2,11 @@
 
 Counterpart of slam_toolkit_tpu/ops/match_kernel.py::topk2_match. For a
 CUDA tensor the wrapper launches the hand-written kernel
-(csrc/match_topk2.cu, replacing the Pallas _topk2_pallas); for a CPU
-tensor it runs the plain version, which follows the JAX package's
-_topk2_xla.
+(csrc/match_topk2.cu, replacing the Pallas _topk2_pallas: it bins the
+keypoints into a grid, tests the gate only on the cells a query's 2r box
+touches, and computes Hamming distances only for the pairs that pass);
+for a CPU tensor it runs the plain version, which follows the JAX
+package's _topk2_xla. Both give the same output, every column.
 """
 
 from __future__ import annotations
@@ -52,8 +54,15 @@ def topk2_match_plain(a_desc, b_desc, a_uv, b_xy, radius: float):
     return torch.stack(cols + [zero, zero], dim=1)
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous, at a 16-byte aligned address (the kernel reads a
+    descriptor row as two 16-byte words, a coordinate pair as 8 bytes)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def topk2_match_cuda(a_desc, b_desc, a_uv, b_xy, radius: float):
-    a_desc, b_desc, a_uv, b_xy = (t.contiguous() for t in
+    a_desc, b_desc, a_uv, b_xy = (_aligned(t) for t in
                                   (a_desc, b_desc, a_uv, b_xy))
     m, n = a_desc.shape[0], b_desc.shape[0]
     dev = a_desc.device

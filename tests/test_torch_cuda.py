@@ -55,9 +55,136 @@ def test_gather_blocks_cuda_exact(dev):
             img, ys_t, xs_t, bh, bw), rtol=0, atol=0)
 
 
+def test_gather_blocks_multi_cuda_exact(dev):
+    """Several images in one launch, exactly the per-image plain gather:
+    ragged counts, an image with no window, corners outside each image
+    (clamped), windows wider than a warp; one launch counted."""
+    from slam_toolkit_tpu_torch.ops import patches
+    rng = np.random.default_rng(4)
+    shapes, counts = [(376, 1241), (70, 301), (45, 40), (90, 200)], \
+        [434, 0, 3, 77]
+    imgs = [_dev(rng.uniform(0, 255, s).astype(np.float32), dev)
+            for s in shapes]
+    for bh, bw in [(31, 31), (37, 37), (8, 8)]:
+        ys = _i32(rng.integers(-10, 380, sum(counts)), dev)
+        xs = _i32(rng.integers(-10, 1250, sum(counts)), dev)
+        n0 = patches.KERNEL.launches
+        out = patches.gather_blocks_multi(imgs, ys, xs, counts, bh, bw)
+        assert patches.KERNEL.launches == n0 + 1
+        ref = patches.gather_blocks_multi_plain(imgs, ys, xs, counts, bh, bw)
+        assert out.shape == (sum(counts), bh, bw)
+        assert torch.equal(out, ref)
+
+
+def test_gather_blocks_cuda_image_limit(dev):
+    """The C side takes as many images as the wrapper allows (it refuses
+    more, and the wrapper would raise), and the wrapper refuses one more."""
+    from slam_toolkit_tpu_torch.ops import patches
+    img = torch.ones((40, 40), device=dev)
+    n = patches.MAX_IMAGES
+    ys = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+    out = patches.gather_blocks_multi([img] * n, ys[:n], ys[:n], [1] * n, 31,
+                                      31)
+    assert out.shape == (n, 31, 31) and bool((out == 1).all())
+    with pytest.raises(ValueError, match="images"):
+        patches.gather_blocks_multi([img] * (n + 1), ys, ys, [1] * (n + 1),
+                                    31, 31)
+
+
+def _topk2_edges(m, n, r, seed, w=1241, h=376):
+    """Queries and keypoints on a w x h image with the matcher's edge
+    cases, as far as N allows: keypoints exactly at distance r and 2r
+    (and just beyond 2r), outside the image, at -1e7 and +1e7, with NaN
+    coordinates; equal Hamming distances in different grid cells, the
+    lower column placed where the grid visits it last; queries at +1e7,
+    NaN, outside the image, and one with no keypoint within 2r."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, 2 ** 32, (m, 8), dtype=np.uint64).astype(np.uint32)
+    b = rng.integers(0, 2 ** 32, (n, 8), dtype=np.uint64).astype(np.uint32)
+    a_uv = np.round(rng.uniform(0, [w, h], (m, 2)))
+    b_xy = rng.uniform(0, [w, h], (n, 2))
+    k = min(m, n) // 3
+    b[:k] = a[:k] ^ (rng.random((k, 8)) < 0.1).astype(np.uint32)
+    b_xy[:k] = a_uv[:k] + rng.normal(0, r, (k, 2))
+    # exact distances from query 0..: r and 2r on the axes and the 3-4-5
+    # diagonal, and 2r + 0.5 (outside)
+    offs = np.array([[2 * r, 0], [0, -2 * r], [-1.2 * r, 1.6 * r],
+                     [r, 0], [0.6 * r, -0.8 * r], [2 * r + 0.5, 0]])
+    specials = [(i % m, a_uv[i % m] + o) for i in range(4) for o in offs]
+    # equal distances (64 bits) in different cells of a query with no
+    # near-duplicate: the lowest column (placed first) lies to the right,
+    # the others left and below
+    q = min(k, m - 8)
+    for o in ([1.9 * r, 0.0], [-1.9 * r, 0.0], [0.0, 1.7 * r],
+              [-1.3 * r, -1.3 * r]):
+        specials.append((q, a_uv[q] + np.array(o), a[q] ^ np.uint32(0xF0F)))
+    far = [[-30.0, 100.0], [w + 40.0, 10.0], [500.0, -20.0], [-1e7, -1e7],
+           [1e7, 1e7], [1e7, 3.0], [np.nan, 50.0], [60.0, np.nan]]
+    j = k
+    for s in specials:
+        if j >= n:
+            break
+        b_xy[j] = s[1]
+        if len(s) == 3:
+            b[j] = s[2]
+        j += 1
+    for xy in far:
+        if j >= n:
+            break
+        b_xy[j] = xy
+        j += 1
+    # queries: invisible, NaN, outside the image, and one alone
+    a_uv[-7:-3] = 1e7
+    a_uv[-3] = [np.nan, 10.0]
+    a_uv[-2] = [-60.0, 200.0]
+    a_uv[-1] = [w / 2, h + 20 * r + 500]
+    return (a, b, a_uv.astype(np.float32), b_xy.astype(np.float32))
+
+
+@pytest.mark.parametrize("n", [1, 777, 2048, 4096])
+@pytest.mark.parametrize("r", [5.0, 20.0, 50.0])
+def test_topk2_cuda_exact_edges(dev, r, n):
+    """Every column exact against the plain version, M = 203 (not a
+    multiple of a block's 24 rows), at the edge cases of _topk2_edges."""
+    from slam_toolkit_tpu_torch.ops import match_kernel as mk
+    t = [_dev(x, dev) for x in _topk2_edges(203, n, r, seed=int(r) + n)]
+    n0 = mk.KERNEL.launches
+    out = mk.topk2_match(*t, r)
+    assert mk.KERNEL.launches == n0 + 1
+    ref = mk.topk2_match_plain(*t, r)
+    assert torch.equal(out, ref)
+    assert float(ref[-1, 3]) == mk.BIG                 # the lone query
+    if n > 100:
+        assert int((ref[:, 0] < 1e8).sum()) > 10
+
+
+@pytest.mark.parametrize("r", [5.0, 20.0, 50.0])
+def test_topk2_cuda_grid_drops_no_pair(dev, r):
+    """The grid only pre-filters: with every descriptor equal, every pair
+    has Hamming distance 0, so each row's argbest is the lowest column
+    inside its gate and its second-best says whether a second one is.
+    Keypoints on a lattice of half-pixel steps, queries on integers, so
+    many pairs lie exactly at distance r and 2r and on cell edges."""
+    from slam_toolkit_tpu_torch.ops import match_kernel as mk
+    rng = np.random.default_rng(int(r))
+    m, n, w, h = 500, 4096, 1241, 376
+    desc = rng.integers(0, 2 ** 32, (1, 8), dtype=np.uint64).astype(np.uint32)
+    b_xy = np.round(rng.uniform(0, [w, h], (n, 2)) * 2) / 2
+    a_uv = np.round(rng.uniform(0, [w, h], (m, 2)))
+    b_xy[:m] = a_uv + rng.choice([-2 * r, -r, r, 2 * r], (m, 2)) * \
+        (rng.random((m, 1)) < 0.5)
+    t = [_dev(np.repeat(desc, m, 0), dev), _dev(np.repeat(desc, n, 0), dev),
+         _dev(a_uv.astype(np.float32), dev), _dev(b_xy.astype(np.float32),
+                                                  dev)]
+    out = mk.topk2_match(*t, r)
+    ref = mk.topk2_match_plain(*t, r)
+    assert torch.equal(out, ref)
+    assert int((ref[:, 4] == 0).sum()) > m // 4
+
+
 def test_topk2_cuda_exact_ragged(dev):
-    """N not a multiple of the 256-keypoint tile, M not a multiple of the
-    8-row block, ties at the best distance, empty gates."""
+    """N not a multiple of a warp's 32 lanes, M not a multiple of a
+    block's 24 rows, ties at the best distance, empty gates."""
     from slam_toolkit_tpu_torch.ops import match_kernel as mk
     rng = np.random.default_rng(1)
     m, n = 203, 777

@@ -137,6 +137,31 @@ def _assert_features_equal(ft, fj):
                                rtol=0, atol=2e-3)
 
 
+def test_upright_descriptors_levels_match_jax():
+    """All levels' descriptors from one gather equal JAX's per-level
+    upright_patch_descriptors on a 3-level tiny pyramid, bit for bit:
+    keypoints anywhere in each level, at its corners and edges (clamped)."""
+    cfg = SlamConfig.tiny()
+    img = _frame(cfg, 0.5)
+    levels = [np.asarray(lv) for lv in jax.jit(
+        lambda x: j_pyr.build_pyramid(x, cfg.extractor))(img)][:3]
+    rng = np.random.default_rng(11)
+    blurred, xys = [], []
+    for lv, k in zip(levels, (40, 25, 12)):
+        h, w = lv.shape
+        blurred.append(np.array(jax.jit(
+            lambda x: j_pyr.gaussian_blur(x, 7, 2.0))(lv)))
+        xy = rng.uniform(0, [w - 1, h - 1], (k, 2)).astype(np.float32)
+        xy[:3] = [[0, 0], [w - 1, h - 1], [w / 2, 0]]
+        xys.append(np.round(xy).astype(np.float32))
+    ref = np.concatenate([np.asarray(j_brief.upright_patch_descriptors(
+        jnp.asarray(b), jnp.asarray(xy))) for b, xy in zip(blurred, xys)])
+    out = t_brief.upright_patch_descriptors_levels(
+        [torch.from_numpy(b) for b in blurred],
+        [torch.from_numpy(xy) for xy in xys])
+    np.testing.assert_array_equal(out.numpy().view(np.uint32), ref)
+
+
 @pytest.mark.parametrize("source", ["synthetic", "kitti_mini"])
 def test_extract_matches_jax(source):
     cfg = SlamConfig.tiny()

@@ -10,6 +10,7 @@ versions on the card (tests/test_torch_cuda.py, chip_smoke.py).
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 import torch
 
 from slam_toolkit_tpu.config import TrackerConfig
@@ -52,6 +53,46 @@ def test_gather_blocks_exact():
         out = t_patches.gather_blocks(_t(img), _t(ys), _t(xs), bh, bw).numpy()
         np.testing.assert_array_equal(out, ref)
         np.testing.assert_array_equal(out, pallas)
+
+
+def test_gather_blocks_multi_exact():
+    """The multi-image gather's plain version against JAX gather_blocks
+    on each image's share of the corners: ragged counts, an image with no
+    window, corners at 0 and at each image's last legal offset."""
+    rng = np.random.default_rng(10)
+    shapes, counts, bh, bw = [(64, 300), (40, 150), (33, 90), (25, 60)], \
+        [17, 0, 9, 4], 23, 31
+    imgs = [rng.uniform(0, 255, s).astype(np.float32) for s in shapes]
+    ys = np.concatenate([rng.integers(0, h - bh + 1, k) for (h, _), k in
+                         zip(shapes, counts)]).astype(np.int32)
+    xs = np.concatenate([rng.integers(0, w - bw + 1, k) for (_, w), k in
+                         zip(shapes, counts)]).astype(np.int32)
+    ys[[0, 17]], xs[[0, 17]] = [0, 33 - bh], [300 - bw, 0]
+    out = t_patches.gather_blocks_multi([_t(i) for i in imgs], _t(ys), _t(xs),
+                                        counts, bh, bw).numpy()
+    assert out.shape == (sum(counts), bh, bw)
+    o = 0
+    for img, k in zip(imgs, counts):
+        if k:
+            ref = np.asarray(j_patches.gather_blocks(
+                jnp.asarray(img), jnp.asarray(ys[o:o + k]),
+                jnp.asarray(xs[o:o + k]), bh, bw))
+            np.testing.assert_array_equal(out[o:o + k], ref)
+        o += k
+
+
+def test_gather_blocks_multi_refuses():
+    """More images than one launch takes, counts that do not match the
+    corners: the wrapper raises on the CPU as on the card."""
+    img = torch.zeros((40, 40))
+    ys = torch.zeros(17, dtype=torch.int32)
+    n = t_patches.MAX_IMAGES + 1
+    with pytest.raises(ValueError, match="images"):
+        t_patches.gather_blocks_multi([img] * n, ys, ys, [1] * n, 31, 31)
+    t_patches.gather_blocks_multi([img] * (n - 1), ys[:n - 1], ys[:n - 1],
+                                  [1] * (n - 1), 31, 31)
+    with pytest.raises(ValueError, match="corners"):
+        t_patches.gather_blocks_multi([img] * 2, ys, ys, [1, 2], 31, 31)
 
 
 # ------------------------------------------------------------ top-2 matcher
