@@ -24,7 +24,12 @@ Phases (any failure raises and the script exits non-zero):
    - `bound_ms`: the larger of its bytes over 3.35 TB/s and its
      operations over 67 TFLOP/s (the H100's published HBM rate and
      float32 peak). The gather's bytes count the image's 32-byte sectors
-     that its windows cover, not the whole image.
+     that its windows cover, not the whole image. The top-2's operations
+     count what its output needs on this run's inputs: the float32 pixel
+     gate on every pair, and the Hamming distance and running top-2 only
+     for the pairs inside 2r, in integer operations at the rates of their
+     type (__popc at 16 a clock per SM); its dense count of earlier
+     commits, 36 float32 operations a pair, is printed beside it.
    The gather is timed as the main path launches it, a frame's 31x31
    windows at every pyramid level's budget in one launch (its bound and
    its library time, one unfold call a level, summed over the levels),
@@ -179,13 +184,25 @@ def _textured(h, w, rng):
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
 F32_OPS_PER_S = 67e12          # H100 SXM float32 peak (an FMA counts 2)
+# The float32 peak is 128 FMA lanes a clock on each of 132 SMs, so the
+# clock it assumes is 67e12 / (2 * 128 * 132) = 1.98 GHz. At that clock,
+# by the CUDA programming guide's throughput table for compute capability
+# 9.0, 32-bit integer add, compare and logic run at 64 lanes a clock per
+# SM, and __popc at 16.
+SM_CLOCK_HZ = F32_OPS_PER_S / (2 * 128 * 132)
+INT32_OPS_PER_S = 64 * 132 * SM_CLOCK_HZ
+POPC_OPS_PER_S = 16 * 132 * SM_CLOCK_HZ
 
 
-def bound(n_bytes: float, n_ops: float) -> dict:
+def bound(n_bytes: float, n_ops: float, int_ops: float = 0,
+          popc_ops: float = 0) -> dict:
     """Least time for the work: bytes moved once over the memory rate, or
-    operations over the float32 peak, whichever is larger."""
+    operations over their type's peak rate (float32, 32-bit integer,
+    __popc; the types share the SMs' issue slots, so their times add),
+    whichever is larger."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    t_ops = (n_ops / F32_OPS_PER_S + int_ops / INT32_OPS_PER_S +
+             popc_ops / POPC_OPS_PER_S) * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -224,19 +241,6 @@ def _gather_case(img, k: int, side: int, rng):
             lambda: patches.gather_blocks_cuda(img, ys, xs, side, side),
             lambda: patches.gather_blocks_plain(img, ys, xs, side, side),
             lambda: win[yl, xl])
-
-
-def _frame_gather(patches, imgs, ys, xs, counts, side):
-    """A frame's gather as the package launches it: all levels in one
-    multi-image launch; for a package that has no multi-image entry (an
-    older commit paired by tools/kernel_ab.py), one launch per level."""
-    if hasattr(patches, "gather_blocks_multi_cuda"):
-        return lambda: patches.gather_blocks_multi_cuda(imgs, ys, xs, counts,
-                                                        side, side)
-    offs = np.cumsum([0] + counts)
-    return lambda: [patches.gather_blocks_cuda(
-        img, ys[a:b], xs[a:b], side, side)
-        for img, a, b in zip(imgs, offs[:-1], offs[1:])]
 
 
 def check_gather(dev, rng):
@@ -286,7 +290,10 @@ def check_gather(dev, rng):
         libs.append(lib)
         read += cover
     ys, xs = torch.cat(ys), torch.cat(xs)
-    kern = _frame_gather(patches, imgs, ys, xs, counts, side)
+
+    def kern():
+        return patches.gather_blocks_multi_cuda(imgs, ys, xs, counts, side,
+                                                side)
 
     def plain():
         offs = np.cumsum([0] + counts)
@@ -294,8 +301,6 @@ def check_gather(dev, rng):
             img, ys[a:b], xs[a:b], side, side)
             for img, a, b in zip(imgs, offs[:-1], offs[1:])])
     out, ref = kern(), plain()
-    if isinstance(out, list):
-        out = torch.cat(out)
     if not torch.equal(out, ref):
         raise AssertionError(f"gather of a frame's {len(counts)} levels "
                              "differs from the per-level plain gather")
@@ -329,16 +334,32 @@ def check_topk2(dev, rng):
     err = topk2_exact(t, r, "synthetic")
     row = row_times(lambda: mk.topk2_match_cuda(*t, r),
                     lambda: mk.topk2_match_plain(*t, r))
+    b, dense_ms = topk2_bound(t, r)
     print(f"[phase2] top-2 M={m} N={n} r={r}: exact, {gate_shares(t, r)}, "
           f"rows with a match in r: "
-          f"{int((mk.topk2_match_plain(*t, r)[:, 0] < 1e8).sum())}")
+          f"{int((mk.topk2_match_plain(*t, r)[:, 0] < 1e8).sum())}; bound "
+          f"{b['bound_ms']:.6f} ms from the pairs inside 2r, "
+          f"{dense_ms:.6f} ms counted dense (36 float32 operations a pair, "
+          "the bound before the gate-first design)")
     return {"name": "topk2_match",
             "source": "slam_toolkit_tpu_torch/csrc/match_topk2.cu",
             "replaces": "slam_toolkit_tpu/ops/match_kernel.py:139",
-            "kernel": mk.KERNEL, "max_abs_err": err, **row,
-            # per pair: 8 xor + 8 popcount + 7 adds, the pixel gate (2 sub,
-            # 2 mul, 1 add, 2 compares) and the running top-2 (~6)
-            **bound(nbytes(*t) + m * 8 * 4, m * n * 36)}
+            "kernel": mk.KERNEL, "max_abs_err": err, **row, **b}
+
+
+def topk2_bound(t, r: float):
+    """The top-2's bound from the work its output needs, and the dense
+    count of the earlier bound (ms). Every pair needs the pixel gate: 2
+    sub, 2 mul, 1 add and 2 compares in float32. Only a pair inside 2r
+    needs its Hamming distance (8 __popc; 8 xor and 7 adds) and the
+    running top-2 (~6 integer compares and selects). The dense count
+    gives every pair all of it, 36 operations at the float32 rate."""
+    m, n = t[0].shape[0], t[1].shape[0]
+    _, in_2r = gate_counts(t, r)
+    n_bytes = nbytes(*t) + m * 8 * 4                  # inputs, (M, 8) out
+    return (bound(n_bytes, m * n * 7, int_ops=in_2r * 21,
+                  popc_ops=in_2r * 8),
+            bound(n_bytes, m * n * 36)["bound_ms"])
 
 
 def topk2_exact(t, r: float, what: str) -> float:
@@ -354,19 +375,25 @@ def topk2_exact(t, r: float, what: str) -> float:
     return float((out - ref).abs().max())
 
 
-def gate_shares(t, r: float) -> str:
-    """The share of the (M, N) pairs inside r and inside 2r, and of the
-    rows (landmarks) that are visible (u below 1e6)."""
+def gate_counts(t, r: float):
+    """The number of (M, N) pairs inside r and inside 2r."""
     from slam_toolkit_tpu_torch.ops import match_kernel as mk
     _, _, a_uv, b_xy = t
     du = a_uv[:, None, 0] - b_xy[None, :, 0]
     dv = a_uv[:, None, 1] - b_xy[None, :, 1]
     d2 = du * du + dv * dv
     r1sq, r2sq = mk._gates(r)
-    return (f"pairs inside r {100 * float((d2 <= r1sq).float().mean()):.3f}%"
-            f", inside 2r {100 * float((d2 <= r2sq).float().mean()):.3f}%, "
-            f"visible rows {int((a_uv[:, 0] < 1e6).sum())} of "
-            f"{a_uv.shape[0]}")
+    return int((d2 <= r1sq).sum()), int((d2 <= r2sq).sum())
+
+
+def gate_shares(t, r: float) -> str:
+    """The share of the (M, N) pairs inside r and inside 2r, and of the
+    rows (landmarks) that are visible (u below 1e6)."""
+    a_uv, pairs = t[2], t[0].shape[0] * t[1].shape[0]
+    in_r, in_2r = gate_counts(t, r)
+    return (f"pairs inside r {100 * in_r / pairs:.3f}%, inside 2r "
+            f"{100 * in_2r / pairs:.3f}%, visible rows "
+            f"{int((a_uv[:, 0] < 1e6).sum())} of {a_uv.shape[0]}")
 
 
 class MatchCapture:
@@ -403,10 +430,12 @@ def check_topk2_frame(cap: MatchCapture, synthetic_ms: float, label: str):
     m, n = t[0].shape[0], t[1].shape[0]
     topk2_exact(t, r, f"main-path frame (call {cap.call})")
     ms = device_ms(lambda: mk.topk2_match_cuda(*t, r))
+    b, dense_ms = topk2_bound(t, r)
     print(f"[phase3] {label} top-2 on the main path's call {cap.call} "
           f"(M={m} N={n} r={r}): exact, {gate_shares(t, r)}; kernel "
           f"{ms:.4f} ms (device) there, {synthetic_ms:.4f} ms on the "
-          "synthetic case")
+          f"synthetic case; bound there {b['bound_ms']:.6f} ms "
+          f"({b['bound_by']}), {dense_ms:.6f} ms counted dense")
 
 
 def check_pose_lm(dev, rng):

@@ -162,6 +162,28 @@ def test_upright_descriptors_levels_match_jax():
     np.testing.assert_array_equal(out.numpy().view(np.uint32), ref)
 
 
+def test_extract_descriptors_match_per_level_full_size(monkeypatch):
+    """On one KITTI-size frame (8 levels, 2000 features) the descriptors
+    extract computes from one gather of all levels equal those of
+    upright_patch_descriptors run level by level on the same blurred
+    levels and keypoints, bit for bit."""
+    cfg = SlamConfig()
+    seen, levels_fn = [], t_brief.upright_patch_descriptors_levels
+
+    def spy(blurred, xys):
+        seen.append((blurred, xys))
+        return levels_fn(blurred, xys)
+    monkeypatch.setattr(t_brief, "upright_patch_descriptors_levels", spy)
+    ft = t_ext.extract(torch.from_numpy(_frame(cfg, 1.6)), cfg.extractor)
+    (blurred, xys), = seen
+    assert len(blurred) == cfg.extractor.num_levels
+    ref = torch.cat([t_brief.upright_patch_descriptors(b, xy)
+                     for b, xy in zip(blurred, xys)])
+    assert ref.shape[0] == cfg.extractor.num_features
+    np.testing.assert_array_equal(ft.desc[:ref.shape[0]].numpy(),
+                                  ref.numpy())
+
+
 @pytest.mark.parametrize("source", ["synthetic", "kitti_mini"])
 def test_extract_matches_jax(source):
     cfg = SlamConfig.tiny()
