@@ -35,13 +35,18 @@ Phases (any failure raises and the script exits non-zero):
    its library time, one unfold call a level, summed over the levels),
    and level 0's 434 windows alone. The top-2 matcher is exact in every
    column, with the share of its pairs inside r and 2r. FAST+NMS is
-   timed at level 0 and over the levels, local BA also at 0 and 1
-   iterations. Local BA
-   and the pose LM are cluster kernels (8 CTAs holding their share of
-   the points / observations in shared memory); for local BA the script
-   also prints where a solve's time goes, phase by phase, from the
-   kernel's own clock64() counts on its first CTA, what those clocks
-   cost, and each cluster kernel's capacity (points, observations).
+   timed as the fused path launches it, a frame's 8 levels in one launch
+   (frame 0 of the track; its level 0 alone and a textured-noise frame
+   beside it), bit-exact on every level in both modes; its bound counts
+   the work its outputs need (the pixels that pass the cardinal test,
+   counted on the run's input), the dense count of earlier commits
+   printed beside it. Local BA is also timed at 0 and 1 iterations.
+   Local BA and the pose LM are cluster kernels (8 CTAs holding their
+   share of the points / observations in shared memory); for local BA
+   the script also prints where a solve's time goes, phase by phase,
+   from the kernel's own clock64() counts on its first CTA, what those
+   clocks cost, and each cluster kernel's capacity (points,
+   observations).
 3. The main path at full width: SlamConfig() (1241x376, 2000 features,
    3072 tracked landmarks, local BA over 8 keyframes x 1024 points), 48
    synthetic frames on a +0.8 m/frame track,
@@ -54,8 +59,9 @@ Phases (any failure raises and the script exits non-zero):
    run the kernel must be exact against the plain version on them, and
    its device time there is printed beside the synthetic case's.
 4. The same 48 frames with extractor.fused_fast=True: counts reset
-   before and read after; FAST launches on every level of every frame,
-   keyframe flags equal phase 3's, translations within 1e-4 m of it.
+   before and read after; FAST launches once a frame (all levels in one
+   launch), keyframe flags equal phase 3's, translations within 1e-4 m
+   of it.
 5. The first 8 frames again through the port's CPU path (plain
    versions, local BA included); fails on a frame whose translation
    differs by > 0.25 m.
@@ -650,46 +656,132 @@ def ba_phases(dev, ba_ms: float) -> None:
 
 
 def fast_ops(h: int, w: int, dual: bool) -> int:
-    """Operations per pixel: 16 circle differences; per threshold 16 x
-    (2 compares, 2 for the excess sum, 1 mask bit), the 9-of-16 arc test
-    (18) and the 3x3 NMS (13); the boost and the border mask (2)."""
+    """The dense count of earlier commits, per pixel of the level: 16
+    circle differences; per threshold 16 x (2 compares, 2 for the excess
+    sum, 1 mask bit), the 9-of-16 arc test (18) and the 3x3 NMS (13); the
+    boost and the border mask (2)."""
     per_thr = 16 * 5 + 18 + 13
     return h * w * (16 + per_thr * (2 if dual else 1) + 2)
 
 
+def _span(n: int, lo: int, hi: int) -> int:
+    """The length of [lo, hi) inside [0, n)."""
+    return max(0, min(n, hi) - max(0, lo))
+
+
+def cardinal_pass(img, thr: float, border: int) -> int:
+    """Pixels of the response ring [border - 1, h - border] (both axes)
+    with two neighbouring cardinal taps (0 and 4, 4 and 8, 8 and 12, 12
+    and 0) beyond thr on one side, i.e. one of taps 0 and 8 and one of
+    taps 4 and 12: the only ones whose response can be non-zero at a
+    threshold >= thr."""
+    h, w = img.shape
+    p = torch.nn.functional.pad(img[None, None], (3, 3, 3, 3),
+                                mode="replicate")[0, 0]
+    d0, d4, d8, d12 = (p[3 + dy:3 + dy + h, 3 + dx:3 + dx + w] - img
+                       for dy, dx in ((-3, 0), (0, 3), (3, 0), (0, -3)))
+    ok = (((torch.maximum(d0, d8) > thr) & (torch.maximum(d4, d12) > thr)) |
+          ((torch.minimum(d0, d8) < -thr) & (torch.minimum(d4, d12) < -thr)))
+    y0, x0 = max(0, border - 1), max(0, border - 1)
+    return int(ok[y0:max(y0, h - border + 1), x0:max(x0, w - border + 1)]
+               .sum())
+
+
+def fast_bound(levels, thr_hi, thr_lo: float, border: int):
+    """The FAST row's bound from the work its outputs need, summed over
+    the levels, and the dense count of earlier commits (ms). Bytes: every
+    output pixel written once, and the input pixels within 4 of the
+    valid interior [border, h - border) read once. Operations: on the
+    response ring (the interior and its 1-pixel NMS ring), the cardinal
+    test (4 differences, 8 compares in float32; 8 integer operations);
+    on the pixels that pass it (measured on these levels), the other 12
+    differences and per threshold 16 x (2 compares, 2 for the excess sum)
+    and the max of the two arcs' sums in float32, and 16 x 2 mask bits
+    and two 8-step arc tests in integers; on the interior, per threshold
+    the 3x3 NMS (13) and the boost and mask (2)."""
+    n_thr = 1 if thr_hi is None else 2
+    thr_min = thr_lo if thr_hi is None else min(thr_hi, thr_lo)
+    n_bytes = f32 = i32 = 0
+    for img in levels:
+        h, w = img.shape
+        ring = _span(h, border - 1, h - border + 1) * \
+            _span(w, border - 1, w - border + 1)
+        inner = _span(h, border, h - border) * _span(w, border, w - border)
+        passing = cardinal_pass(img, thr_min, border)
+        n_bytes += 4 * (h * w + _span(h, border - 4, h - border + 4) *
+                        _span(w, border - 4, w - border + 4))
+        f32 += ring * 12 + passing * (12 + n_thr * 65) + \
+            inner * (13 * n_thr + 2)
+        i32 += ring * 8 + passing * n_thr * 48
+    dense = bound(2 * sum(nbytes(lv) for lv in levels),
+                  sum(fast_ops(*lv.shape, thr_hi is not None)
+                      for lv in levels))["bound_ms"]
+    return bound(n_bytes, f32, int_ops=i32), dense
+
+
 def check_fast_nms(dev, rng):
-    from slam_toolkit_tpu_torch.config import ExtractorConfig
+    """FAST+NMS as the fused path launches it: every level of a frame in
+    one launch (detect_levels), bit-exact against the plain detector on
+    all 8 levels in both modes. The row is frame 0 of the synthetic track
+    (the fused path's input), its bound counted from the work its outputs
+    need; level 0 alone and a textured-noise frame (more corner
+    candidates) are timed beside it."""
+    from slam_toolkit_tpu_torch.config import SlamConfig
     from slam_toolkit_tpu_torch.ops import fast_kernel, pyramid
-    cfg = ExtractorConfig()
-    border = cfg.patch_radius + 1
-    img = to_dev(_textured(376, 1241, rng), dev)
-    levels = pyramid.build_pyramid(img, cfg)
-    thr = (float(cfg.fast_threshold_high), float(cfg.fast_threshold_low))
-    n_corners = 0
-    for lvl in levels:
+    cfg = SlamConfig()
+    ecfg = cfg.extractor
+    border = ecfg.patch_radius + 1
+    thr = (float(ecfg.fast_threshold_high), float(ecfg.fast_threshold_low))
+    frame = to_dev(render_frames(cfg, 1, 0.8)[0][0, 0].astype(np.float32),
+                   dev)
+    noise = to_dev(_textured(376, 1241, rng), dev)
+    cases = {name: pyramid.build_pyramid(img, ecfg)
+             for name, img in (("frame 0", frame), ("textured", noise))}
+    cases_ms = {}
+    for name, levels in cases.items():
+        n_corners = 0
         for thr_hi in (thr[0], None):
-            out = fast_kernel.detect_fused_cuda(lvl, thr_hi, thr[1], border)
-            ref = fast_kernel.detect_fused_plain(lvl, thr_hi, thr[1], border)
-            if not torch.equal(out, ref):
-                raise AssertionError(f"FAST+NMS differs at level "
-                                     f"{tuple(lvl.shape)}, thr_hi={thr_hi}")
-            n_corners += int((ref > 0).sum())
-    print(f"[phase2] FAST+NMS: exact at all {len(levels)} level shapes "
-          f"{[tuple(lv.shape) for lv in levels]}, both modes "
-          f"({n_corners} corners)")
-    lv0 = levels[0]
-    args = (lv0, thr[0], thr[1], border)
-    all_ms = sum(device_ms(lambda lv=lv: fast_kernel.detect_fused_cuda(
-        lv, thr[0], thr[1], border)) for lv in levels)
-    print(f"[phase2] FAST+NMS kernel, all {len(levels)} levels of a frame: "
-          f"{all_ms:.4f} ms")
+            outs = fast_kernel.detect_levels_cuda(levels, thr_hi, thr[1],
+                                                  border)
+            refs = fast_kernel.detect_levels_plain(levels, thr_hi, thr[1],
+                                                   border)
+            for lv, out, ref in zip(levels, outs, refs):
+                if not torch.equal(out, ref):
+                    raise AssertionError(
+                        f"FAST+NMS differs on {name} at level "
+                        f"{tuple(lv.shape)}, thr_hi={thr_hi}")
+                n_corners += int((ref > 0).sum())
+        ring = sum(_span(h, border - 1, h - border + 1) *
+                   _span(w, border - 1, w - border + 1)
+                   for h, w in (lv.shape for lv in levels))
+        passing = sum(cardinal_pass(lv, min(thr), border) for lv in levels)
+        ms = device_ms(lambda lv=levels: fast_kernel.detect_levels_cuda(
+            lv, thr[0], thr[1], border))
+        lv0_ms = device_ms(lambda lv=levels[0]: fast_kernel.detect_fused_cuda(
+            lv, thr[0], thr[1], border))
+        cases_ms[name] = ms
+        cases_ms[f"{name} level 0"] = lv0_ms
+        print(f"[phase2] FAST+NMS on {name}: exact at all {len(levels)} "
+              f"level shapes {[tuple(lv.shape) for lv in levels]}, both "
+              f"modes ({n_corners} corners); {passing} of the {ring} ring "
+              f"pixels ({100 * passing / ring:.1f}%) pass the cardinal "
+              f"test; the frame's one launch {ms:.4f} ms, level 0 alone "
+              f"{lv0_ms:.4f} ms (device)")
+    levels = cases["frame 0"]
+    args = (levels, thr[0], thr[1], border)
+    b, dense_ms = fast_bound(*args)
+    print(f"[phase2] FAST+NMS bound on frame 0: {b['bound_ms']:.6f} ms "
+          f"({b['bound_by']}) from the work the outputs need, "
+          f"{dense_ms:.6f} ms counted dense (every pixel of every level, "
+          "the bound before the one-launch design)")
     return {"name": "fast_nms",
             "source": "slam_toolkit_tpu_torch/csrc/fast_nms.cu",
             "replaces": "slam_toolkit_tpu/ops/fast_kernel.py:149",
             "kernel": fast_kernel.KERNEL, "max_abs_err": 0.0,
-            **row_times(lambda: fast_kernel.detect_fused_cuda(*args),
-                        lambda: fast_kernel.detect_fused_plain(*args)),
-            **bound(2 * nbytes(lv0), fast_ops(*lv0.shape, True))}
+            "cases_ms": cases_ms,
+            **row_times(lambda: fast_kernel.detect_levels_cuda(*args),
+                        lambda: fast_kernel.detect_levels_plain(*args)),
+            **b}
 
 
 def phase2(dev) -> list:
@@ -834,9 +926,10 @@ def main() -> int:
     print(f"[phase4] {label} fused_fast: frames/s "
           f"{32 / sum(chunk_f[1:]):.2f} over chunks 2-3, launches "
           f"{launches_f}, max |t_fused - t_main| {max(dt_f)} m")
-    if launches_f["fast_nms"] != len(frames) * n_levels:
+    if launches_f["fast_nms"] != len(frames):
         raise AssertionError(f"FAST launched {launches_f['fast_nms']} "
-                             f"times, expected {len(frames)} x {n_levels}")
+                             f"times for {len(frames)} frames of "
+                             f"{n_levels} levels, expected one a frame")
     if launches_f["patch_gather"] != len(frames):
         raise AssertionError(f"the gather launched "
                              f"{launches_f['patch_gather']} times for "

@@ -2,8 +2,9 @@
 
 Counterpart of slam_toolkit_tpu/ops/extractor.py::extract with the
 matmul pyramid and upright float32 descriptors. FAST is routed as the
-JAX package routes it: the fused FAST+NMS kernel (ops/fast_kernel) when
-fused_fast is set and the border is at least 5, else the dual- or
+JAX package routes it: the fused FAST+NMS kernel (ops/fast_kernel, all
+levels of the frame in one call) when fused_fast is set and the border
+is at least 5, else the dual- or
 single-threshold detector of ops/fast. Output is a fixed-shape
 FrameFeatures; padded slots are flagged invalid.
 """
@@ -55,17 +56,26 @@ def extract(image: torch.Tensor, cfg: ExtractorConfig) -> FrameFeatures:
     levels = pyramid.build_pyramid(image, cfg)
     border = cfg.patch_radius + 1
     dev = image.device
+    budgets = level_budgets(cfg)
+    # dual threshold: high-threshold corners outrank low-threshold
+    # fallbacks through a +1e4 rank boost
+    thr_hi = float(cfg.fast_threshold_high) if cfg.dual_threshold else None
+    use_fused = cfg.fused_fast and border >= 5
+    fused = {}
+    if use_fused:
+        # the levels with a budget, up to MAX_LEVELS of them a launch
+        used = [lvl for lvl, n_l in enumerate(budgets) if n_l > 0]
+        for i in range(0, len(used), fast_kernel.MAX_LEVELS):
+            part = used[i:i + fast_kernel.MAX_LEVELS]
+            fused.update(zip(part, fast_kernel.detect_levels(
+                [levels[lvl] for lvl in part], thr_hi,
+                float(cfg.fast_threshold_low), border)))
     parts, blurred_levels, xy_levels = [], [], []
-    for lvl, (img_l, n_l) in enumerate(zip(levels, level_budgets(cfg))):
+    for lvl, (img_l, n_l) in enumerate(zip(levels, budgets)):
         if n_l == 0:
             continue
-        # dual threshold: high-threshold corners outrank low-threshold
-        # fallbacks through a +1e4 rank boost
-        thr_hi = float(cfg.fast_threshold_high) if cfg.dual_threshold \
-            else None
-        if cfg.fused_fast and border >= 5:
-            eff = fast_kernel.detect(img_l, thr_hi,
-                                     float(cfg.fast_threshold_low), border)
+        if use_fused:
+            eff = fused[lvl]
         elif cfg.dual_threshold:
             eff = fast.detect_dual(img_l, thr_hi,
                                    float(cfg.fast_threshold_low), border)

@@ -12,9 +12,10 @@ ROOT), in the order given (parent, change, change, parent compares two
 commits), and builds its own kernels. The checks and
 timers are this checkout's chip_smoke.py (`phase2`): every kernel against
 its plain version, its device time with the host out of the window, its
-wrapper's host time, the gather at the main path's budgets and local BA
-at 0, 1 and 10 iterations. Prints one JSON line per root, then one line
-per kernel with its device ms under each root. Needs a CUDA device.
+wrapper's host time, the gather at the main path's budgets, local BA
+at 0, 1 and 10 iterations, and FAST+NMS on two frames and on their
+level 0 alone. Prints one JSON line per root, then one line per kernel
+with its device ms under each root. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[2]
 KEYS = ("ms", "host_ms", "plain_ms", "library_ms", "bound_ms",
-        "max_abs_err", "split_ms")
+        "max_abs_err", "split_ms", "cases_ms")
 
 
 def run_one(root: str) -> dict:

@@ -263,6 +263,44 @@ def test_sad_curve_cuda_matches_plain(dev):
                                rtol=1e-5, atol=1e-3)
 
 
+def _sad_args(dev, h, w, k, max_disp, seed):
+    """Random corners for the SAD curves, the first 8 of them outside the
+    image on each of its four edges (the kernel clamps them)."""
+    from slam_toolkit_tpu_torch.ops import stereo_sad as sad
+    rng = np.random.default_rng(seed)
+    img_l, img_r = (_dev(np.round(rng.uniform(0, 255, (h, w)))
+                         .astype(np.float32), dev) for _ in range(2))
+    side, sw = 2 * sad.WIN + 1, sad._strip_w(max_disp)
+    ys = rng.integers(-20, h + 20, k)
+    xl = rng.integers(-20, w + 20, k)
+    xs = rng.integers(-20, w + 20, k)
+    edges = [(-7, -9, -30), (h - 3, w - 2, w), (0, w - side + 4, -1),
+             (h - side + 6, 0, w - sw + 9)]
+    for i, (y, a, b) in enumerate(edges * 2):
+        if i < k:
+            ys[i], xl[i], xs[i] = y, a, b
+    return (img_l, img_r, _i32(ys, dev), _i32(xl, dev), _i32(xs, dev),
+            max_disp)
+
+
+@pytest.mark.parametrize("k", [0, 1, 77, 2048])
+@pytest.mark.parametrize("max_disp", [0, 37, 100, 130])
+def test_sad_curve_cuda_shapes(dev, max_disp, k):
+    """K = 0 (no launch), 1, 77 (not a multiple of a block's keypoints)
+    and the main path's 2048; max_disp 0, 37, the main path's 100 and 130
+    (NS = 133, more than one 128-shift group); windows clamped at all four
+    image edges. Within the SAD bar of the plain version, and one launch
+    for K > 0."""
+    from slam_toolkit_tpu_torch.ops import stereo_sad as sad
+    args = _sad_args(dev, 60, 400, k, max_disp, seed=k + max_disp)
+    n0 = sad.KERNEL.launches
+    out = sad.sad_curve(*args)
+    assert sad.KERNEL.launches == n0 + (k > 0)
+    ref = sad.sad_curve_plain(*args)
+    assert out.shape == ref.shape == (k, max_disp + 3)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-3)
+
+
 @pytest.mark.parametrize("trim", [1e9, 5.0])
 def test_local_ba_cuda_matches_plain(dev, trim):
     """T within 3e-3 and X within 2e-2 of the plain solver on valid
@@ -372,3 +410,85 @@ def test_fast_nms_cuda_exact(dev, border, dual):
     ref = fast_kernel.detect_fused_plain(img, thr_hi, 7.0, border)
     assert torch.equal(out, ref)
     assert int((ref > 0).sum()) > 50
+
+
+def _blob_image(h, w, rng, n_blobs):
+    img = rng.uniform(40, 60, (h, w)).astype(np.float32)
+    for _ in range(n_blobs):
+        y, x = rng.integers(0, h - 3), rng.integers(0, w - 3)
+        img[y:y + 3, x:x + 3] += rng.uniform(30, 180)
+    return np.round(img)
+
+
+@pytest.mark.parametrize("border", [0, 5, 16])
+@pytest.mark.parametrize("dual", [True, False])
+def test_fast_levels_cuda_exact(dev, border, dual):
+    """detect_levels on the 8 levels of a full-size frame (376x1241 at
+    scale 1.2, the pyramid built on the card) in one launch, bit-exact
+    against the plain detector on every level."""
+    from slam_toolkit_tpu_torch.config import ExtractorConfig
+    from slam_toolkit_tpu_torch.ops import fast_kernel, pyramid
+    rng = np.random.default_rng(11 * border + dual)
+    img = _dev(_blob_image(376, 1241, rng, 3000), dev)
+    cfg = ExtractorConfig()
+    levels = pyramid.build_pyramid(img, cfg)
+    assert [tuple(lv.shape) for lv in levels] == \
+        pyramid.level_shapes(376, 1241, cfg)
+    thr_hi = 20.0 if dual else None
+    n0 = fast_kernel.KERNEL.launches
+    outs = fast_kernel.detect_levels(levels, thr_hi, 7.0, border)
+    assert fast_kernel.KERNEL.launches == n0 + 1
+    refs = fast_kernel.detect_levels_plain(levels, thr_hi, 7.0, border)
+    for lv, out, ref in zip(levels, outs, refs):
+        assert torch.equal(out, ref), tuple(lv.shape)
+        assert int((ref > 0).sum()) > 20
+
+
+def _plateaus(h, w):
+    """Flat 50 with bright and dark blocks of 2x2, 1x2, 2x1 and 3x1
+    pixels: each block's pixels have equal responses, so only the
+    row-major earliest may survive NMS."""
+    img = np.full((h, w), 50.0, np.float32)
+    blocks = [(2, 2, 100.0), (1, 2, -40.0), (2, 1, 90.0), (3, 1, -35.0),
+              (2, 2, -45.0), (1, 2, 120.0)]
+    i = 0
+    for y in range(6, h - 8, 9):
+        for x in range(6, w - 8, 9):
+            bh, bw, v = blocks[i % len(blocks)]
+            img[y:y + bh, x:x + bw] += v
+            i += 1
+    return img
+
+
+@pytest.mark.parametrize("case", ["tiny", "constant", "plateaus"])
+@pytest.mark.parametrize("dual", [True, False])
+def test_fast_levels_cuda_edge_cases(dev, case, dual):
+    """A level smaller than one tile (5x7), a constant image (no corner
+    at all) and plateaus of equal response (the earlier-neighbour
+    tie-break), each with a full-width level beside it in the same
+    launch; bit-exact at borders 0 and 5."""
+    from slam_toolkit_tpu_torch.ops import fast, fast_kernel
+    rng = np.random.default_rng(5 + dual)
+    if case == "tiny":
+        img = _blob_image(5, 7, rng, 0)
+        img[1:3, 2:4] += 120.0
+    elif case == "constant":
+        img = np.full((70, 130), 77.0, np.float32)
+    else:
+        img = _plateaus(97, 301)
+    levels = [_dev(img, dev), _dev(_blob_image(376, 1241, rng, 500), dev)]
+    thr_hi = 20.0 if dual else None
+    for border in (0, 5):
+        n0 = fast_kernel.KERNEL.launches
+        outs = fast_kernel.detect_levels(levels, thr_hi, 7.0, border)
+        assert fast_kernel.KERNEL.launches == n0 + 1
+        refs = fast_kernel.detect_levels_plain(levels, thr_hi, 7.0, border)
+        for out, ref in zip(outs, refs):
+            assert torch.equal(out, ref), (case, border)
+    if case == "constant":
+        assert int((refs[0] != 0).sum()) == 0
+    if case == "plateaus":
+        resp = fast.fast_response(levels[0], 7.0)
+        ties = (resp[:, 1:] == resp[:, :-1]) & (resp[:, 1:] > 0)
+        assert int(ties.sum()) > 50                  # plateaus exist
+        assert int((refs[0] > 0).sum()) > 100

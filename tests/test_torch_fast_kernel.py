@@ -1,7 +1,8 @@
 """The fused FAST+NMS module against the JAX package, bit-exact, on the CPU.
 
-fast_kernel.detect runs its plain version (fast.detect_dual, or
-fast.detect with a single threshold) for CPU tensors; the same seeded
+fast_kernel.detect and detect_levels (every level of a pyramid in one
+call) run their plain version (fast.detect_dual, or fast.detect with a
+single threshold) for CPU tensors; the same seeded
 images go through JAX's fused Pallas kernel in interpret mode and its XLA
 formulation. Every comparison is exact: the responses are additions in a
 fixed order. The Pallas kernel's zero halo makes it exact only from
@@ -24,6 +25,7 @@ from slam_toolkit_tpu.ops import fast as j_fast
 from slam_toolkit_tpu.ops import fast_kernel as j_fk
 from slam_toolkit_tpu_torch.ops import extractor as t_ext
 from slam_toolkit_tpu_torch.ops import fast_kernel as t_fk
+from slam_toolkit_tpu_torch.ops import pyramid as t_pyr
 
 torch.set_num_threads(1)
 
@@ -57,11 +59,51 @@ def test_detect_matches_jax(border, dual):
         assert (out >= 1e4).sum() > 5          # boosted high survivors
 
 
+@pytest.mark.parametrize("border", [16, 5])
 @pytest.mark.parametrize("dual", [True, False])
-def test_extract_fused_fast_matches_jax(dual):
+def test_detect_levels_matches_jax(border, dual):
+    """detect_levels on the levels of a tiny-camera pyramid (the port's
+    build_pyramid on SlamConfig.tiny(), 4 levels) equals, level by level,
+    JAX's fused Pallas kernel (interpret mode) and its XLA detector on
+    the same level arrays."""
+    cfg = SlamConfig.tiny()
+    img = _image(cfg.camera.height, cfg.camera.width, seed=3 * border + dual)
+    levels = t_pyr.build_pyramid(torch.from_numpy(img), cfg.extractor)
+    assert len(levels) == cfg.extractor.num_levels
+    thr_hi = 20.0 if dual else None
+    n0 = t_fk.KERNEL.launches
+    outs = t_fk.detect_levels(levels, thr_hi, 7.0, border)
+    assert t_fk.KERNEL.launches == n0
+    assert len(outs) == len(levels)
+    n_corners = 0
+    for lvl, out in zip(levels, outs):
+        a = jnp.asarray(lvl.numpy())
+        ref = np.asarray(j_fast.detect_dual(a, 20.0, 7.0, border) if dual
+                         else j_fast.detect(a, 7.0, border))
+        pallas = np.asarray(j_fk.detect_fused(a, thr_hi, 7.0, border,
+                                              interpret=True))
+        assert out.shape == lvl.shape
+        np.testing.assert_array_equal(out.numpy(), ref)
+        np.testing.assert_array_equal(out.numpy(), pallas)
+        n_corners += int((ref > 0).sum())
+    assert n_corners > 20
+
+
+def test_detect_levels_refuses():
+    """One call takes 1 to MAX_LEVELS levels, on the CPU as on the card."""
+    img = torch.zeros((40, 40))
+    n = t_fk.MAX_LEVELS
+    assert len(t_fk.detect_levels([img] * n, 20.0, 7.0, 16)) == n
+    for bad in ([img] * (n + 1), []):
+        with pytest.raises(ValueError, match="levels"):
+            t_fk.detect_levels(bad, 20.0, 7.0, 16)
+
+
+@pytest.mark.parametrize("dual", [True, False])
+def test_extract_fused_fast_matches_jax(dual, monkeypatch):
     """extract with fused_fast=True (the tiny camera, a rendered frame):
     keypoints, octaves, validity and descriptors exact against the JAX
-    extract at the same setting."""
+    extract at the same setting; FAST runs as one detect_levels call."""
     cfg = SlamConfig.tiny()
     ecfg = dataclasses.replace(cfg.extractor, fused_fast=True,
                                dual_threshold=dual)
@@ -71,7 +113,15 @@ def test_extract_fused_fast_matches_jax(dual):
     img = np.clip(render_stereo(world, T)[0], 0, 255).astype(np.uint8) \
         .astype(np.float32)
     fj = jax.jit(lambda x: j_ext.extract(x, ecfg))(img)
+    calls = []
+    orig = t_fk.detect_levels
+
+    def spy(levels, *args):
+        calls.append(len(levels))
+        return orig(levels, *args)
+    monkeypatch.setattr(t_fk, "detect_levels", spy)
     ft = t_ext.extract(torch.from_numpy(img), ecfg)
+    assert calls == [ecfg.num_levels]
     assert int(ft.valid.sum()) > 100
     np.testing.assert_array_equal(ft.valid.numpy(), np.asarray(fj.valid))
     np.testing.assert_array_equal(ft.xy.numpy(), np.asarray(fj.xy))
