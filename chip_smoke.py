@@ -23,13 +23,15 @@ Phases (any failure raises and the script exits non-zero):
      host work included (median of 30; 10 for local BA): no yardstick.
    - `bound_ms`: the larger of its bytes over 3.35 TB/s and its
      operations over 67 TFLOP/s (the H100's published HBM rate and
-     float32 peak). The gather's bytes count the image's 32-byte sectors
-     that its windows cover, not the whole image. The top-2's operations
-     count what its output needs on this run's inputs: the float32 pixel
-     gate on every pair, and the Hamming distance and running top-2 only
-     for the pairs inside 2r, in integer operations at the rates of their
-     type (__popc at 16 a clock per SM); its dense count of earlier
-     commits, 36 float32 operations a pair, is printed beside it.
+     float32 peak). The gather's and the stereo SAD's bytes count the
+     images' 32-byte sectors that their windows (SAD: the left windows
+     and the right strips) cover, not the whole images. The top-2's
+     operations count what its output needs on this run's inputs: the
+     float32 pixel gate on every pair, and the Hamming distance and
+     running top-2 only for the pairs inside 2r, in integer operations
+     at the rates of their type (__popc at 16 a clock per SM); its dense
+     count of earlier commits, 36 float32 operations a pair, is printed
+     beside it.
    The gather is timed as the main path launches it, a frame's 31x31
    windows at every pyramid level's budget in one launch (its bound and
    its library time, one unfold call a level, summed over the levels),
@@ -38,8 +40,9 @@ Phases (any failure raises and the script exits non-zero):
    timed as the fused path launches it, a frame's 8 levels in one launch
    (frame 0 of the track; its level 0 alone and a textured-noise frame
    beside it), bit-exact on every level in both modes; its bound counts
-   the work its outputs need (the pixels that pass the cardinal test,
-   counted on the run's input), the dense count of earlier commits
+   the work its outputs need on the run's input (a response only for the
+   (pixel, threshold, side) triples that pass the cardinal test, the NMS
+   only for the positive centres), the dense count of earlier commits
    printed beside it. Local BA is also timed at 0 and 1 iterations.
    Local BA and the pose LM are cluster kernels (8 CTAs holding their
    share of the points / observations in shared memory); for local BA
@@ -217,16 +220,17 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def window_bytes(img, ys, xs, side: int) -> int:
-    """Bytes of img that side x side windows at corners (ys, xs) must read:
+def window_bytes(img, ys, xs, rows: int, cols: int) -> int:
+    """Bytes of img that rows x cols windows at corners (ys, xs) must read:
     the 32-byte sectors (the unit the memory system moves) that hold a
     pixel of their union, marked in a mask of the image, its rows laid
     end to end from an aligned start."""
     h, w = img.shape
     mask = torch.zeros(h, w, dtype=torch.bool, device=img.device)
-    r = torch.arange(side, device=img.device)
-    mask[(ys.long()[:, None] + r)[:, :, None],
-         (xs.long()[:, None] + r)[:, None, :]] = True
+    ry = torch.arange(rows, device=img.device)
+    rx = torch.arange(cols, device=img.device)
+    mask[(ys.long()[:, None] + ry)[:, :, None],
+         (xs.long()[:, None] + rx)[:, None, :]] = True
     per = 32 // img.element_size()
     flat = torch.nn.functional.pad(mask.flatten(), (0, -mask.numel() % per))
     return int(flat.view(-1, per).any(1).sum()) * 32
@@ -283,7 +287,7 @@ def check_gather(dev, rng):
         img_l = to_dev(rng.uniform(0, 255, (lh, lw)).astype(np.float32), dev)
         y, x, kern, _, lib = _gather_case(img_l, k, side, rng)
         # the image sectors the windows cover
-        cover = window_bytes(img_l, y, x, side)
+        cover = window_bytes(img_l, y, x, side, side)
         if not imgs:                               # level 0, one image
             print(f"[phase2] gather level 0 alone, {k}x31x31 of {lh}x{lw}: "
                   f"kernel {device_ms(kern):.4f} ms, unfold "
@@ -503,17 +507,24 @@ def check_sad(dev, rng):
     out = sad.sad_curve_cuda(*args)
     ref = sad.sad_curve_plain(*args)
     err = float((out - ref).abs().max())
+    # the sectors the left windows and the right strips cover, the
+    # corners, the curves; per output and window pixel a subtract and an
+    # add (the absolute value is an operand modifier of the add)
+    left_b = window_bytes(left, ys0, xl0, side, side)
+    right_b = window_bytes(right, ys0, xs0, side, sw)
+    b = bound(left_b + right_b + nbytes(ys0, xl0, xs0, out),
+              out.numel() * side * side * 2)
     print(f"[phase2] SAD K={k} max_disp={max_disp}: max_abs_err {err} "
-          "(rtol 1e-5, atol 1e-3)")
+          f"(rtol 1e-5, atol 1e-3); the windows cover {left_b} of the left "
+          f"image's {nbytes(left)} bytes, the strips {right_b} of the "
+          f"right's; bound {b['bound_ms']:.6f} ms ({b['bound_by']})")
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-3)
     return {"name": "stereo_sad",
             "source": "slam_toolkit_tpu_torch/csrc/stereo_sad.cu",
             "replaces": "slam_toolkit_tpu/ops/stereo_sad.py:128",
             "kernel": sad.KERNEL, "max_abs_err": err,
             **row_times(lambda: sad.sad_curve_cuda(*args),
-                        lambda: sad.sad_curve_plain(*args)),
-            # 121-pixel window, per shift: subtract, absolute value, add
-            **bound(nbytes(*args[:5], out), out.numel() * 121 * 3)}
+                        lambda: sad.sad_curve_plain(*args)), **b}
 
 
 def _ba_problem(dev, rng, W=8, P=1024, noise=5e-4):
@@ -669,54 +680,76 @@ def _span(n: int, lo: int, hi: int) -> int:
     return max(0, min(n, hi) - max(0, lo))
 
 
-def cardinal_pass(img, thr: float, border: int) -> int:
-    """Pixels of the response ring [border - 1, h - border] (both axes)
-    with two neighbouring cardinal taps (0 and 4, 4 and 8, 8 and 12, 12
-    and 0) beyond thr on one side, i.e. one of taps 0 and 8 and one of
-    taps 4 and 12: the only ones whose response can be non-zero at a
-    threshold >= thr."""
+def fast_work(img, thr_hi, thr_lo: float, border: int) -> dict:
+    """What one level's outputs need, counted on its pixels with the
+    kernel's own tests. `ring`: the response ring [border - 1, h - border]
+    (both axes), whose responses the NMS reads. `triples`: its (pixel,
+    threshold, side) triples with one of taps 0 and 8 and one of taps 4
+    and 12 beyond the threshold on that side (a 9-arc covers two
+    neighbouring cardinal taps, so no other triple has a response);
+    `passing`: its pixels with at least one. `inner`: the valid interior
+    [border, h - border); `positive`: its pixels with a positive response
+    at some threshold, the only ones the NMS can keep."""
+    from slam_toolkit_tpu_torch.ops import fast
     h, w = img.shape
     p = torch.nn.functional.pad(img[None, None], (3, 3, 3, 3),
                                 mode="replicate")[0, 0]
     d0, d4, d8, d12 = (p[3 + dy:3 + dy + h, 3 + dx:3 + dx + w] - img
                        for dy, dx in ((-3, 0), (0, 3), (3, 0), (0, -3)))
-    ok = (((torch.maximum(d0, d8) > thr) & (torch.maximum(d4, d12) > thr)) |
-          ((torch.minimum(d0, d8) < -thr) & (torch.minimum(d4, d12) < -thr)))
+    hi08, hi412 = torch.maximum(d0, d8), torch.maximum(d4, d12)
+    lo08, lo412 = torch.minimum(d0, d8), torch.minimum(d4, d12)
+    thrs = [thr_lo] if thr_hi is None else [thr_lo, thr_hi]
+    cand = torch.stack([c for t in thrs for c in (
+        (hi08 > t) & (hi412 > t), (lo08 < -t) & (lo412 < -t))])
     y0, x0 = max(0, border - 1), max(0, border - 1)
-    return int(ok[y0:max(y0, h - border + 1), x0:max(x0, w - border + 1)]
-               .sum())
+    cand = cand[:, y0:max(y0, h - border + 1), x0:max(x0, w - border + 1)]
+    resp = ([fast.fast_response(img, thr_lo)] if thr_hi is None
+            else list(fast.dual_response(img, thr_hi, thr_lo)))
+    y0, x0 = max(0, border), max(0, border)
+    pos = torch.stack(resp)[:, y0:max(y0, h - border),
+                            x0:max(x0, w - border)] > 0
+    return {"ring": _span(h, border - 1, h - border + 1) *
+            _span(w, border - 1, w - border + 1),
+            "passing": int(cand.any(0).sum()), "triples": int(cand.sum()),
+            "inner": _span(h, border, h - border) *
+            _span(w, border, w - border),
+            "positive": int(pos.any(0).sum())}
 
 
 def fast_bound(levels, thr_hi, thr_lo: float, border: int):
     """The FAST row's bound from the work its outputs need, summed over
-    the levels, and the dense count of earlier commits (ms). Bytes: every
-    output pixel written once, and the input pixels within 4 of the
-    valid interior [border, h - border) read once. Operations: on the
-    response ring (the interior and its 1-pixel NMS ring), the cardinal
-    test (4 differences, 8 compares in float32; 8 integer operations);
-    on the pixels that pass it (measured on these levels), the other 12
-    differences and per threshold 16 x (2 compares, 2 for the excess sum)
-    and the max of the two arcs' sums in float32, and 16 x 2 mask bits
-    and two 8-step arc tests in integers; on the interior, per threshold
-    the 3x3 NMS (13) and the boost and mask (2)."""
+    the levels; the dense count of earlier commits (ms); and the levels'
+    summed fast_work counts it was made from. Bytes: every output pixel
+    written once, and the input pixels within 4 of the valid interior
+    [border, h - border) read once. Operations, with n_thr thresholds:
+    on each ring pixel the cardinal test (4 differences, 4 max / min and
+    4 n_thr compares in float32; an and per (threshold, side)); on each
+    passing pixel the other 12 differences; on each passing triple, per
+    tap a compare, a subtract and an add for the excess sum (float32) and
+    a mask bit (integer), then one log-step arc test (12 integer
+    operations) and the select and the max of the sides (2 float32); on
+    each interior pixel n_thr compares of the centre with 0; on each
+    positive one the 3x3 NMS per threshold (13), the boost and the mask
+    (2)."""
     n_thr = 1 if thr_hi is None else 2
-    thr_min = thr_lo if thr_hi is None else min(thr_hi, thr_lo)
     n_bytes = f32 = i32 = 0
+    counts = dict.fromkeys(("ring", "passing", "triples", "inner",
+                            "positive"), 0)
     for img in levels:
         h, w = img.shape
-        ring = _span(h, border - 1, h - border + 1) * \
-            _span(w, border - 1, w - border + 1)
-        inner = _span(h, border, h - border) * _span(w, border, w - border)
-        passing = cardinal_pass(img, thr_min, border)
+        c = fast_work(img, thr_hi, thr_lo, border)
+        for key in counts:
+            counts[key] += c[key]
         n_bytes += 4 * (h * w + _span(h, border - 4, h - border + 4) *
                         _span(w, border - 4, w - border + 4))
-        f32 += ring * 12 + passing * (12 + n_thr * 65) + \
-            inner * (13 * n_thr + 2)
-        i32 += ring * 8 + passing * n_thr * 48
+        f32 += (c["ring"] * (8 + 4 * n_thr) + c["passing"] * 12 +
+                c["triples"] * (16 * 3 + 2) + c["inner"] * n_thr +
+                c["positive"] * (13 * n_thr + 2))
+        i32 += c["ring"] * 2 * n_thr + c["triples"] * (16 + 12)
     dense = bound(2 * sum(nbytes(lv) for lv in levels),
                   sum(fast_ops(*lv.shape, thr_hi is not None)
                       for lv in levels))["bound_ms"]
-    return bound(n_bytes, f32, int_ops=i32), dense
+    return bound(n_bytes, f32, int_ops=i32), dense, counts
 
 
 def check_fast_nms(dev, rng):
@@ -737,7 +770,7 @@ def check_fast_nms(dev, rng):
     noise = to_dev(_textured(376, 1241, rng), dev)
     cases = {name: pyramid.build_pyramid(img, ecfg)
              for name, img in (("frame 0", frame), ("textured", noise))}
-    cases_ms = {}
+    cases_ms, bounds = {}, {}
     for name, levels in cases.items():
         n_corners = 0
         for thr_hi in (thr[0], None):
@@ -751,10 +784,8 @@ def check_fast_nms(dev, rng):
                         f"FAST+NMS differs on {name} at level "
                         f"{tuple(lv.shape)}, thr_hi={thr_hi}")
                 n_corners += int((ref > 0).sum())
-        ring = sum(_span(h, border - 1, h - border + 1) *
-                   _span(w, border - 1, w - border + 1)
-                   for h, w in (lv.shape for lv in levels))
-        passing = sum(cardinal_pass(lv, min(thr), border) for lv in levels)
+        b, dense_ms, c = fast_bound(levels, thr[0], thr[1], border)
+        bounds[name] = b
         ms = device_ms(lambda lv=levels: fast_kernel.detect_levels_cuda(
             lv, thr[0], thr[1], border))
         lv0_ms = device_ms(lambda lv=levels[0]: fast_kernel.detect_fused_cuda(
@@ -763,17 +794,18 @@ def check_fast_nms(dev, rng):
         cases_ms[f"{name} level 0"] = lv0_ms
         print(f"[phase2] FAST+NMS on {name}: exact at all {len(levels)} "
               f"level shapes {[tuple(lv.shape) for lv in levels]}, both "
-              f"modes ({n_corners} corners); {passing} of the {ring} ring "
-              f"pixels ({100 * passing / ring:.1f}%) pass the cardinal "
-              f"test; the frame's one launch {ms:.4f} ms, level 0 alone "
-              f"{lv0_ms:.4f} ms (device)")
+              f"modes ({n_corners} corners); {c['passing']} of the "
+              f"{c['ring']} ring pixels ({100 * c['passing'] / c['ring']:.1f}"
+              f"%) pass the cardinal test, {c['triples']} (threshold, side) "
+              f"triples ({c['triples'] / max(c['passing'], 1):.2f} a passing "
+              f"pixel), {c['positive']} of the {c['inner']} interior pixels "
+              f"positive; the frame's one launch {ms:.4f} ms, level 0 alone "
+              f"{lv0_ms:.4f} ms (device); bound {b['bound_ms']:.6f} ms "
+              f"({b['bound_by']}) from the work the outputs need, "
+              f"{dense_ms:.6f} ms counted dense (every pixel of every level, "
+              "the bound before the one-launch design)")
     levels = cases["frame 0"]
     args = (levels, thr[0], thr[1], border)
-    b, dense_ms = fast_bound(*args)
-    print(f"[phase2] FAST+NMS bound on frame 0: {b['bound_ms']:.6f} ms "
-          f"({b['bound_by']}) from the work the outputs need, "
-          f"{dense_ms:.6f} ms counted dense (every pixel of every level, "
-          "the bound before the one-launch design)")
     return {"name": "fast_nms",
             "source": "slam_toolkit_tpu_torch/csrc/fast_nms.cu",
             "replaces": "slam_toolkit_tpu/ops/fast_kernel.py:149",
@@ -781,7 +813,7 @@ def check_fast_nms(dev, rng):
             "cases_ms": cases_ms,
             **row_times(lambda: fast_kernel.detect_levels_cuda(*args),
                         lambda: fast_kernel.detect_levels_plain(*args)),
-            **b}
+            **bounds["frame 0"]}
 
 
 def phase2(dev) -> list:

@@ -15,12 +15,15 @@
 // halo was exact only from border 5). Outside the image the NMS sees -1,
 // as nms3x3 pads.
 //
-// What bounds it on an H100: operations. A frame's 8 levels hold ~1.5M
-// pixels (6.2 MB read once and written once, ~3.7 us at 3.35 TB/s),
-// and a corner candidate costs ~100 float and integer operations a side
-// and threshold; on the card the per-tile bookkeeping around them
-// (staging, the cardinal tests, the queues, the zero writes) takes
-// about as many instructions again.
+// What bounds it on an H100, by the count chip_smoke.py makes on a
+// rendered frame at both thresholds: operations (~3.4 us) a little
+// above bytes (~3.2 us: a frame's 8 levels hold ~1.5M pixels, each
+// written once, and the ~1.4M within 4 of the valid interior read
+// once). A (pixel, threshold, side) that passes the cardinal test costs
+// 50 float32 and 28 integer operations (about 1.5 of them a passing
+// pixel); on the card the per-tile bookkeeping around them (staging,
+// the cardinal tests, the queues, the zero writes) takes more of the
+// kernel's time than the responses do.
 //
 // Design: the levels travel as pointers with their shapes and first
 // blocks in one by-value struct (at most kMaxLevels), so a frame is one

@@ -7,10 +7,12 @@
 // width 113). Argmin, parabola and uniqueness stay in PyTorch
 // (ops/stereo_sad.py), as in the JAX package.
 //
-// What bounds it on an H100: by the count chip_smoke.py makes (each input
-// read once, the two images whole: 3.7 MB, and the 0.8 MB of curves
-// written), bytes, 1.37 us; its 121 * 3 subtract-abs-add operations per
-// output (77M at K = 2048) take 1.14 us at the float32 peak. What limits
+// What bounds it on an H100: by the count chip_smoke.py makes, bytes:
+// the 32-byte sectors that the K = 2048 left windows (~1.1 MB) and right
+// strips (~1.8 MB) cover, read once, and the 0.8 MB of curves written,
+// ~1.1 us at 3.35 TB/s; its 121 subtracts and 121 adds per output (the
+// absolute value is an operand modifier of the add; 51M at K = 2048)
+// take ~0.76 us at the float32 peak. What limits
 // the kernel itself is issuing those operations and the shared-memory
 // loads that feed them: one load per difference, as a thread per shift
 // did, costs more than the arithmetic.
