@@ -56,13 +56,20 @@ Phases (any failure raises and the script exits non-zero):
    synthetic frames on a +0.8 m/frame track (tools/bench.stage_frames,
    cached under the temporary directory),
    ChunkedSlamEngine(chunk_size=16, device="cuda"), 3 chunks, then
-   trajectory_refined(). Every kernel's launch count is reset just
-   before and read just after; kernels 1-5 must have launched, the
-   gather once a frame, local BA once per keyframe after the bootstrap;
-   ATE must stay <= 0.138 m. The inputs projection_match hands to the
-   top-2 matcher on one mid-run frame are kept on the card; after the
-   run the kernel must be exact against the plain version on them, and
-   its device time there is printed beside the synthetic case's.
+   trajectory_refined(). The engine runs graphed, its default
+   (scan_engine.make_chunk_fn: the tracking step and the keyframe event
+   captured once each as CUDA graphs in the first chunk, then replayed);
+   phases 4-8, 10, 11 (c) and 13 too. Every kernel's launch count is
+   reset just before and read just after (a graph adds on each replay
+   the launches its capture recorded; the warm-up before the capture is
+   set-up and not counted); kernels 1-5 must have launched, the gather
+   once a frame, local BA once per keyframe after the bootstrap; ATE
+   must stay <= 0.138 m. The captures, their seconds and the graphs'
+   memory pool are printed. The inputs projection_match hands to the
+   top-2 matcher on one frame are kept on the card (copied inside the
+   graph: the last frame replayed); after the run the kernel must be
+   exact against the plain version on them, and its device time there
+   is printed beside the synthetic case's.
 4. The same 48 frames with extractor.fused_fast=True: counts reset
    before and read after; FAST launches once a frame (all levels in one
    launch), keyframe flags equal phase 3's, translations within 1e-4 m
@@ -88,7 +95,7 @@ Phases (any failure raises and the script exits non-zero):
    `launches_loop_closer`; the three batched entries of phase 13 as rows
    of their own, whose `launches` are their launches in that batched
    run, their own path), then the result line. It is printed last, after
-   phases 10-13.
+   phases 10-14.
 10. Loop closing at full width: SlamConfig(), the loop bench's world and
    clothoid (tools/bench.stage_loop_frames: 192 frames, the track closing
    at frame 160, then its first 32 frames again; rendered in parallel
@@ -165,13 +172,24 @@ Phases (any failure raises and the script exits non-zero):
    and to each lane run alone through ChunkedSlamEngine, and
    translations within 1e-3 m (a lane that parts names the frame).
    Aggregate frames/s of both layouts (the second chunk) and one lane
-   alone's, and the device operations a frame of each layout (its first
-   2 frames under torch.profiler) are printed. The inputs of the three
-   batched entries on one frame of the batched run are kept on the card;
+   alone's, and the device operations a frame of each layout (frames 2
+   and 3 under torch.profiler, after frame 1 captured the graphs) are
+   printed. The inputs of the three batched entries on one frame of the
+   batched run are kept on the card (as phase 3's: the last frame);
    each entry is then held exactly, lane by lane, against its single
    launch on them and against its batched plain version (the pose LM:
    bit for bit against the single launch, within 2e-3 of the plain
    version), with its times, bound and library time as phase 2's.
+14. CUDA graphs against the eager step (graphs=False, make_frame_body)
+   at full width: phase 3's 48 frames in the paired order eager,
+   graphed, graphed, eager. Every run's 48 x 36 packed values (the
+   bootstrap frame's row built the same way from the engine's
+   trajectory) must be bit-equal, and the launch counts of the graphed
+   runs, counted from the replays, equal to the eager runs' (by window
+   shape too). Then phase 13's batched layout again, eagerly: its rows
+   bit-equal to phase 13's graphed run and its launches equal. Prints
+   each run's frames/s, the captures, their seconds and the graphs'
+   pool memory, and both modes' aggregate frames/s at four lanes.
 
 It imports nothing of JAX.
 """
@@ -543,19 +561,25 @@ def gate_shares(t, r: float) -> str:
 class MatchCapture:
     """Keeps, on the card, the inputs that projection_match hands to the
     top-2 matcher on its `call`-th call (one mid-run frame); the matcher
-    itself runs as before, once a call."""
+    itself runs as before, once a call. Under a CUDA graph the matcher's
+    Python runs only at the capture: the copy is then captured with it,
+    and after the run holds the inputs of the last frame replayed."""
 
     def __init__(self, call: int):
         from slam_toolkit_tpu_torch.frontend import matching
         self.matching, self.orig = matching, matching.topk2_match
         self.call, self.calls, self.args = call, 0, None
+        self.what = f"call {call}"
         matching.topk2_match = self
 
     def __call__(self, *args):
         self.calls += 1
-        if self.calls == self.call:
+        capturing = torch.cuda.is_current_stream_capturing()
+        if self.calls == self.call or capturing:
             self.args = [a.clone() if isinstance(a, torch.Tensor) else a
                          for a in args]
+            if capturing:
+                self.what = "the last frame, copied inside the graph"
         return self.orig(*args)
 
     def close(self):
@@ -572,10 +596,10 @@ def check_topk2_frame(cap: MatchCapture, synthetic_ms: float, label: str):
                              f"no call {cap.call} to capture")
     *t, r = cap.args
     m, n = t[0].shape[0], t[1].shape[0]
-    topk2_exact(t, r, f"main-path frame (call {cap.call})")
+    topk2_exact(t, r, f"main-path frame ({cap.what})")
     ms = device_ms(lambda: mk.topk2_match_cuda(*t, r))
     b, dense_ms = topk2_bound(t, r)
-    print(f"[phase3] {label} top-2 on the main path's call {cap.call} "
+    print(f"[phase3] {label} top-2 on the main path's {cap.what} "
           f"(M={m} N={n} r={r}): exact, {gate_shares(t, r)}; kernel "
           f"{ms:.4f} ms (device) there, {synthetic_ms:.4f} ms on the "
           f"synthetic case; bound there {b['bound_ms']:.6f} ms "
@@ -1404,7 +1428,9 @@ def _clone(a):
 class BatchedCapture:
     """While installed, keeps on the card the inputs of the `call`-th
     call of each batched kernel entry (a mid-run frame of the batched
-    layout); the entries run as before."""
+    layout); the entries run as before. Under a CUDA graph, as
+    MatchCapture: the copy made at the capture holds the inputs of the
+    last frame replayed."""
 
     def __init__(self, call: int):
         import importlib
@@ -1419,7 +1445,8 @@ class BatchedCapture:
 
         def call(*args):
             self.calls[name] = self.calls.get(name, 0) + 1
-            if self.calls[name] == self.call:
+            if self.calls[name] == self.call or \
+                    torch.cuda.is_current_stream_capturing():
                 self.args[name] = _clone(list(args))
             return orig(*args)
         return call
@@ -1550,9 +1577,10 @@ def check_pose_lm_batched(args) -> dict:
 
 def dp_run(make_step, cfg, cam, first, chunks, kernels: dict, cap=None):
     """One layout over the lanes: every count set to 0 just before the
-    bootstrap, read just after the last chunk; the first DP_PROFILED
-    frames under torch.profiler (operations a frame), the second chunk
-    timed alone."""
+    bootstrap, read just after the last chunk; frame 1 alone (where the
+    graphs are captured, outside the profiler), frames 2 to DP_PROFILED +
+    1 under torch.profiler (operations a frame), the second chunk timed
+    alone. Returns the chunk function too."""
     from slam_toolkit_tpu_torch.parallel import mesh
     from slam_toolkit_tpu_torch.utils.timing import device_activity
     step = make_step(cfg, cam)
@@ -1562,20 +1590,21 @@ def dp_run(make_step, cfg, cam, first, chunks, kernels: dict, cap=None):
         carry = mesh.batched_bootstrap(cfg, cam)(
             mesh.batched_empty_map(cfg, first.shape[0], first.device),
             first[:, 0], first[:, 1])
-        (carry, p0), act = device_activity(step, carry,
-                                           chunks[0][:DP_PROFILED])
-        carry, p1 = step(carry, chunks[0][DP_PROFILED:])
+        carry, p0 = step(carry, chunks[0][:1])
+        (carry, p1), act = device_activity(step, carry,
+                                           chunks[0][1:1 + DP_PROFILED])
+        carry, p2 = step(carry, chunks[0][1 + DP_PROFILED:])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        carry, p2 = step(carry, chunks[1])
+        carry, p3 = step(carry, chunks[1])
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
     finally:
         if cap is not None:
             cap.close()
     launches = {n: k.launches for n, k in kernels.items()}
-    rows = torch.cat([p0, p1, p2]).cpu().numpy()          # (32, B, 36)
-    return carry, rows, secs, launches, act
+    rows = torch.cat([p0, p1, p2, p3]).cpu().numpy()      # (32, B, 36)
+    return carry, rows, secs, launches, act, step
 
 
 def lanes_apart(a: np.ndarray, b: np.ndarray, tol: float = 1e-3):
@@ -1606,11 +1635,11 @@ def phase13(cfg, frames7, loop_frames, kernels: dict, label: str) -> dict:
           f"straight track, phase 10's clothoid from frames "
           f"{DP_LOOP_STARTS}")
     t0 = time.perf_counter()
-    _, rows_l, secs_l, launch_l, act_l = dp_run(
+    _, rows_l, secs_l, launch_l, act_l, _ = dp_run(
         mesh.multi_sequence_lane_chunk, cfg, cam, first, chunks, every)
     t1 = time.perf_counter()
     cap = BatchedCapture(call=DP_CHUNK)
-    _, rows_v, secs_v, launch_v, act_v = dp_run(
+    _, rows_v, secs_v, launch_v, act_v, step_v = dp_run(
         mesh.multi_sequence_chunk, cfg, cam, first, chunks, every, cap)
     t2 = time.perf_counter()
     alone, alone_fps = [], []
@@ -1635,7 +1664,7 @@ def phase13(cfg, frames7, loop_frames, kernels: dict, label: str) -> dict:
           f"vmap {fps['vmap']:.2f} ({lanes} lanes, chunk 2); one lane "
           f"alone (ChunkedSlamEngine, chunk 2, mean of {lanes}) "
           f"{fps['alone']:.2f}; device operations a frame of the {lanes} "
-          f"lanes (torch.profiler, frames 1-{DP_PROFILED}): lane "
+          f"lanes (torch.profiler, frames 2-{DP_PROFILED + 1}): lane "
           f"{per_frame['lane']}, "
           f"vmap {per_frame['vmap']}; busy share lane "
           f"{act_l['busy']}, vmap {act_v['busy']}")
@@ -1686,18 +1715,100 @@ def phase13(cfg, frames7, loop_frames, kernels: dict, label: str) -> dict:
               f"bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
     print(f"[phase13] {label} phase seconds "
           f"{time.perf_counter() - t_phase:.1f}")
-    return {"launches": launch_v, "rows": rows}
+    return {"launches": launch_v, "rows": rows, "rows_v": rows_v,
+            "fps_v": fps["vmap"], "fps_l": fps["lane"],
+            "graphs_v": step_v.graph_stats(), "inputs": (cam, first, chunks),
+            "kernels": every}
+
+
+# ---------------------------------------------------------------- phase 14
+PAIRED = ("eager", "graphed", "graphed", "eager")
+
+
+def engine_rows(eng) -> np.ndarray:
+    """(N, 36) float32 rows of every frame the engine ran, the
+    bootstrap's too (identity, slot, ok, kf, 0 inliers): the pose, the
+    anchor's relative pose and slot, and the frame's stats."""
+    return np.stack([np.concatenate([
+        T.reshape(-1), rel.reshape(-1),
+        [sl, st.get("ok", True), st["kf"], st["inliers"]]])
+        for T, (sl, rel), st in zip(eng.trajectory, eng._traj_anchor,
+                                    eng.frame_stats)]).astype(np.float32)
+
+
+def graph_line(stats) -> str:
+    pool = "not reported" if stats["pool_bytes"] is None else \
+        f"{stats['pool_bytes'] / 2 ** 20:.1f} MiB"
+    return (f"{stats['captures']} captures in {stats['capture_s']:.3f} s "
+            f"(warm-up included), pool {pool}, warm-up launches (not "
+            f"counted) {stats['setup_launches']}")
+
+
+def phase14(cfg, frames, kernels: dict, label: str, dp: dict) -> None:
+    """CUDA graphs against the eager step at full width: phase 3's frames
+    in the order eager, graphed, graphed, eager, then phase 13's batched
+    layout eagerly against its graphed run."""
+    from slam_toolkit_tpu_torch.parallel import mesh
+    t_phase = time.perf_counter()
+    runs = []
+    for mode in PAIRED:
+        eng, chunk_s, launches, shapes = drive(cfg, frames, 16, kernels,
+                                               graphs=mode == "graphed")
+        stats = eng._chunk.graph_stats() if mode == "graphed" else None
+        runs.append({"rows": engine_rows(eng), "launches": launches,
+                     "shapes": shapes})
+        print(f"[phase14] {label} {mode}: frames/s "
+              f"{len(frames) / sum(chunk_s):.2f} over the 3 chunks, "
+              f"{32 / sum(chunk_s[1:]):.2f} over chunks 2-3 (chunk seconds "
+              f"{[round(c, 3) for c in chunk_s]}), launches {launches}"
+              + ("" if stats is None else f"; {graph_line(stats)}"))
+    ref = runs[0]
+    for mode, r in zip(PAIRED[1:], runs[1:]):
+        if not np.array_equal(r["rows"], ref["rows"]):
+            bad = np.flatnonzero((r["rows"] != ref["rows"]).any(1))
+            raise AssertionError(f"a {mode} run parts from the first eager "
+                                 f"run at frame {int(bad[0])}")
+        if (r["launches"], r["shapes"]) != (ref["launches"], ref["shapes"]):
+            raise AssertionError(
+                f"{mode} launches {r['launches']} {r['shapes']}, eager "
+                f"{ref['launches']} {ref['shapes']}")
+    print(f"[phase14] {label} all {PAIRED} runs: "
+          f"{ref['rows'].shape[0]} x {ref['rows'].shape[1]} packed values "
+          f"bit-equal; launches counted from the graphs' replays equal the "
+          f"eager counts {ref['launches']}, gather by window "
+          f"{ref['shapes']}")
+    cam, first, chunks = dp["inputs"]
+    _, rows_e, secs_e, launch_e, _, _ = dp_run(
+        lambda c, cm: mesh.multi_sequence_chunk(c, cm, graphs=False), cfg,
+        cam, first, chunks, dp["kernels"])
+    lanes = first.shape[0]
+    print(f"[phase14] {label} batched layout, {lanes} lanes: aggregate "
+          f"frames/s eager {lanes * DP_CHUNK / secs_e:.2f}, graphed "
+          f"{dp['fps_v']:.2f} (phase 13; chunk 2); graphed "
+          f"{graph_line(dp['graphs_v'])}")
+    if not np.array_equal(rows_e, dp["rows_v"]):
+        bad = np.flatnonzero((rows_e != dp["rows_v"]).any((1, 2)))
+        raise AssertionError(f"the batched layout's graphed rows part from "
+                             f"the eager ones at frame {int(bad[0]) + 1}")
+    if launch_e != dp["launches"]:
+        raise AssertionError(f"batched launches: eager {launch_e}, graphed "
+                             f"{dp['launches']}")
+    print(f"[phase14] {label} batched layout: {rows_e.shape[0]} x {lanes} x "
+          f"{rows_e.shape[2]} packed values bit-equal to phase 13's graphed "
+          f"run, launches equal {launch_e}; phase seconds "
+          f"{time.perf_counter() - t_phase:.1f}")
 
 
 # ---------------------------------------------------------------- phase 3
 def run_engine(cfg, frames, chunk: int, device: str, ring=None,
-               vocab=None):
+               vocab=None, graphs: bool = True):
     """The engine over `frames` in chunks; the seconds of each chunk. With
     a list `ring`, the keyframes in the ring after each chunk go into it
-    (read outside the chunk's time)."""
+    (read outside the chunk's time). graphs: the engine's (CUDA graphs of
+    the step, the default, or the eager step)."""
     from slam_toolkit_tpu_torch.pipeline.scan_engine import ChunkedSlamEngine
     eng = ChunkedSlamEngine(cfg, vocab=vocab, chunk_size=chunk,
-                            device=device)
+                            device=device, graphs=graphs)
     chunk_s = []
     for i in range(0, len(frames), chunk):
         t0 = time.perf_counter()
@@ -1715,34 +1826,44 @@ class GatherShapes:
     """Counts the gather kernel's launches by window shape while it is
     installed, from the kernel's own count around each call of
     patches.gather_blocks_multi_cuda (every gather on the card goes
-    through it)."""
+    through it). Each shape's count is a cuda_lib.LaunchCount, so a CUDA
+    graph that captured the call adds its launches on every replay, as it
+    does the kernel's own."""
 
     def __init__(self):
         from slam_toolkit_tpu_torch.ops import patches
         self.patches, self.orig = patches, patches.gather_blocks_multi_cuda
-        self.counts = {}
+        self.by_shape = {}
         patches.gather_blocks_multi_cuda = self
 
+    @property
+    def counts(self) -> dict:
+        return {k: c.launches for k, c in self.by_shape.items()}
+
     def __call__(self, images, ys, xs, counts, bh: int, bw: int):
+        from slam_toolkit_tpu_torch.utils.cuda_lib import LaunchCount
         n0 = self.patches.KERNEL.launches
         out = self.orig(images, ys, xs, counts, bh, bw)
         key = f"{bh}x{bw}"
-        self.counts[key] = self.counts.get(key, 0) + \
-            self.patches.KERNEL.launches - n0
+        if key not in self.by_shape:
+            self.by_shape[key] = LaunchCount()
+        self.by_shape[key].launches += self.patches.KERNEL.launches - n0
         return out
 
     def close(self):
         self.patches.gather_blocks_multi_cuda = self.orig
 
 
-def drive(cfg, frames, chunk: int, kernels: dict, ring=None):
+def drive(cfg, frames, chunk: int, kernels: dict, ring=None,
+          graphs: bool = True):
     """One path on the card: every kernel's count set to 0 just before,
     read just after; the gather's launches by window shape too."""
     for k in kernels.values():
         k.launches = 0
     shapes = GatherShapes()
     try:
-        eng, chunk_s = run_engine(cfg, frames, chunk, "cuda", ring)
+        eng, chunk_s = run_engine(cfg, frames, chunk, "cuda", ring,
+                                  graphs=graphs)
     finally:
         shapes.close()
     return eng, chunk_s, {n: k.launches for n, k in kernels.items()}, \
@@ -1827,6 +1948,7 @@ def main() -> int:
           f"{n_kf}, landmarks {n_lm}, tracking ok on {ok_frac * 100:.1f}% "
           f"of frames")
     print(f"[phase3] {label} launches {launches}")
+    print(f"[phase3] {label} graphs: {graph_line(eng._chunk.graph_stats())}")
     if n_kf < 2:
         raise AssertionError(f"only {n_kf} keyframes")
     if ok_frac < 0.9:
@@ -1961,6 +2083,9 @@ def main() -> int:
 
     # ---- phase 13: multi-sequence lanes, in turn and batched
     dp = phase13(cfg, frames, loop["frames"], kernels, label)
+
+    # ---- phase 14: CUDA graphs against the eager step
+    phase14(cfg, frames, kernels, label, dp)
 
     # ---- phase 9
     keys = ("max_abs_err", "ms", "host_ms", "plain_ms", "bound_ms",

@@ -160,8 +160,15 @@ def claimed_keypoints(frame: FrameState, T_cw: torch.Tensor, cfg: SlamConfig,
     return dil[kv, ku]
 
 
+def row(t: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """t[i] for a 0-dim index tensor i on t's device. t[i] itself reads i
+    back to the host (a synchronisation, and no CUDA graph captures it);
+    this gathers the row on the device."""
+    return t.index_select(0, i.reshape(1))[0]
+
+
 def insert_keyframe(m: MapState, frame: FrameState, T_cw: torch.Tensor,
-                    frame_id: int, mp_ids: torch.Tensor,
+                    frame_id, mp_ids: torch.Tensor,
                     mp_kpt: torch.Tensor, mp_tracked: torch.Tensor,
                     cfg: SlamConfig, lm_snapshot, quality=None
                     ) -> Tuple[MapState, torch.Tensor]:
@@ -172,6 +179,7 @@ def insert_keyframe(m: MapState, frame: FrameState, T_cw: torch.Tensor,
     mp_ids / mp_kpt / mp_tracked: landmark id, matched keypoint and
     inlier mask of the tracking result. lm_snapshot: (Xw, valid) of the
     tracker's landmark snapshot, rasterized for the claim test.
+    frame_id: a host int or a 0-dim int tensor on the map's device.
     Updates `m` in place; returns (m, slot) with slot a 0-dim tensor."""
     K = frame.feats.xy.shape[0]
     M = m.mp_valid.shape[0]
@@ -215,10 +223,16 @@ def insert_keyframe(m: MapState, frame: FrameState, T_cw: torch.Tensor,
 
     if quality is None:
         quality = torch.sum(mp_tracked.float())
+    elif not torch.is_tensor(quality):
+        quality = torch.full((), quality, dtype=torch.float32, device=dev)
     s = slot.reshape(1)
     m.kf_T_cw.index_copy_(0, s, T_cw[None].to(m.kf_T_cw.dtype))
     m.kf_valid.index_fill_(0, s, True)
-    m.kf_frame_id.index_fill_(0, s, int(frame_id))
+    if torch.is_tensor(frame_id):     # index_fill_ would read it back
+        m.kf_frame_id.index_copy_(0, s, frame_id.reshape(1).to(
+            m.kf_frame_id.dtype))
+    else:
+        m.kf_frame_id.index_fill_(0, s, int(frame_id))
     m.kf_xy.index_copy_(0, s, frame.feats.xy[None])
     m.kf_norm.index_copy_(0, s, frame.norm_xy[None])
     m.kf_desc.index_copy_(0, s, frame.feats.desc.reshape(1, -1))
@@ -227,8 +241,7 @@ def insert_keyframe(m: MapState, frame: FrameState, T_cw: torch.Tensor,
     m.kf_right_x_norm.index_copy_(0, s, frame.right_x_norm[None])
     m.kf_has_stereo.index_copy_(0, s, frame.has_stereo[None])
     m.kf_obs.index_copy_(0, s, obs_row[None].int())
-    m.kf_quality.index_copy_(0, s, torch.as_tensor(
-        quality, dtype=torch.float32, device=dev).reshape(1))
+    m.kf_quality.index_copy_(0, s, quality.reshape(1).to(torch.float32))
     for name, new in (("mp_ref_kf", mp_ref_kf), ("mp_kpt", mp_kpt_arr),
                       ("mp_invd", mp_invd), ("mp_desc", mp_desc),
                       ("mp_valid", mp_valid), ("mp_obs_count", obs_count)):
@@ -304,7 +317,7 @@ def gather_local_landmarks(m: MapState, num_out: int, recent: int = 10,
         K = m.kf_obs.shape[1]
         latest = torch.argmax(fid)
         # anchor-ownership covisibility with the latest keyframe
-        q = m.kf_obs[latest].long()
+        q = row(m.kf_obs, latest).long()
         anc = torch.where(q >= 0, m.mp_ref_kf[torch.clamp(q, min=0)].long(),
                           torch.full_like(q, -1))
         cov = torch.sum(anc[:, None] == torch.arange(F, device=dev)[None, :],
@@ -317,7 +330,7 @@ def gather_local_landmarks(m: MapState, num_out: int, recent: int = 10,
         keep = torch.repeat_interleave(cov_top >= covis_min, K) & (cids >= 0)
         if frustum is not None:
             safe = torch.where(keep, cids, torch.zeros_like(cids))
-            Xc = se3.transform(m.kf_T_cw[latest],
+            Xc = se3.transform(row(m.kf_T_cw, latest),
                                mappoint_positions_at(m, safe))
             z = Xc[..., 2]
             zs = torch.clamp(z, min=1e-6)

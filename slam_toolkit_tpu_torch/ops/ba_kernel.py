@@ -83,8 +83,8 @@ def solve_ba_cuda(p: BAProblem, iters: int = 10,
         "stereo_w": (p.stereo_mask & w_mask).float().contiguous(),
         "point_valid": p.point_valid.float().contiguous(),
         "point_free": free_pt.float().contiguous(),
-        "baseline": torch.as_tensor(p.baseline, dtype=torch.float32,
-                                    device=dev).reshape(1).contiguous(),
+        # a tensor already: an upload here would synchronise
+        "baseline": p.baseline.to(dev, torch.float32).reshape(1).contiguous(),
     }
     shapes = {"T_cw": (W, 16), "free_pose": (W,), "Xw": (P, 3),
               "z": (W, P, 3), "inv_sigma": (W, P), "obs_w": (W, P),

@@ -5,23 +5,29 @@ Counterpart of slam_toolkit_tpu/parallel/mesh.py, under the same names.
 The JAX package batches the whole per-frame engine over a leading
 sequence axis with jax.vmap and shards that axis over a device mesh. Here
 a batched carry is a ChunkCarry whose tensors have a leading lane axis B
-(the map too); `frame_id` stays one host int, as every lane starts
-together. Three layouts run it:
+(the map too); `frame_id` is one host int, as every lane starts
+together (a 0-dim device int in the static carry of a graphed chunk).
+Three layouts run it:
 
 - lanes in turn (multi_sequence_lane_chunk, the JAX lax.map over lanes):
-  each lane runs the single-sequence frame body (pipeline/scan_engine.
-  make_frame_body) on views t[b] of the batched carry, keyframe event
-  and all; no new kernel.
+  each lane runs the single-sequence chunk (pipeline/scan_engine.
+  make_chunk_fn, two CUDA graphs a lane) on a copy of its views t[b] of
+  the batched carry, keyframe event and all, written back after the
+  chunk; no new kernel.
 - batched lanes (multi_sequence_chunk, multi_sequence_engine, the JAX
   vmap): pipeline/scan_engine.make_batched_frame_body runs everything
   before the keyframe flag once over all B lanes, with batched entries
   of the patch-gather, top-2 and pose-LM kernels, then the keyframe
   event per flagged lane (JAX lowers its vmapped lax.cond to both
   branches, masked; that is XLA's lowering, not what the step computes).
+  multi_sequence_chunk runs it on a static carry as B + 1 CUDA graphs
+  (scan_engine._StaticBatchedChunk); multi_sequence_engine's per-frame
+  step is eager.
 - lanes over devices (multi_sequence_shard_chunk, the JAX shard_map): a
   mesh is a tuple of torch.devices; shard_batch splits the lanes evenly
   into one batched carry a device, and each device's lanes run the lane
-  chunk on their own host thread, with no communication between them.
+  chunk eagerly on their own host thread, with no communication between
+  them.
 
 Entry points that make state take device="cuda" by default and raise on
 a host without CUDA; the others run on the device of the data given.
@@ -43,8 +49,8 @@ from slam_toolkit_tpu_torch.mapping.map_state import (MapState, empty_map,
                                                       insert_keyframe)
 from slam_toolkit_tpu_torch.pipeline.engine import full_float32
 from slam_toolkit_tpu_torch.pipeline.scan_engine import (
-    ChunkCarry, _snapshot, lane, make_batched_frame_body, make_frame_body,
-    write_lane)
+    ChunkCarry, _eager_chunk, _snapshot, _StaticBatchedChunk, lane,
+    make_batched_frame_body, make_chunk_fn, write_lane)
 
 Mesh = Tuple[torch.device, ...]
 
@@ -202,32 +208,32 @@ def _vmapped_frame_body(cfg: SlamConfig, cam: StereoCamera):
     return make_batched_frame_body(cfg, cam)
 
 
-def _lane_chunk_body(cfg: SlamConfig, cam: StereoCamera):
+def _lane_chunk_body(cfg: SlamConfig, cam: StereoCamera, graphs: bool):
     """One lane's chunk: (carry, b, images (C, 2, H, W)) -> packed (C, 36)
-    on lane b's views of the batched carry, the single-sequence frame
-    body frame by frame (its keyframe event runs only on the lane's own
-    keyframes). The lane's final state is written back into the batch."""
-    body = make_frame_body(cfg, cam)
+    on lane b of the batched carry, through the single-sequence chunk
+    (scan_engine.make_chunk_fn, one a lane: its keyframe event runs only
+    on the lane's own keyframes). The lane's views are copied into that
+    chunk's static carry, and its final state is written back into the
+    batch."""
+    chunks = {}
 
     def run(carry: ChunkCarry, b: int, images: torch.Tensor):
-        c = lane(carry, b)
-        rows = []
-        for i in range(images.shape[0]):
-            c, packed = body(c, images[i, 0], images[i, 1])
-            rows.append(packed)
+        if b not in chunks:
+            chunks[b] = make_chunk_fn(cfg, cam, graphs)
+        c, packed = chunks[b](lane(carry, b), images)
         write_lane(carry.m, b, c.m)
         for f in ChunkCarry._fields:
             dst, src = getattr(carry, f), getattr(c, f)
-            if f != "m" and torch.is_tensor(src) and \
+            if f not in ("m", "frame_id") and torch.is_tensor(src) and \
                     src.data_ptr() != dst[b].data_ptr():
                 dst[b] = src
-        return torch.stack(rows)
+        return packed
 
     return run
 
 
-def _lane_chunk(cfg: SlamConfig, cam: StereoCamera):
-    run = _lane_chunk_body(cfg, cam)
+def _lane_chunk(cfg: SlamConfig, cam: StereoCamera, graphs: bool):
+    run = _lane_chunk_body(cfg, cam, graphs)
 
     def chunk(carry: ChunkCarry, images: torch.Tensor):
         packed = [run(carry, b, images[:, b])
@@ -238,29 +244,28 @@ def _lane_chunk(cfg: SlamConfig, cam: StereoCamera):
     return chunk
 
 
-def multi_sequence_lane_chunk(cfg: SlamConfig, cam: StereoCamera):
+def multi_sequence_lane_chunk(cfg: SlamConfig, cam: StereoCamera,
+                              graphs: bool = True):
     """Lanes in turn: chunk(carry, images (C, B, 2, H, W)) -> (carry,
     packed (C, B, 36)). Each lane runs its C frames through the
-    single-sequence frame body before the next lane starts, so a lane
-    pays the keyframe event only on its own keyframes."""
-    return full_float32()(_lane_chunk(cfg, cam))
+    single-sequence chunk before the next lane starts, so a lane pays the
+    keyframe event only on its own keyframes. graphs as
+    scan_engine.make_chunk_fn's (two CUDA graphs a lane)."""
+    return full_float32()(_lane_chunk(cfg, cam, graphs))
 
 
-def multi_sequence_chunk(cfg: SlamConfig, cam: StereoCamera):
+def multi_sequence_chunk(cfg: SlamConfig, cam: StereoCamera,
+                         graphs: bool = True):
     """Batched lanes: chunk(carry, images (C, B, 2, H, W)) -> (carry,
     packed (C, B, 36)), C steps of the batched frame body (one launch of
-    each batched kernel a frame for all B lanes)."""
-    body = _vmapped_frame_body(cfg, cam)
-
-    @full_float32()
-    def chunk(carry: ChunkCarry, images: torch.Tensor):
-        rows = []
-        for i in range(images.shape[0]):
-            carry, packed = body(carry, images[i, :, 0], images[i, :, 1])
-            rows.append(packed)
-        return carry, torch.stack(rows)
-
-    return chunk
+    each batched kernel a frame for all B lanes). graphs=True: the steps
+    on a static batched carry, B + 1 CUDA graphs on a CUDA device
+    (scan_engine._StaticBatchedChunk); graphs=False: the batched frame
+    body eagerly. The carry returned is overwritten by the next call, as
+    JAX's donated carry is."""
+    if graphs:
+        return _StaticBatchedChunk(cfg, cam)
+    return _eager_chunk(_vmapped_frame_body(cfg, cam))
 
 
 def multi_sequence_shard_chunk(cfg: SlamConfig, cam: StereoCamera,
@@ -274,7 +279,7 @@ def multi_sequence_shard_chunk(cfg: SlamConfig, cam: StereoCamera,
     cams = [StereoCamera(*(type(f)(*(t.to(d) if torch.is_tensor(t) else t
                                      for t in f)) if isinstance(f, tuple)
                            else f.to(d) for f in cam)) for d in mesh]
-    chunks = [_lane_chunk(cfg, c) for c in cams]
+    chunks = [_lane_chunk(cfg, c, graphs=False) for c in cams]
 
     @full_float32()
     def chunk(carries: List[ChunkCarry], images: torch.Tensor):

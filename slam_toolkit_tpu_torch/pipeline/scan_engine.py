@@ -12,12 +12,16 @@ runs no BA, as in the JAX package. Between chunks, a keyframe ring near
 capacity is culled (mapping/culling) and the trajectory re-anchored, as
 the JAX engine's _ensure_headroom does.
 
-The JAX package runs a chunk as one lax.scan with the keyframe branch
-under lax.cond. Here the step is ordinary eager PyTorch and the branch
-is a host `if` on a one-byte device flag: the single device->host
-synchronisation of a frame. Everything else stays on the device; a
-chunk's packed result rows are read back once, at its end. Chunks run
-synchronously, so nothing is in flight between calls.
+The JAX package runs a chunk as one jitted lax.scan with the keyframe
+branch under lax.cond (make_chunk_fn). Here the step is split at the
+keyframe flag into two halves, tracking and the keyframe event, and the
+branch is a host `if` on the one-byte device flag: the single
+device->host synchronisation of a frame. make_chunk_fn runs the halves
+on a static carry, each captured once as a CUDA graph on a CUDA device
+and replayed every frame (eagerly on the CPU); make_frame_body runs
+them eagerly on a carry rebuilt every frame. Everything else stays on
+the device; a chunk's packed result rows are read back once, at its
+end. Chunks run synchronously, so nothing is in flight between calls.
 
 With a vocabulary, loop closing and relocalization run between chunks
 (the JAX engine's mapping-thread phases, through pipeline/engine.py's
@@ -45,7 +49,8 @@ import torch
 from slam_toolkit_tpu_torch.config import SlamConfig
 from slam_toolkit_tpu_torch.frontend.direct_tracker import \
     track_direct_bound
-from slam_toolkit_tpu_torch.frontend.frame import add_stereo, build_frame
+from slam_toolkit_tpu_torch.frontend.frame import (FrameState, add_stereo,
+                                                   build_frame)
 from slam_toolkit_tpu_torch.frontend.tracker import TrackResult, track_pose
 from slam_toolkit_tpu_torch.geometry import se3
 from slam_toolkit_tpu_torch.geometry.camera import StereoCamera
@@ -58,11 +63,12 @@ from slam_toolkit_tpu_torch.mapping.map_state import (MapState,
                                                       camera_frustum,
                                                       empty_map,
                                                       gather_local_landmarks,
-                                                      insert_keyframe)
+                                                      insert_keyframe, row)
 from slam_toolkit_tpu_torch.optim import direct_lm
 from slam_toolkit_tpu_torch.optim.direct_lm import DirectState
 from slam_toolkit_tpu_torch.pipeline.engine import (BOW_ROWS, SlamEngine,
                                                     full_float32)
+from slam_toolkit_tpu_torch.utils.cuda_graphs import StepGraphs
 
 PACK_WIDTH = 16 + 16 + 4  # T, T_rel, [slot, ok, kf, n_inliers]
 
@@ -77,7 +83,9 @@ class ChunkCarry(NamedTuple):
     lm_valid: torch.Tensor     # (L,) bool
     latest_slot: torch.Tensor  # () int slot of the latest keyframe
     latest_T: torch.Tensor     # (4, 4) pose of the latest keyframe
-    frame_id: int              # global frame index (host-side counter)
+    # global frame index: a host int, or (the static carry of
+    # make_chunk_fn) a 0-dim int32 on the device that the step advances
+    frame_id: int
     inlier_peak: torch.Tensor  # () float32 max inliers since the last KF
     # the photometric anchor ("direct" and "hybrid" only; None otherwise)
     kf_img: Optional[torch.Tensor] = None     # (H, W) latest keyframe image
@@ -110,24 +118,84 @@ def keyframe_event(carry: ChunkCarry, frame, left, right, T_new,
     m = cull_weak_mappoints(m, carry.frame_id, cfg.map.mp_cull_grace_frames,
                             cfg.map.mp_cull_min_obs)
     m = local_ba_step(m, cam, cfg)
-    return m, slot, _snapshot(m, cfg), m.kf_T_cw[slot]
+    return m, slot, _snapshot(m, cfg), row(m.kf_T_cw, slot)
 
 
 def lane(t, b: int):
     """Lane b of a batched NamedTuple (carry, map, frame, track result):
-    views t[b] of every tensor field (in-place writes reach the batch);
-    ints and None stay as they are."""
-    return type(t)(*(f[b] if torch.is_tensor(f) else
+    views t[b] of every tensor field with a lane axis (in-place writes
+    reach the batch); ints, None and 0-dim tensors (a frame id all lanes
+    share) stay as they are."""
+    return type(t)(*(f[b] if torch.is_tensor(f) and f.dim() else
                      lane(f, b) if isinstance(f, tuple) else f for f in t))
 
 
-def write_lane(batched: MapState, b: int, m: MapState) -> None:
-    """Store lane b's map `m` into the batched map: the fields the
-    keyframe event replaced are copied, those it updated in place (views
-    of the batch) are already there."""
-    for dst, src in zip(lane(batched, b), m):
+def _write_back(dst_map: MapState, m: MapState) -> None:
+    """Store the map `m` a keyframe event returned into `dst_map`: the
+    fields it replaced are copied, those it updated in place (the same
+    tensors) are already there."""
+    for dst, src in zip(dst_map, m):
         if src.data_ptr() != dst.data_ptr():
             dst.copy_(src)
+
+
+def write_lane(batched: MapState, b: int, m: MapState) -> None:
+    """Store lane b's map `m` into the batched map (its views of the
+    batch are already there)."""
+    _write_back(lane(batched, b), m)
+
+
+class Tracked(NamedTuple):
+    """The tracking half of a frame step, everything before the keyframe
+    flag (a leading lane axis when B lanes are tracked)."""
+    frame: FrameState
+    res: TrackResult
+    needs: torch.Tensor        # () bool: the frame becomes a keyframe
+    T_new: torch.Tensor        # (4, 4) tracked pose, or the prediction
+    velocity: torch.Tensor     # (4, 4)
+    inlier_peak: torch.Tensor  # ()
+    ab: Optional[torch.Tensor] = None  # (2,) the frame's (a, b), photometric
+
+
+def _keyframe_rule(res: TrackResult, peak: torch.Tensor, cfg: SlamConfig):
+    """(needs, the new inlier peak): the keyframe rule, tracking lost, or
+    inliers decayed below decay_ratio of their peak since the last
+    keyframe."""
+    n_inl = res.n_inliers.float()
+    needs = (kf_rule.needs_keyframe(
+        res.mp_xy, res.mp_inlier, cfg.camera.width, cfg.camera.height,
+        cfg.keyframe) | ~res.ok | (n_inl < cfg.keyframe.decay_ratio * peak))
+    return needs, torch.where(needs, torch.zeros_like(n_inl),
+                              torch.maximum(peak, n_inl))
+
+
+def _pack(T_out, T_rel, slot, res: TrackResult, needs) -> torch.Tensor:
+    """The packed row (36,), or rows (B, 36): T, T_rel, slot, ok, kf,
+    n_inliers."""
+    return torch.cat([T_out.flatten(-2), T_rel.flatten(-2), torch.stack(
+        [slot.float(), res.ok.float(), needs.float(),
+         res.n_inliers.float()], dim=-1)], dim=-1)
+
+
+def _batched_tracker(cfg: SlamConfig, cam: StereoCamera):
+    """track(carry, lefts (B, H, W)) -> Tracked: the tracking half of
+    make_batched_frame_body, once over the lane axis."""
+    if cfg.tracker.method != "indirect":
+        raise NotImplementedError(
+            f"the batched frame body tracks 'indirect' only, not "
+            f"{cfg.tracker.method!r}")
+
+    def track(carry: ChunkCarry, lefts: torch.Tensor) -> Tracked:
+        frame = build_frame(lefts, cam, cfg)
+        T_pred = se3.per_lane(se3.compose, carry.velocity, carry.T_cw)
+        res = track_pose(frame, carry.lm_Xw, carry.lm_desc, carry.lm_valid,
+                         T_pred, cam, cfg)
+        needs, peak = _keyframe_rule(res, carry.inlier_peak, cfg)
+        T_new = torch.where(res.ok[:, None, None], res.T_cw, T_pred)
+        return Tracked(frame, res, needs, T_new,
+                       se3.per_lane(_velocity, T_new, carry.T_cw), peak)
+
+    return track
 
 
 def make_batched_frame_body(cfg: SlamConfig, cam: StereoCamera):
@@ -142,56 +210,39 @@ def make_batched_frame_body(cfg: SlamConfig, cam: StereoCamera):
     algebra and the landmark transforms run lane by lane (se3.per_lane):
     a batched matrix product rounds otherwise, and tracking grows a last
     bit into centimetres. So each lane's row is the one make_frame_body
-    gives it, bit for bit. Indirect tracking only."""
-    if cfg.tracker.method != "indirect":
-        raise NotImplementedError(
-            f"the batched frame body tracks 'indirect' only, not "
-            f"{cfg.tracker.method!r}")
+    gives it, bit for bit. Indirect tracking only. The eager step:
+    parallel/mesh.multi_sequence_chunk runs the same halves on a static
+    carry (_StaticBatchedChunk)."""
+    track = _batched_tracker(cfg, cam)
 
     def frame_body(carry: ChunkCarry, lefts: torch.Tensor,
                    rights: torch.Tensor):
-        frame = build_frame(lefts, cam, cfg)
-        T_pred = se3.per_lane(se3.compose, carry.velocity, carry.T_cw)
-        res = track_pose(frame, carry.lm_Xw, carry.lm_desc, carry.lm_valid,
-                         T_pred, cam, cfg)
-        n_inl = res.n_inliers.float()
-        needs = (kf_rule.needs_keyframe(
-            res.mp_xy, res.mp_inlier, cfg.camera.width, cfg.camera.height,
-            cfg.keyframe) | ~res.ok |
-            (n_inl < cfg.keyframe.decay_ratio * carry.inlier_peak))
-        peak_new = torch.where(needs, torch.zeros_like(n_inl),
-                               torch.maximum(carry.inlier_peak, n_inl))
-        T_new = torch.where(res.ok[:, None, None], res.T_cw, T_pred)
-        vel_new = se3.per_lane(_velocity, T_new, carry.T_cw)
+        t = track(carry, lefts)
         slot, latest_T = carry.latest_slot, carry.latest_T
         lm = (carry.lm_Xw, carry.lm_desc, carry.lm_ids, carry.lm_valid)
-        T_out = T_new
-        flagged = np.flatnonzero(needs.cpu().numpy())   # one readback
+        T_out = t.T_new
+        flagged = np.flatnonzero(t.needs.cpu().numpy())   # one readback
         if len(flagged):
             slot, latest_T, T_out = slot.clone(), latest_T.clone(), \
-                T_new.clone()
-            lm = tuple(t.clone() for t in lm)
+                t.T_new.clone()
+            lm = tuple(x.clone() for x in lm)
             for b in flagged.tolist():
                 m_b, slot_b, lm_b, latest_b = keyframe_event(
-                    lane(carry, b), lane(frame, b), lefts[b], rights[b],
-                    T_new[b], lane(res, b), cam, cfg)
+                    lane(carry, b), lane(t.frame, b), lefts[b], rights[b],
+                    t.T_new[b], lane(t.res, b), cam, cfg)
                 write_lane(carry.m, b, m_b)
                 for dst, src in zip(lm, lm_b):
                     dst[b] = src
                 slot[b] = slot_b
                 latest_T[b] = latest_b
                 T_out[b] = latest_b
-        T_rel = se3.per_lane(_relative, T_out, latest_T)
-        B = T_out.shape[0]
-        packed = torch.cat([
-            T_out.reshape(B, -1), T_rel.reshape(B, -1),
-            torch.stack([slot.float(), res.ok.float(), needs.float(),
-                         res.n_inliers.float()], dim=-1)], dim=-1)
+        packed = _pack(T_out, se3.per_lane(_relative, T_out, latest_T),
+                       slot, t.res, t.needs)
         new_carry = carry._replace(
-            T_cw=T_out, velocity=vel_new, lm_Xw=lm[0], lm_desc=lm[1],
+            T_cw=T_out, velocity=t.velocity, lm_Xw=lm[0], lm_desc=lm[1],
             lm_ids=lm[2], lm_valid=lm[3], latest_slot=slot,
             latest_T=latest_T, frame_id=carry.frame_id + 1,
-            inlier_peak=peak_new)
+            inlier_peak=t.inlier_peak)
         return new_carry, packed
 
     return frame_body
@@ -205,13 +256,14 @@ def _relative(T: torch.Tensor, T_ref: torch.Tensor) -> torch.Tensor:
     return se3.compose(T, se3.inv(T_ref))
 
 
-def make_frame_body(cfg: SlamConfig, cam: StereoCamera):
-    """(carry, left, right) -> (carry, packed (36,)), the per-frame step
-    of slam_toolkit_tpu.pipeline.scan_engine.make_frame_body."""
+def _frame_tracker(cfg: SlamConfig, cam: StereoCamera):
+    """(track, keyframe), the two halves of make_frame_body's step:
+    track(carry, left) -> Tracked; keyframe(carry, tracked, left, right)
+    -> (map, slot, snapshot, the keyframe's pose, "hybrid"'s anchor
+    pattern intensities or None)."""
     method = cfg.tracker.method
     if method not in ("indirect", "direct", "hybrid"):
         raise NotImplementedError(f"tracker.method={method!r}")
-    photometric = method != "indirect"
 
     def hybrid_polish(carry: ChunkCarry, left, res0: TrackResult):
         """The indirect pose polished by a few full-resolution photometric
@@ -229,8 +281,7 @@ def make_frame_body(cfg: SlamConfig, cam: StereoCamera):
                          carry.kf_ab)
         return res0._replace(T_cw=torch.where(okp, T_dir, res0.T_cw)), ab
 
-    def frame_body(carry: ChunkCarry, left: torch.Tensor,
-                   right: torch.Tensor):
+    def track(carry: ChunkCarry, left: torch.Tensor) -> Tracked:
         frame = build_frame(left, cam, cfg)
         T_pred = se3.compose(carry.velocity, carry.T_cw)
         ab_new = None
@@ -244,47 +295,303 @@ def make_frame_body(cfg: SlamConfig, cam: StereoCamera):
                              carry.lm_valid, T_pred, cam, cfg)
             if method == "hybrid":
                 res, ab_new = hybrid_polish(carry, left, res)
-        n_inl = res.n_inliers.float()
-        needs = (kf_rule.needs_keyframe(
-            res.mp_xy, res.mp_inlier, cfg.camera.width, cfg.camera.height,
-            cfg.keyframe) | ~res.ok |
-            (n_inl < cfg.keyframe.decay_ratio * carry.inlier_peak))
-        peak_new = torch.where(needs, torch.zeros_like(n_inl),
-                               torch.maximum(carry.inlier_peak, n_inl))
+        needs, peak = _keyframe_rule(res, carry.inlier_peak, cfg)
         T_new = torch.where(res.ok, res.T_cw, T_pred)
-        vel_new = _velocity(T_new, carry.T_cw)
+        return Tracked(frame, res, needs, T_new,
+                       _velocity(T_new, carry.T_cw), peak, ab_new)
 
-        if bool(needs):          # the frame's one host synchronisation
-            m, slot, lm, latest_T = keyframe_event(
-                carry, frame, left, right, T_new, res, cam, cfg)
+    def keyframe(carry: ChunkCarry, t: Tracked, left, right):
+        m, slot, lm, latest_T = keyframe_event(
+            carry, t.frame, left, right, t.T_new, t.res, cam, cfg)
+        refvals = direct_lm.reference_values(
+            DirectState(T_cw=latest_T, a=t.ab[0], b=t.ab[1]), left,
+            cam.left, lm[0], lm[3], 1.0) if method == "hybrid" else None
+        return m, slot, lm, latest_T, refvals
+
+    return track, keyframe
+
+
+def make_frame_body(cfg: SlamConfig, cam: StereoCamera):
+    """(carry, left, right) -> (carry, packed (36,)), the per-frame step
+    of slam_toolkit_tpu.pipeline.scan_engine.make_frame_body, eager: the
+    keyframe branch is a host `if` on the flag, and the carry is rebuilt
+    every frame. make_chunk_fn runs the same two halves on a static
+    carry."""
+    track, keyframe = _frame_tracker(cfg, cam)
+    photometric = cfg.tracker.method != "indirect"
+
+    def frame_body(carry: ChunkCarry, left: torch.Tensor,
+                   right: torch.Tensor):
+        t = track(carry, left)
+        if bool(t.needs):        # the frame's one host synchronisation
+            m, slot, lm, latest_T, refvals = keyframe(carry, t, left, right)
             T_out = latest_T
             # this keyframe becomes the photometric anchor, its image
             # paired with the BA-refined pose
             kf_img = left if photometric else None
-            refvals = direct_lm.reference_values(
-                DirectState(T_cw=latest_T, a=ab_new[0], b=ab_new[1]), left,
-                cam.left, lm[0], lm[3], 1.0) if method == "hybrid" else None
         else:
             m, slot, latest_T, T_out = carry.m, carry.latest_slot, \
-                carry.latest_T, T_new
+                carry.latest_T, t.T_new
             lm = (carry.lm_Xw, carry.lm_desc, carry.lm_ids, carry.lm_valid)
             kf_img, refvals = carry.kf_img, carry.kf_refvals
-        T_rel = _relative(T_out, latest_T)
-        packed = torch.cat([
-            T_out.reshape(-1), T_rel.reshape(-1),
-            torch.stack([slot.float(), res.ok.float(), needs.float(),
-                         res.n_inliers.float()])])
+        packed = _pack(T_out, _relative(T_out, latest_T), slot, t.res,
+                       t.needs)
         new_carry = ChunkCarry(
-            m=m, T_cw=T_out, velocity=vel_new,
+            m=m, T_cw=T_out, velocity=t.velocity,
             lm_Xw=lm[0], lm_desc=lm[1], lm_ids=lm[2], lm_valid=lm[3],
             latest_slot=slot, latest_T=latest_T,
-            frame_id=carry.frame_id + 1, inlier_peak=peak_new,
+            frame_id=carry.frame_id + 1, inlier_peak=t.inlier_peak,
             # (a, b) carries forward every frame: the anchor's brightness
             # is the latest tracked estimate
-            kf_img=kf_img, kf_ab=ab_new, kf_refvals=refvals)
+            kf_img=kf_img, kf_ab=t.ab, kf_refvals=refvals)
         return new_carry, packed
 
     return frame_body
+
+
+# ---- the static carry: make_chunk_fn and the batched chunk ---------------
+def static_copy(carry: ChunkCarry) -> ChunkCarry:
+    """`carry` in contiguous buffers of its own, frame_id a 0-dim int32 on
+    the carry's device: the static carry a graphed step works in."""
+    def own(t):
+        return t if t is None else t.clone(
+            memory_format=torch.contiguous_format)
+    fid = carry.frame_id
+    fid = fid.to(torch.int32).clone() if torch.is_tensor(fid) else \
+        torch.full((), fid, dtype=torch.int32, device=carry.T_cw.device)
+    return ChunkCarry(*(MapState(*(own(f) for f in carry.m)) if n == "m"
+                        else fid if n == "frame_id" else own(v)
+                        for n, v in zip(ChunkCarry._fields, carry)))
+
+
+def load_carry(static: ChunkCarry, carry: ChunkCarry) -> None:
+    """Copy `carry`, which the host built or changed between chunks
+    (bootstrap, keyframe cull, closure, relocalization), into the static
+    buffers. Fields that are the buffers themselves are skipped; a source
+    that views a static buffer is cloned before any buffer is written."""
+    dsts = list(static.m) + [getattr(static, f) for f in ChunkCarry._fields
+                             if f != "m"]
+    srcs = list(carry.m) + [getattr(carry, f) for f in ChunkCarry._fields
+                            if f != "m"]
+    held = {t.untyped_storage().data_ptr() for t in dsts if t is not None}
+    pairs = []
+    for name, dst, src in zip(list(MapState._fields) + [
+            f for f in ChunkCarry._fields if f != "m"], dsts, srcs):
+        if (dst is None) != (src is None):
+            raise ValueError(f"carry field {name}: the static carry holds "
+                             f"{type(dst).__name__}, got "
+                             f"{type(src).__name__}")
+        if dst is None or src is dst:
+            continue
+        if not torch.is_tensor(src):
+            dst.fill_(src)                   # a host frame id
+            continue
+        if src.untyped_storage().data_ptr() in held:
+            src = src.clone()
+        pairs.append((dst, src))
+    for dst, src in pairs:
+        dst.copy_(src)
+
+
+class _StaticChunk:
+    """make_chunk_fn's chunk: the frame step on a static carry.
+
+    The carry lives in buffers bound on the first call (static_copy) and
+    written in place, with `copy_`, by every step; images pass through
+    two static (H, W) buffers. The step is make_frame_body's two halves,
+    each followed by the writes into the static carry:
+
+    - graph A, tracking: extraction, the configured tracker, the
+      keyframe rule, velocity, peak and (a, b); the frame id advanced on
+      the device; the packed row as a frame that is no keyframe;
+    - graph B, the keyframe event: keyframe_event, the new anchor (its
+      image copied in, and "hybrid"'s pattern intensities), the snapshot,
+      the slot and pose, and the packed row again.
+
+    On a CUDA device both are captured once, at the first call (after a
+    warm-up on a throwaway copy of the carry), on one memory pool, and
+    replayed: graph A every frame, then the host reads the flag (the
+    frame's one synchronisation) and replays graph B on a keyframe. On
+    the CPU the same two halves run eagerly, as the graphs' plain
+    version. Either way every row equals make_frame_body's bit for bit.
+    The carry returned is the static one; the caller may change it or
+    hand another, which the next call copies in (load_carry)."""
+
+    def __init__(self, cfg: SlamConfig, cam: StereoCamera):
+        self.cfg, self.cam = cfg, cam
+        self.track, self.keyframe = _frame_tracker(cfg, cam)
+        self.photometric = cfg.tracker.method != "indirect"
+        self.static: Optional[ChunkCarry] = None
+        self.graphs: Optional[StepGraphs] = None
+
+    def _bind(self, carry: ChunkCarry, frame: torch.Tensor) -> None:
+        """Static buffers for `carry`, and for images shaped as `frame`'s
+        left image ((H, W), or (B, H, W) for lanes)."""
+        self.static = static_copy(carry)
+        self.left = torch.empty_like(frame, dtype=torch.float32,
+                                     memory_format=torch.contiguous_format)
+        self.right = torch.empty_like(self.left)
+        self.row = self.left.new_empty(frame.shape[:-2] + (PACK_WIDTH,))
+        self.fid = torch.empty((), dtype=torch.int32, device=frame.device)
+
+    def _keys(self) -> tuple:
+        """The keyframe graphs' keys: one event for one sequence."""
+        return (None,)
+
+    def _flagged(self, t: Tracked) -> tuple:
+        return (None,) if bool(t.needs) else ()
+
+    def _track_step(self, S: ChunkCarry) -> Tracked:
+        t = self.track(S, self.left)
+        self.fid.copy_(S.frame_id)           # the frame graph B inserts
+        S.frame_id.add_(1)
+        S.T_cw.copy_(t.T_new)
+        S.velocity.copy_(t.velocity)
+        S.inlier_peak.copy_(t.inlier_peak)
+        if t.ab is not None:
+            S.kf_ab.copy_(t.ab)
+        self.row.copy_(_pack(t.T_new, _relative(t.T_new, S.latest_T),
+                             S.latest_slot, t.res, t.needs))
+        return t
+
+    def _keyframe_step(self, S: ChunkCarry, t: Tracked, _key=None) -> None:
+        m, slot, lm, latest_T, refvals = self.keyframe(
+            S._replace(frame_id=self.fid), t, self.left, self.right)
+        _write_back(S.m, m)
+        for dst, src in zip((S.lm_Xw, S.lm_desc, S.lm_ids, S.lm_valid), lm):
+            dst.copy_(src)
+        S.latest_slot.copy_(slot)
+        S.latest_T.copy_(latest_T)
+        S.T_cw.copy_(latest_T)
+        if self.photometric:                 # a copy: `left` is reused
+            S.kf_img.copy_(self.left)
+        if refvals is not None:
+            S.kf_refvals.copy_(refvals)
+        self.row.copy_(_pack(latest_T, _relative(latest_T, latest_T), slot,
+                             t.res, t.needs))
+
+    def _capture(self) -> None:
+        g = StepGraphs(self.left.device)
+        warm = static_copy(self.static)
+
+        def warm_step():
+            t = self._track_step(warm)
+            for k in self._keys():
+                self._keyframe_step(warm, t, k)
+        g.warm_up(warm_step)
+        self._tracked = g.capture("track", self._track_step, self.static)
+        for k in self._keys():
+            g.capture(f"keyframe{'' if k is None else k}",
+                      self._keyframe_step, self.static, self._tracked, k)
+        self.graphs = g
+
+    def graph_stats(self) -> Optional[dict]:
+        """Captures, capture seconds, pool bytes and set-up launches; None
+        where nothing was captured (the CPU)."""
+        return None if self.graphs is None else self.graphs.stats()
+
+    @full_float32()
+    def __call__(self, carry: ChunkCarry, images: torch.Tensor):
+        """images (C, 2, H, W), or (C, B, 2, H, W) for lanes -> (the
+        static carry, packed (C, 36) or (C, B, 36))."""
+        if self.static is None:
+            self._bind(carry, images[0].select(-3, 0))
+        elif carry is not self.static:
+            load_carry(self.static, carry)
+        S = self.static
+        rows = self.row.new_empty((images.shape[0],) + tuple(self.row.shape))
+        for i in range(images.shape[0]):
+            self.left.copy_(images[i].select(-3, 0))
+            self.right.copy_(images[i].select(-3, 1))
+            if images.is_cuda and self.graphs is None:
+                self._capture()
+            if self.graphs is None:
+                t = self._track_step(S)
+            else:
+                self.graphs.replay("track")
+                t = self._tracked
+            # the frame's one host synchronisation: the flag(s)
+            for k in self._flagged(t):
+                if self.graphs is None:
+                    self._keyframe_step(S, t, k)
+                else:
+                    self.graphs.replay(f"keyframe{'' if k is None else k}")
+            rows[i].copy_(self.row)
+        return S, rows
+
+
+def make_chunk_fn(cfg: SlamConfig, cam: StereoCamera, graphs: bool = True):
+    """chunk(carry, images (C, 2, H, W)) -> (carry, packed (C, 36)), the
+    JAX make_chunk_fn (a jitted lax.scan of make_frame_body with a donated
+    carry). graphs=True: the step on a static carry (_StaticChunk), CUDA
+    graphs on a CUDA device; the carry handed in is copied into the
+    static buffers unless it is the one the last call returned, and that
+    one is overwritten by the next call, as JAX's donated carry is.
+    graphs=False: make_frame_body frame by frame, eagerly (the JAX engine
+    under jax.disable_jit()), for comparisons."""
+    if graphs:
+        return _StaticChunk(cfg, cam)
+    return _eager_chunk(make_frame_body(cfg, cam))
+
+
+def _eager_chunk(body):
+    @full_float32()
+    def chunk(carry: ChunkCarry, images: torch.Tensor):
+        rows = []
+        for i in range(images.shape[0]):
+            carry, packed = body(carry, images[i].select(-3, 0),
+                                 images[i].select(-3, 1))
+            rows.append(packed)
+        return carry, torch.stack(rows)
+
+    return chunk
+
+
+class _StaticBatchedChunk(_StaticChunk):
+    """mesh.multi_sequence_chunk's chunk: make_batched_frame_body's halves
+    on a static batched carry. Graph A tracks all B lanes (images through
+    static (B, H, W) buffers) and packs every lane's row as a frame that
+    is no keyframe; the host reads the B flags back at once; graph B_b,
+    one a lane, runs lane b's keyframe event on its views of the static
+    carry and packs its row again. B + 1 graphs, captured once."""
+
+    def __init__(self, cfg: SlamConfig, cam: StereoCamera):
+        self.cfg, self.cam = cfg, cam
+        self.track = _batched_tracker(cfg, cam)
+        self.static = None
+        self.graphs = None
+
+    def _keys(self) -> tuple:
+        return tuple(range(self.left.shape[0]))
+
+    def _flagged(self, t: Tracked) -> tuple:
+        return tuple(np.flatnonzero(t.needs.cpu().numpy()).tolist())
+
+    def _track_step(self, S: ChunkCarry) -> Tracked:
+        t = self.track(S, self.left)
+        self.fid.copy_(S.frame_id)
+        S.frame_id.add_(1)
+        S.T_cw.copy_(t.T_new)
+        S.velocity.copy_(t.velocity)
+        S.inlier_peak.copy_(t.inlier_peak)
+        self.row.copy_(_pack(t.T_new, se3.per_lane(_relative, t.T_new,
+                                                   S.latest_T),
+                             S.latest_slot, t.res, t.needs))
+        return t
+
+    def _keyframe_step(self, S: ChunkCarry, t: Tracked, b: int) -> None:
+        c = lane(S, b)._replace(frame_id=self.fid)
+        m, slot, lm, latest_T = keyframe_event(
+            c, lane(t.frame, b), self.left[b], self.right[b], t.T_new[b],
+            lane(t.res, b), self.cam, self.cfg)
+        _write_back(c.m, m)
+        for dst, src in zip((c.lm_Xw, c.lm_desc, c.lm_ids, c.lm_valid), lm):
+            dst.copy_(src)
+        c.latest_slot.copy_(slot)
+        c.latest_T.copy_(latest_T)
+        c.T_cw.copy_(latest_T)
+        self.row[b].copy_(_pack(latest_T, _relative(latest_T, latest_T),
+                                slot, lane(t.res, b), t.needs[b]))
 
 
 class ChunkedSlamEngine:
@@ -297,12 +604,16 @@ class ChunkedSlamEngine:
     loop phases still pending (detections stashed, measurements not yet
     closed). `cam` (a StereoCamera already on `device`) defaults to the
     one cfg.camera describes; `vocab` (a loop.vocab.Vocabulary) turns on
-    loop closing and relocalization.
+    loop closing and relocalization. Chunks run through make_chunk_fn:
+    with graphs=True (the default) the step on a static carry, replayed
+    as two CUDA graphs on a CUDA device, captured at the first chunk and
+    never again; graphs=False runs make_frame_body eagerly (the same rows
+    bit for bit), for comparisons.
     """
 
     def __init__(self, cfg: Optional[SlamConfig] = None,
                  cam: Optional[StereoCamera] = None, vocab=None,
-                 chunk_size: int = 8, device="cuda"):
+                 chunk_size: int = 8, device="cuda", graphs: bool = True):
         self.cfg = cfg or SlamConfig()
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -312,7 +623,7 @@ class ChunkedSlamEngine:
             StereoCamera.from_config(self.cfg.camera, self.device)
         self.vocab = vocab
         self.chunk_size = chunk_size
-        self._body = make_frame_body(self.cfg, self.cam)
+        self._chunk = make_chunk_fn(self.cfg, self.cam, graphs)
         self.carry: Optional[ChunkCarry] = None
         self.n_keyframes = 0          # keyframes inserted, culled ones too
         self.n_culls = 0
@@ -342,7 +653,9 @@ class ChunkedSlamEngine:
         return [] if self._host is None else self._host.loop_events
 
     def warmup(self) -> None:
-        """Nothing to compile ahead: the kernels build at first use."""
+        """Nothing to compile ahead: the kernels build at first use, and
+        the CUDA graphs are captured in the first chunk (they need its
+        carry and images)."""
 
     # ---- bootstrap: the JAX host engine's first-frame keyframe --------
     def _bootstrap(self, left: torch.Tensor, right: torch.Tensor,
@@ -462,13 +775,8 @@ class ChunkedSlamEngine:
         if len(imgs) == 0:
             return np.zeros((0, PACK_WIDTH), np.float32)
         self._ensure_headroom(len(imgs))
-        rows = []
+        self.carry, packed = self._chunk(self.carry, imgs)
         carry = self.carry
-        for i in range(imgs.shape[0]):
-            carry, packed = self._body(carry, imgs[i, 0], imgs[i, 1])
-            rows.append(packed)
-        self.carry = carry
-        packed = torch.stack(rows)
         sc = None
         if self._host is not None:
             # BoW-register and score this chunk's keyframes on the device

@@ -67,6 +67,12 @@ px with <= 0.5% over 3 px and the flow EPE p95 <= 2.0 px with <= 6% over
 a second run the host syncs a frame (CUDA's sync debug mode) and the
 card's kernels a frame and busy share (one torch.profiler pass).
 
+The chunked engines run graphed (scan_engine.make_chunk_fn: CUDA graphs
+of the step on a static carry, captured in the first warm-up chunk);
+BENCH_GRAPHS=0 runs the same bench with the eager step (the same rows
+bit for bit), for the comparison. Every record but the cluster's says
+which in `graphs`.
+
 Frames are rendered once (data/synthetic; in parallel processes) and
 cached as .npy files named by track, seed, frames, step and size, in
 BENCH_CACHE if it is set, else the temporary directory
@@ -295,7 +301,7 @@ def loop_edge_error(e: dict, gt) -> Tuple[float, float, np.ndarray]:
 
 
 def run_loop(cfg, vocab, stacked, gt, chunk: int = 16, device="cuda",
-             track: str = "clothoid") -> dict:
+             track: str = "clothoid", graphs: bool = True) -> dict:
     """bench.py main_loop's run: fps over the chunks after 3 warm-up
     chunks, ATE, the seam and its profile, the closures, replays,
     keyframes, the blocked chunk, the revisit drift and the loop-edge
@@ -306,7 +312,8 @@ def run_loop(cfg, vocab, stacked, gt, chunk: int = 16, device="cuda",
     n = stacked.shape[0]
     lap, revisit, _, lobe = loop_geometry(n, chunk, track)
     chunks = _chunks(stacked, chunk, device)
-    eng = ChunkedSlamEngine(cfg, vocab=vocab, chunk_size=chunk, device=device)
+    eng = ChunkedSlamEngine(cfg, vocab=vocab, chunk_size=chunk, device=device,
+                            graphs=graphs)
     warm_s = _timed(eng, chunks[:WARMUP_CHUNKS], device)
     eng.warmup()
     _log(f"loop warm-up ({WARMUP_CHUNKS} chunks, first uses) in "
@@ -360,7 +367,7 @@ def run_loop(cfg, vocab, stacked, gt, chunk: int = 16, device="cuda",
 
 def loop_record(cfg, n_frames: int = 320, chunk: int = 16, device="cuda",
                 track: str = "clothoid", use_vocab: bool = True,
-                cache: Optional[str] = None) -> dict:
+                cache: Optional[str] = None, graphs: bool = True) -> dict:
     """The loop bench's JSON record (bench.py main_loop's keys less
     vs_baseline, plus the card, its power limit, the kernels' build
     time, keyframes, tf32 and the seam profile, closure events with their
@@ -372,7 +379,7 @@ def loop_record(cfg, n_frames: int = 320, chunk: int = 16, device="cuda",
     vocab = loop_vocabulary(cfg, stacked, loop_cache_base(
         cfg, n_frames, chunk, track, cache) + ".vocab.txt", device) \
         if use_vocab else None
-    r = run_loop(cfg, vocab, stacked, gt, chunk, device, track)
+    r = run_loop(cfg, vocab, stacked, gt, chunk, device, track, graphs)
     out = {
         "metric": "kitti_scale_full_slam_loop_fps" + (
             f"_{track}" if track != "clothoid" else ""),
@@ -380,7 +387,8 @@ def loop_record(cfg, n_frames: int = 320, chunk: int = 16, device="cuda",
         "ate_m": round(r["ate_m"], 3), "seam_m": round(r["seam_m"], 3),
         "closures": r["closures"], "replays": r["replays"],
         "blocked_chunk_ms": round(r["blocked_chunk_ms"], 1), "chunk": chunk,
-        "loop_closing": use_vocab, "backend": f"torch-{device.type}",
+        "loop_closing": use_vocab, "graphs": graphs,
+        "backend": f"torch-{device.type}",
         "card": card, "power_limit": power,
         "kernel_build_s": None if build_s is None else round(build_s, 2),
         "n_keyframes": r["n_keyframes"], "tf32": False,
@@ -417,7 +425,7 @@ def _timed(eng, chunks, device: torch.device) -> float:
 
 
 def run_headline(cfg, n_frames: int = 160, chunk: int = 16, device="cuda",
-                 cache: Optional[str] = None) -> dict:
+                 cache: Optional[str] = None, graphs: bool = True) -> dict:
     """bench.py's main() run: fps over the chunks after the warm-up, ATE
     and RPE of trajectory_refined(), blocked_chunk_ms, keyframes made and
     culled."""
@@ -426,7 +434,8 @@ def run_headline(cfg, n_frames: int = 160, chunk: int = 16, device="cuda",
     device = torch.device(device)
     stacked, gt = stage_frames(cfg, n_frames, HEADLINE_SEED, cache)
     chunks = _chunks(stacked, chunk, device)
-    eng = ChunkedSlamEngine(cfg, chunk_size=chunk, device=device)
+    eng = ChunkedSlamEngine(cfg, chunk_size=chunk, device=device,
+                            graphs=graphs)
     warm_s = _timed(eng, chunks[:WARMUP_CHUNKS], device)
     _log(f"warm-up ({WARMUP_CHUNKS} chunks, first uses) in {warm_s:.1f} s")
     dt = _timed(eng, chunks[WARMUP_CHUNKS:], device)
@@ -451,7 +460,8 @@ def run_headline(cfg, n_frames: int = 160, chunk: int = 16, device="cuda",
 
 def run_sweep(cfg, n_frames: int = 96, chunk: int = 16, device="cuda",
               n_seeds: int = 3, headline_frames: int = 160,
-              cache: Optional[str] = None) -> Optional[dict]:
+              cache: Optional[str] = None,
+              graphs: bool = True) -> Optional[dict]:
     """bench.py's _multi_seed_sweep: n_frames on each of the first
     n_seeds world seeds, fps after 2 warm-up chunks and ATE; seed 7 is
     the headline sequence's prefix. None for fewer than 2 seeds."""
@@ -469,7 +479,8 @@ def run_sweep(cfg, n_frames: int = 96, chunk: int = 16, device="cuda",
             stacked, gt = stage_frames(cfg, n_frames, seed, cache)
         n = stacked.shape[0] // chunk * chunk
         chunks = _chunks(stacked[:n], chunk, device)
-        eng = ChunkedSlamEngine(cfg, chunk_size=chunk, device=device)
+        eng = ChunkedSlamEngine(cfg, chunk_size=chunk, device=device,
+                                graphs=graphs)
         _timed(eng, chunks[:SWEEP_WARMUP_CHUNKS], device)
         dt = _timed(eng, chunks[SWEEP_WARMUP_CHUNKS:], device)
         n_timed = sum(int(c.shape[0]) for c in chunks[SWEEP_WARMUP_CHUNKS:])
@@ -515,14 +526,14 @@ def _build_kernels(device: torch.device) -> Optional[float]:
 
 def bench_record(cfg, n_frames: int = 160, chunk: int = 16, device="cuda",
                  n_seeds: int = 3, sweep_frames: int = 96,
-                 cache: Optional[str] = None) -> dict:
+                 cache: Optional[str] = None, graphs: bool = True) -> dict:
     """The bench's JSON record for cfg (its tracker.method picks the
     metric's suffix; the sweep runs for the indirect tracker only)."""
     device = torch.device(device)
     build_s = _build_kernels(device)
     card, power = _card(device)
     method = cfg.tracker.method
-    r = run_headline(cfg, n_frames, chunk, device, cache)
+    r = run_headline(cfg, n_frames, chunk, device, cache, graphs)
     out = {
         "metric": "kitti_scale_track_lba_fps" + (
             "" if method == "indirect" else f"_{method}"),
@@ -532,6 +543,7 @@ def bench_record(cfg, n_frames: int = 160, chunk: int = 16, device="cuda",
         "rpe_t_m": round(r["rpe_t_m"], 4),
         "blocked_chunk_ms": round(r["blocked_chunk_ms"], 1),
         "chunk": chunk,
+        "graphs": graphs,
         "backend": f"torch-{device.type}",
         "card": card,
         "power_limit": power,
@@ -543,7 +555,7 @@ def bench_record(cfg, n_frames: int = 160, chunk: int = 16, device="cuda",
     }
     if method == "indirect":
         sweep = run_sweep(cfg, sweep_frames, chunk, device, n_seeds,
-                          n_frames, cache)
+                          n_frames, cache, graphs)
         if sweep:
             out["sweep"] = sweep
     return out
@@ -794,7 +806,7 @@ def _loop_config(cfg):
 
 def dp_record(cfg, lanes: int = 4, mode: str = "lane", n_frames: int = 160,
               chunk: int = 16, device="cuda",
-              cache: Optional[str] = None) -> dict:
+              cache: Optional[str] = None, graphs: bool = True) -> dict:
     """bench.py main_dp's record for B = `lanes` sequences in layout
     `mode` ("lane" or "vmap"), with the card, its power limit and the
     device work a frame."""
@@ -825,7 +837,7 @@ def dp_record(cfg, lanes: int = 4, mode: str = "lane", n_frames: int = 160,
         mesh.batched_empty_map(cfg, lanes, device), first[:, 0],
         first[:, 1])
     step = (mesh.multi_sequence_lane_chunk if mode == "lane"
-            else mesh.multi_sequence_chunk)(cfg, cam)
+            else mesh.multi_sequence_chunk)(cfg, cam, graphs=graphs)
     packs, act = [], None
     t0 = time.perf_counter()
     for i, c in enumerate(chunks[:WARMUP_CHUNKS]):
@@ -864,7 +876,8 @@ def dp_record(cfg, lanes: int = 4, mode: str = "lane", n_frames: int = 160,
         "metric": f"kitti_scale_dp{lanes}_aggregate_fps",
         "value": round(agg, 2), "unit": "frames/s",
         "per_lane_fps": round(n_timed / dt, 2), "lanes": lanes,
-        "dp_mode": mode, "frames_timed": n_timed, "chunk": chunk,
+        "dp_mode": mode, "graphs": graphs, "frames_timed": n_timed,
+        "chunk": chunk,
         "ate_lane0_raw_m": round(ate, 3), "keyframes_per_lane": kfs,
         "kernels_per_frame": None if per_frame is None
         else round(per_frame, 1),
@@ -881,6 +894,7 @@ def main() -> int:
 
     from slam_toolkit_tpu_torch.config import SlamConfig
     cfg = SlamConfig()
+    graphs = os.environ.get("BENCH_GRAPHS", "1") != "0"
     if os.environ.get("BENCH_CLUSTER"):
         out = cluster_record(int(os.environ.get("BENCH_FRAMES", "60")))
         print(json.dumps(out))
@@ -893,7 +907,7 @@ def main() -> int:
             cfg, lanes=int(os.environ["BENCH_DP"]),
             mode=os.environ.get("BENCH_DP_MODE", "lane"),
             n_frames=int(os.environ.get("BENCH_FRAMES", "160")),
-            chunk=int(os.environ.get("BENCH_CHUNK", "16")))))
+            chunk=int(os.environ.get("BENCH_CHUNK", "16")), graphs=graphs)))
         return 0
     if os.environ.get("BENCH_LOOP"):
         print(json.dumps(loop_record(
@@ -901,7 +915,8 @@ def main() -> int:
             n_frames=int(os.environ.get("BENCH_FRAMES", "320")),
             chunk=int(os.environ.get("BENCH_CHUNK", "16")),
             track=os.environ.get("BENCH_LOOP_TRACK", "clothoid"),
-            use_vocab=os.environ.get("BENCH_LOOP_VOCAB", "1") != "0")))
+            use_vocab=os.environ.get("BENCH_LOOP_VOCAB", "1") != "0",
+            graphs=graphs)))
         return 0
     method = os.environ.get("BENCH_METHOD") or "indirect"
     cfg = dataclasses.replace(cfg, tracker=dataclasses.replace(
@@ -910,7 +925,8 @@ def main() -> int:
         cfg, n_frames=int(os.environ.get("BENCH_FRAMES", "160")),
         chunk=int(os.environ.get("BENCH_CHUNK", "16")),
         n_seeds=int(os.environ.get("BENCH_SEEDS", "3")),
-        sweep_frames=int(os.environ.get("BENCH_SWEEP_FRAMES", "96")))
+        sweep_frames=int(os.environ.get("BENCH_SWEEP_FRAMES", "96")),
+        graphs=graphs)
     print(json.dumps(out))
     return 0
 

@@ -1,0 +1,118 @@
+"""CUDA graphs of the engine's steps, with launch counts that count replays.
+
+A CUDA graph records the kernels a step launches once, at its capture,
+and then replays them with one host call and none of the Python that
+launched them: the port's counterpart of the JAX package's jitted chunk
+(pipeline/scan_engine.make_chunk_fn). A step is captured only after a
+warm-up on a side stream (as torch.cuda.graphs asks): the warm-up makes
+the step's first-call constants (lru_cached device tables), takes the
+kernels' shared-memory attributes and creates the libraries' handles,
+none of which may happen inside a capture. The warm-up runs the step for
+real, so its caller hands it throwaway state.
+
+A kernel wrapper counts its launches in Python (utils/cuda_lib
+LaunchCount), so a capture would count launches that never ran and a
+replay none that did. StepGraphs records each count's change over a
+capture, takes it back, and adds it on every replay of that graph. The
+warm-up's launches are set-up, as the kernels' build is: they are taken
+back too and kept in `setup_launches`.
+
+A failed capture or replay raises; nothing falls back to eager launches.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+from typing import Callable, Dict, Optional
+
+import torch
+
+from slam_toolkit_tpu_torch.utils import cuda_lib
+
+
+@contextlib.contextmanager
+def counts_apart():
+    """Launches counted inside the block are taken back on exit; the
+    yielded dict receives {LaunchCount: launches} of the block."""
+    before = {c: c.launches for c in cuda_lib.launch_counts()}
+    delta: Dict[cuda_lib.LaunchCount, int] = {}
+    try:
+        yield delta
+    finally:
+        for c in cuda_lib.launch_counts():
+            d = c.launches - before.get(c, 0)
+            if d:
+                delta[c] = d
+                c.launches -= d
+
+
+class StepGraphs:
+    """Named CUDA graphs on one device, captured once on one shared memory
+    pool and replayed by name. `captures` and `capture_s` (warm-up
+    included) say what capturing cost."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.pool = None
+        self._graphs: Dict[str, tuple] = {}
+        self.captures = 0
+        self.capture_s = 0.0
+        self.setup_launches: Dict[str, int] = {}
+
+    def warm_up(self, fn: Callable, *args) -> None:
+        """fn(*args) once on a side stream, waited for; its launches are
+        not counted (see the module's note)."""
+        t0 = time.perf_counter()
+        main = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(main)
+        with counts_apart() as delta:
+            with torch.cuda.stream(side):
+                fn(*args)
+            main.wait_stream(side)
+            torch.cuda.synchronize(self.device)
+        for c, n in delta.items():
+            key = getattr(c, "symbol", type(c).__name__)
+            self.setup_launches[key] = self.setup_launches.get(key, 0) + n
+        self.capture_s += time.perf_counter() - t0
+
+    def capture(self, name: str, fn: Callable, *args):
+        """Capture fn(*args) as graph `name`; returns fn's outputs, tensors
+        of the pool that every replay writes anew."""
+        if name in self._graphs:
+            raise RuntimeError(f"graph {name!r} is captured already")
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        with counts_apart() as delta:
+            with torch.cuda.graph(graph, pool=self.pool):
+                out = fn(*args)
+        if self.pool is None:
+            self.pool = graph.pool()
+        self._graphs[name] = (graph, dict(delta))
+        self.captures += 1
+        self.capture_s += time.perf_counter() - t0
+        return out
+
+    def replay(self, name: str) -> None:
+        graph, delta = self._graphs[name]
+        graph.replay()
+        for c, n in delta.items():
+            c.launches += n
+
+    def pool_bytes(self) -> Optional[int]:
+        """Bytes the caching allocator holds in the graphs' shared pool, or
+        None where its snapshot names no pool."""
+        if self.pool is None:
+            return 0
+        segs = torch.cuda.memory_snapshot()
+        if not any("segment_pool_id" in s for s in segs):
+            return None
+        pool = tuple(self.pool)
+        return sum(s["total_size"] for s in segs
+                   if tuple(s.get("segment_pool_id", ())) == pool)
+
+    def stats(self) -> dict:
+        return {"captures": self.captures, "capture_s": self.capture_s,
+                "pool_bytes": self.pool_bytes(),
+                "setup_launches": dict(self.setup_launches)}

@@ -10,7 +10,10 @@ one is loaded as it is. It is bound with ``ctypes``.
 Every C entry point takes the CUDA stream as its last argument, launches
 on it without synchronising, and returns ``cudaGetLastError()``;
 :class:`CudaKernel` raises when that is not 0 and otherwise counts the
-launch. Nothing here falls back to another implementation.
+launch. Nothing here falls back to another implementation. Every launch
+count (:class:`LaunchCount`: each kernel's own, and any a caller keeps
+beside them) is listed in :func:`launch_counts`, so that a CUDA graph
+(utils/cuda_graphs) can add on each replay what its capture recorded.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import os
 import shutil
 import subprocess
 import time
+import weakref
 from pathlib import Path
 from typing import NamedTuple
 
@@ -117,17 +121,37 @@ def library() -> Library:
     return Library(cdll, so, seconds, log)
 
 
-class CudaKernel:
+_COUNTS: "weakref.WeakSet[LaunchCount]" = weakref.WeakSet()
+
+
+class LaunchCount:
+    """A count of kernel launches, `launches`, that callers reset by
+    assigning 0. Every live one is listed by launch_counts()."""
+
+    def __init__(self):
+        self.launches = 0
+        _COUNTS.add(self)
+
+
+def launch_counts() -> list:
+    """Every live LaunchCount: each CudaKernel's, and those callers made
+    (a count by window shape, say)."""
+    return list(_COUNTS)
+
+
+class CudaKernel(LaunchCount):
     """One C entry point of the library, with a count of its launches.
 
     ``launches`` is incremented only after the entry point returned
-    success, i.e. once per kernel launch; callers reset it by assigning 0.
+    success, i.e. once per kernel launch; under a CUDA graph the capture's
+    increments are taken back and each replay adds them
+    (utils/cuda_graphs).
     """
 
     def __init__(self, symbol: str, *argtypes):
+        super().__init__()
         self.symbol = symbol
         self.argtypes = [*argtypes, PTR]          # + the stream
-        self.launches = 0
         self._fn = None
 
     def __call__(self, device: torch.device, *args) -> None:

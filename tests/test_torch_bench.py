@@ -18,7 +18,7 @@ torch.set_num_threads(1)
 
 KEYS = {"metric", "value", "unit", "ate_m", "rpe_t_m", "blocked_chunk_ms",
         "chunk", "backend", "card", "power_limit", "kernel_build_s",
-        "n_keyframes", "n_culls", "tf32"}
+        "n_keyframes", "n_culls", "tf32", "graphs"}
 
 
 def test_bench_record_on_cpu(tmp_path, monkeypatch):
@@ -35,6 +35,7 @@ def test_bench_record_on_cpu(tmp_path, monkeypatch):
     assert out["metric"] == "kitti_scale_track_lba_fps"
     assert out["backend"] == "torch-cpu" and out["card"] is None
     assert out["tf32"] is False and out["chunk"] == 3
+    assert out["graphs"] is True
     assert out["value"] > 0 and np.isfinite(out["ate_m"])
     assert out["n_keyframes"] >= 2 and out["n_culls"] == 0
     sweep = out["sweep"]
@@ -149,7 +150,7 @@ def test_bench_refuses_modes_not_ported(var, monkeypatch):
 DP_KEYS = {"metric", "value", "unit", "per_lane_fps", "lanes", "dp_mode",
            "frames_timed", "chunk", "ate_lane0_raw_m", "keyframes_per_lane",
            "kernels_per_frame", "busy", "backend", "card", "power_limit",
-           "kernel_build_s", "tf32"}
+           "kernel_build_s", "tf32", "graphs"}
 
 
 @pytest.mark.parametrize("mode", ["lane", "vmap"])
@@ -220,7 +221,8 @@ LOOP_KEYS = {"metric", "value", "unit", "ate_m", "seam_m", "closures",
              "replays", "blocked_chunk_ms", "chunk", "loop_closing",
              "backend", "card", "power_limit", "kernel_build_s",
              "n_keyframes", "tf32", "seam_profile_m", "revisit_drift_m",
-             "relocalizations", "closure_events", "pose_graph_tiers"}
+             "relocalizations", "closure_events", "pose_graph_tiers",
+             "graphs"}
 
 
 @pytest.mark.parametrize("track", ["clothoid", "fig8"])

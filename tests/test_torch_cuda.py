@@ -790,3 +790,88 @@ def test_pose_lm_batched_cuda_exact(dev, lanes):
         assert not bool(torch.isfinite(out.inlier_r2[-1]).any())
     ref = plk.optimize_pose_batched_plain(*args, cfg)
     torch.testing.assert_close(out.T_cw, ref.T_cw, rtol=0, atol=2e-3)
+
+
+def _tiny_images(n: int, seed: int = 3):
+    from slam_toolkit_tpu_torch.config import SlamConfig
+    from slam_toolkit_tpu_torch.data.synthetic import make_sequence
+    _, _, frames = make_sequence(SlamConfig.tiny(), n_frames=n, seed=seed,
+                                 step=0.25)
+    return np.stack([np.stack([l, r]) for l, r in frames]).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("method", ["indirect", "hybrid", "direct"])
+def test_graphed_chunks_match_eager(dev, method):
+    """ChunkedSlamEngine replaying its two CUDA graphs against the eager
+    step (graphs=False) on the card, tiny config, 17 frames in chunks of
+    4 with a small keyframe ring that culls between them: the rows and
+    the maps bit-equal, the kernels' launch counts (from the replays)
+    equal, two captures for the engine's life."""
+    import dataclasses
+
+    from slam_toolkit_tpu_torch.config import SlamConfig
+    from slam_toolkit_tpu_torch.pipeline.scan_engine import ChunkedSlamEngine
+    from slam_toolkit_tpu_torch.utils import cuda_lib
+    cfg = SlamConfig.tiny()
+    cfg = dataclasses.replace(
+        cfg, tracker=dataclasses.replace(cfg.tracker, method=method),
+        map=dataclasses.replace(cfg.map, max_keyframes=11),
+        keyframe=dataclasses.replace(cfg.keyframe, decay_ratio=0.95))
+    imgs = _tiny_images(17)
+    out = {}
+    for graphs in (False, True):
+        before = {c: c.launches for c in cuda_lib.launch_counts()}
+        eng = ChunkedSlamEngine(cfg, chunk_size=4, device=dev, graphs=graphs)
+        rows = np.concatenate([eng.process_chunk(imgs[a:a + 4 + (a == 0)])
+                               for a in (0, 5, 9, 13)])
+        torch.cuda.synchronize()
+        launched = {c.symbol: c.launches - before.get(c, 0)
+                    for c in cuda_lib.launch_counts()
+                    if isinstance(c, cuda_lib.CudaKernel)}
+        out[graphs] = (eng, rows, launched)
+    (e_eng, e_rows, e_l), (g_eng, g_rows, g_l) = out[False], out[True]
+    assert e_eng.n_culls >= 1 and g_eng.n_culls == e_eng.n_culls
+    np.testing.assert_array_equal(g_rows, e_rows)
+    for f in e_eng.map._fields:
+        assert torch.equal(getattr(g_eng.map, f), getattr(e_eng.map, f)), f
+    assert g_l == e_l and e_l["slam_local_ba"] > 0
+    assert g_eng._chunk.graph_stats()["captures"] == 2
+
+
+@pytest.mark.parametrize("lanes", [1, 2])
+def test_graphed_batched_chunks_match_eager(dev, lanes):
+    """multi_sequence_chunk's B + 1 CUDA graphs against the eager batched
+    step on the card, tiny config, B lanes of distinct sequences over two
+    chunks: rows and maps bit-equal, launches equal."""
+    from slam_toolkit_tpu_torch.config import SlamConfig
+    from slam_toolkit_tpu_torch.geometry.camera import StereoCamera
+    from slam_toolkit_tpu_torch.parallel import mesh
+    from slam_toolkit_tpu_torch.utils import cuda_lib
+    cfg = SlamConfig.tiny()
+    cam = StereoCamera.from_config(cfg.camera, dev)
+    seqs = np.stack([_tiny_images(13, seed=3 + b) for b in range(lanes)],
+                    axis=1)
+    imgs = torch.from_numpy(seqs).to(dev)
+    out = {}
+    for graphs in (False, True):
+        before = {c: c.launches for c in cuda_lib.launch_counts()}
+        carry = mesh.batched_bootstrap(cfg, cam)(
+            mesh.batched_empty_map(cfg, lanes, dev), imgs[0, :, 0],
+            imgs[0, :, 1])
+        chunk = mesh.multi_sequence_chunk(cfg, cam, graphs=graphs)
+        carry, p0 = chunk(carry, imgs[1:7])
+        carry, p1 = chunk(carry, imgs[7:])
+        torch.cuda.synchronize()
+        launched = {c.symbol: c.launches - before.get(c, 0)
+                    for c in cuda_lib.launch_counts()
+                    if isinstance(c, cuda_lib.CudaKernel)}
+        out[graphs] = (carry, torch.cat([p0, p1]).cpu().numpy(), launched,
+                       chunk)
+    (c_e, r_e, l_e, _), (c_g, r_g, l_g, chunk) = out[False], out[True]
+    assert (r_e[..., 34] > 0.5).any()
+    np.testing.assert_array_equal(r_g, r_e)
+    for f in c_e.m._fields:
+        assert torch.equal(getattr(c_g.m, f), getattr(c_e.m, f)), f
+    assert l_g == l_e and l_e["slam_gather_blocks_batched"] == 13
+    assert chunk.graph_stats()["captures"] == lanes + 1
