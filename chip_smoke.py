@@ -90,11 +90,16 @@ Phases (any failure raises and the script exits non-zero):
 9. The kernel table as one JSON line (launches from phase 3, FAST's from
    phase 4, each kernel's launches in phase 10 as `launches_loop`, in
    phase 11 (a) as `launches_classic`, in phase 12 (a) as
-   `launches_cluster` and in phase 13's batched layout as `launches_dp`;
-   the top-2's launches from the loop closer's call sites as
-   `launches_loop_closer`; the three batched entries of phase 13 as rows
-   of their own, whose `launches` are their launches in that batched
-   run, their own path; the bfloat16 entries of phase 15 likewise), then
+   `launches_cluster`, in phase 13's batched layout as `launches_dp`
+   and in its batched hybrid and direct runs as `launches_dp_hybrid`,
+   `launches_dp_direct`; the top-2's launches from the loop closer's
+   call sites as `launches_loop_closer`; the five batched entries of
+   phase 13 as rows of their own, whose `launches` are their launches
+   in that batched run, their own path, and the batched gather at 8x8
+   as a row whose launches are the batched hybrid run's (its
+   `launches_dp` the indirect run's 8x8 count, as on every row); the
+   bfloat16
+   entries of phase 15 likewise), then
    the result line. It is printed last, after phases 10-15.
 10. Loop closing at full width: SlamConfig(), the loop bench's world and
    clothoid (tools/bench.stage_loop_frames: 192 frames, the track closing
@@ -163,33 +168,46 @@ Phases (any failure raises and the script exits non-zero):
    (mesh.batched_bootstrap), frames 1-32 in two chunks of 16, through
    the lane layout (mesh.multi_sequence_lane_chunk: lanes in turn) and
    the batched layout (mesh.multi_sequence_chunk: the step batched over
-   the lanes). For each layout every count is set to 0 just before its
-   bootstrap and read just after its last chunk: the batched layout must
-   launch the batched gather once a frame for all lanes (and once for
-   the bootstrap), the batched top-2 and pose LM once a frame, and their
-   single entries never; SAD and local BA launch in both layouts.
-   Keyframe flags, ok flags and slots must be equal between the layouts
-   and to each lane run alone through ChunkedSlamEngine, and
-   translations within 1e-3 m (a lane that parts names the frame).
-   Aggregate frames/s of both layouts (the second chunk) and one lane
-   alone's, and the device operations a frame of each layout (frames 2
-   and 3 under torch.profiler, after frame 1 captured the graphs) are
-   printed. The inputs of the three batched entries on one frame of the
-   batched run are kept on the card (as phase 3's: the last frame);
-   each entry is then held exactly, lane by lane, against its single
-   launch on them and against its batched plain version (the pose LM:
-   bit for bit against the single launch, within 2e-3 of the plain
-   version), with its times, bound and library time as phase 2's.
+   the lanes, and on a frame where any lane is flagged the keyframe
+   event once over all lanes). For each layout every count is set to 0
+   just before its bootstrap and read just after its last chunk: the
+   batched layout must launch the batched gather once a frame for all
+   lanes (and once for the bootstrap), the batched top-2 and pose LM
+   once a frame, the batched SAD once for the bootstrap and once a frame
+   with a flagged lane, the batched local BA once a frame with a flagged
+   lane, and none of their single entries; the lane layout launches the
+   single SAD and local BA. Keyframe flags, ok flags and slots must be
+   equal between the layouts and to each lane run alone through
+   ChunkedSlamEngine, and translations within 1e-3 m (a lane that parts
+   names the frame). Aggregate frames/s of both layouts (the second
+   chunk) and one lane alone's, and the device operations a frame of
+   each layout (frames 2 and 3 under torch.profiler, after frame 1
+   captured the graphs) are printed. The inputs of the five batched
+   entries in the batched run are kept on the card (as phase 3's: the
+   last frame that ran each); each entry is then held, lane by lane,
+   against its single launch on them (exactly; the pose LM and local BA
+   bit for bit) and against its batched plain version (the SAD bar, the
+   pose LM's 2e-3, local BA's T 3e-3 and X 2e-2 from the float64 run
+   beyond the plain float32 run's own distance), with its times, bound,
+   library time and loss as phase 2's. Then the same four sequences
+   under tracker.method "hybrid" and "direct" through both layouts, the
+   photometric anchor added to the bootstrap's carry as ChunkedSlamEngine
+   builds its own: the same equalities to each other and to each lane
+   alone, the same keyframe-event launches, the batched gather at 8x8
+   and never the single gather; the batched hybrid run keeps the 8x8
+   gather's inputs, held as the 31x31 ones.
 14. CUDA graphs against the eager step (graphs=False, make_frame_body)
    at full width: phase 3's 48 frames in the paired order eager,
    graphed, graphed, eager. Every run's 48 x 36 packed values (the
    bootstrap frame's row built the same way from the engine's
    trajectory) must be bit-equal, and the launch counts of the graphed
    runs, counted from the replays, equal to the eager runs' (by window
-   shape too). Then phase 13's batched layout again, eagerly: its rows
-   bit-equal to phase 13's graphed run and its launches equal. Prints
-   each run's frames/s, the captures, their seconds and the graphs'
-   pool memory, and both modes' aggregate frames/s at four lanes.
+   shape too). Then phase 13's batched indirect and hybrid runs again,
+   eagerly: their rows bit-equal to phase 13's graphed runs and their
+   launches equal; each graphed batched run captured 2 graphs (tracking
+   and one keyframe graph for all lanes). Prints each run's frames/s,
+   the captures, their seconds and the graphs' pool memory, and both
+   modes' aggregate frames/s at four lanes.
 15. The option sets (tools/bench.OPTIONS) at SlamConfig(): (a) the
    kernels at their shapes on frame 0 (frame 1 as a second lane), each
    exact against its plain version and unfold, with phase 2's columns:
@@ -214,8 +232,11 @@ Phases (any failure raises and the script exits non-zero):
    kernel exact against its plain version on the augmented problem.
    (d) Two lanes (frames 0-16 and 16-32) under O1 and under O3 through
    mesh.multi_sequence_chunk, each lane's rows bit-equal to
-   ChunkedSlamEngine on its frames, the batched gather's float32 (O1)
-   or bfloat16 (O3) entry launched once a frame. Counts are set to 0
+   ChunkedSlamEngine on its frames; every gather, top-2 and local-BA
+   launch on the batched entries, counted exactly (a frame's
+   descriptors, and each keyframe event's right images extracted and
+   refined over both lanes at once; O3's descriptors on the bfloat16
+   entry), the single entries never. Counts are set to 0
    just before each run and read just after. The kernel table gains
    the two bfloat16 rows (launches: O3's run and the batched O3 lanes)
    and on every row `launches_o1` ... `launches_o3` and
@@ -1424,41 +1445,105 @@ BATCHED = (("patch_gather_batched", "patches", "gather_blocks_batched_cuda"),
            ("topk2_match_batched", "match_kernel",
             "topk2_match_batched_cuda"),
            ("pose_lm_batched", "pose_lm_kernel",
-            "optimize_pose_batched_cuda"))
+            "optimize_pose_batched_cuda"),
+           ("sad_curve_batched", "stereo_sad", "sad_curve_batched_cuda"),
+           ("local_ba_batched", "ba_kernel", "solve_ba_batched_cuda"))
+KEYFRAME_ENTRIES = ("sad_curve_batched", "local_ba_batched")
+PHOTOMETRIC = ("hybrid", "direct")
 
 
 def _clone(a):
     if isinstance(a, torch.Tensor):
         return a.clone()
+    if hasattr(a, "_fields"):
+        return type(a)(*(_clone(x) for x in a))
     if isinstance(a, (list, tuple)):
         return [_clone(x) for x in a]
+    if isinstance(a, dict):
+        return {k: _clone(v) for k, v in a.items()}
     return a
+
+
+def _copy_into(dst, src) -> None:
+    """Copy the tensors of `src` into those of `dst`, a _clone of an
+    earlier call with the same shapes."""
+    if isinstance(src, torch.Tensor):
+        if dst.shape != src.shape:
+            raise AssertionError(f"captured shape {tuple(src.shape)}, kept "
+                                 f"{tuple(dst.shape)}")
+        dst.copy_(src)
+    elif isinstance(src, dict):
+        for k, v in src.items():
+            _copy_into(dst[k], v)
+    elif isinstance(src, (list, tuple)):
+        for d, v in zip(dst, src):
+            _copy_into(d, v)
 
 
 class BatchedCapture:
     """While installed, keeps on the card the inputs of the `call`-th
     call of each batched kernel entry (a mid-run frame of the batched
-    layout); the entries run as before. Under a CUDA graph, as
-    MatchCapture: the copy made at the capture holds the inputs of the
-    last frame replayed."""
+    layout; the keyframe event's entries, which run only on frames with
+    a flagged lane, at their last call); the entries run as before.
+    Under CUDA graphs the copy made at the capture holds the inputs of
+    the last frame replayed: graph A's first call of an entry (A is
+    captured first; the hybrid tracker's 8x8 gather also runs in graph
+    B), and the keyframe event's calls in graph B copied into the
+    buffers of an earlier eager call (the bootstrap's, the warm-up's),
+    outside the graphs' shared pool: a copy allocated in graph B's
+    capture sits where graph A's temporaries lay, and graph A's next
+    replay overwrites it. The batched gather's calls are kept apart by
+    window shape ("patch_gather_batched" for 31x31, else
+    "patch_gather_batched_<bh>x<bw>"), and its launches counted by shape
+    (`shape_counts`, LaunchCounts that a CUDA graph adds on replay)."""
 
     def __init__(self, call: int):
         import importlib
+        from slam_toolkit_tpu_torch.ops import patches
         self.call, self.calls, self.args, self.orig = call, {}, {}, {}
+        self.kwargs, self.by_shape, self.patches = {}, {}, patches
+        self.captured = set()
         for name, mod, fn in BATCHED:
             m = importlib.import_module(f"slam_toolkit_tpu_torch.ops.{mod}")
             self.orig[name] = (m, fn, getattr(m, fn))
             setattr(m, fn, self._wrap(name))
 
-    def _wrap(self, name):
-        orig = self.orig[name][2]
+    @property
+    def shape_counts(self) -> dict:
+        return {k: c.launches for k, c in self.by_shape.items()}
 
-        def call(*args):
-            self.calls[name] = self.calls.get(name, 0) + 1
-            if self.calls[name] == self.call or \
-                    torch.cuda.is_current_stream_capturing():
-                self.args[name] = _clone(list(args))
-            return orig(*args)
+    def _wrap(self, name):
+        from slam_toolkit_tpu_torch.utils.cuda_lib import LaunchCount
+        orig = self.orig[name][2]
+        kernel = self.patches.BATCHED_KERNEL
+
+        def call(*args, **kw):
+            key = name
+            if name == "patch_gather_batched" and tuple(args[4:6]) != (31, 31):
+                key = f"{name}_{args[4]}x{args[5]}"
+            self.calls[key] = self.calls.get(key, 0) + 1
+            capturing = torch.cuda.is_current_stream_capturing()
+            if capturing and key in KEYFRAME_ENTRIES:
+                # graph B: into the buffers of an eager call
+                _copy_into(self.args[key], list(args))
+                _copy_into(self.kwargs[key], kw)
+            elif capturing and key not in self.captured:
+                # graph A (captured first): its call of the entry
+                self.captured.add(key)
+                self.args[key] = _clone(list(args))
+                self.kwargs[key] = _clone(kw)
+            elif not capturing and (self.calls[key] == self.call or
+                                    key in KEYFRAME_ENTRIES):
+                self.args[key] = _clone(list(args))
+                self.kwargs[key] = _clone(kw)
+            if name != "patch_gather_batched":
+                return orig(*args, **kw)
+            n0 = kernel.launches
+            out = orig(*args, **kw)
+            if key not in self.by_shape:
+                self.by_shape[key] = LaunchCount()
+            self.by_shape[key].launches += kernel.launches - n0
+            return out
         return call
 
     def close(self):
@@ -1585,21 +1670,140 @@ def check_pose_lm_batched(args) -> dict:
             "what": f"{lanes} problems N={n}", **row, **b}
 
 
+def check_sad_batched(args) -> dict:
+    """The batched SAD curves on the captured keyframe frame: each flagged
+    lane exactly its single launch and within the SAD bar of the batched
+    plain version (an unflagged lane's rows are left unwritten); its
+    bound counts the flagged lanes' work (phase 2's count a lane) and
+    their rows of the output."""
+    from slam_toolkit_tpu_torch.ops import stereo_sad as sad
+    img_l, img_r, ys0, xl0, xs0, max_disp, lanes = args
+    n_lanes, k = ys0.shape
+    keep = lanes.bool().tolist()
+    out = sad.sad_curve_batched_cuda(*args)
+    for b in range(n_lanes):
+        if keep[b]:
+            one = sad.sad_curve_cuda(img_l[b], img_r[b], ys0[b], xl0[b],
+                                     xs0[b], max_disp)
+            if not torch.equal(out[b], one):
+                raise AssertionError(f"batched SAD: lane {b} differs from "
+                                     "its single launch")
+    kept = [b for b in range(n_lanes) if keep[b]]
+    ref = sad.sad_curve_batched_plain(*args)
+    err = float((out[kept] - ref[kept]).abs().max()) if kept else 0.0
+    torch.testing.assert_close(out[kept], ref[kept], rtol=1e-5, atol=1e-3)
+    side, sw = 2 * sad.WIN + 1, sad._strip_w(max_disp)
+    read = sum(window_bytes(img_l[b], ys0[b], xl0[b], side, side) +
+               window_bytes(img_r[b], ys0[b], xs0[b], side, sw) +
+               nbytes(ys0[b], xl0[b], xs0[b], out[b]) for b in kept)
+    b_ = bound(read + nbytes(lanes),
+               len(kept) * k * out.shape[-1] * side * side * 2)
+    return {"name": "sad_curve_batched",
+            "source": "slam_toolkit_tpu_torch/csrc/stereo_sad.cu",
+            "replaces": "slam_toolkit_tpu/ops/stereo_sad.py:128",
+            "kernel": sad.BATCHED_KERNEL, "max_abs_err": err,
+            "what": f"{n_lanes} lanes ({len(kept)} flagged) K={k}, "
+                    f"{out.shape[-1]} shifts",
+            **row_times(lambda: sad.sad_curve_batched_cuda(*args),
+                        lambda: sad.sad_curve_batched_plain(*args)), **b_}
+
+
+def check_ba_batched(args, kw) -> dict:
+    """The batched local BA on the captured keyframe frame: each flagged
+    lane's poses, points, cost and residuals bit for bit its single
+    launch's (an unflagged lane's outputs are left unwritten); T within
+    3e-3 of the batched plain version, X (valid points of the flagged lanes) within 2e-2 of
+    the plain float64 run plus the plain float32 run's own distance from
+    it (float32 rounding alone moves a badly observed point's optimum;
+    phase 10 and tests/test_torch_cuda.py read X so), |X - X_plain|
+    printed beside; its bound the flagged lanes' work."""
+    from slam_toolkit_tpu_torch.ops import ba_kernel
+    p, lanes = args
+    n_lanes, W, P = p.z.shape[:3]
+    keep = lanes.bool().tolist()
+    out = ba_kernel.solve_ba_batched_cuda(p, lanes, **kw)
+    ref = ba_kernel.solve_ba_batched_plain(p, lanes, **kw)
+    err_T = err_X = err_X32 = 0.0
+    kept = [b for b in range(n_lanes) if keep[b]]
+    for b in kept:
+        one = ba_kernel._problem_lane(p, b)
+        single = ba_kernel.solve_ba_cuda(one, **kw)
+        if not all(torch.equal(o[b], s_) for o, s_ in zip(out, single)):
+            raise AssertionError(f"batched local BA: lane {b} differs from "
+                                 "its single launch")
+        err_T = max(err_T, float((out.T_cw[b] - ref.T_cw[b]).abs().max()))
+        pv = one.point_valid
+        if bool(pv.any()):
+            ref64 = ba_kernel.solve_ba_plain(_ba_float64(one), **kw)
+            spread = float((ref.Xw[b][pv].double() - ref64.Xw[pv]).abs()
+                           .max())
+            d = float((out.Xw[b][pv].double() - ref64.Xw[pv]).abs().max())
+            err_X32 = max(err_X32, float((out.Xw[b][pv] - ref.Xw[b][pv])
+                                         .abs().max()))
+            if not d <= 2e-2 + spread:
+                raise AssertionError(f"batched local BA lane {b}: X {d} m "
+                                     f"from the float64 run (plain float32 "
+                                     f"{spread})")
+            err_X = max(err_X, d - spread)
+    if not err_T <= 3e-3:
+        raise AssertionError(f"batched local BA: T {err_T} from the plain "
+                             "solver")
+    ins = [p.T_cw, p.pose_fixed, p.Xw, p.z, p.inv_sigma, p.obs_mask,
+           p.stereo_mask, p.point_valid, p.point_free]
+    b_ = bound(sum(nbytes(*(t[b] for t in ins), *(o[b] for o in out))
+                   for b in kept) + nbytes(lanes) + 4,
+               len(kept) * ba_ops(W, P, kw["iters"]))
+    return {"name": "local_ba_batched",
+            "source": "slam_toolkit_tpu_torch/csrc/local_ba.cu",
+            "replaces": "slam_toolkit_tpu/ops/ba_kernel.py:408",
+            "kernel": ba_kernel.BATCHED_KERNEL,
+            "max_abs_err": max(err_T, err_X32),
+            "what": f"{n_lanes} problems ({len(kept)} flagged) W={W} P={P}, "
+                    f"max |X - X_plain| {err_X32:.2e}",
+            **row_times(lambda: ba_kernel.solve_ba_batched_cuda(p, lanes,
+                                                                **kw),
+                        lambda: ba_kernel.solve_ba_batched_plain(p, lanes,
+                                                                 **kw),
+                        plain_reps=5), **b_}
+
+
+def anchored(carry, lefts, cam, cfg):
+    """batched_bootstrap's carry (the JAX package's: no photometric
+    anchor) with the anchor a photometric tracker needs, built as
+    ChunkedSlamEngine builds its own: frame 0's left image, (a, b) = (0,
+    0), and for "hybrid" the pattern intensities at latest_T
+    (direct_lm.reference_values over the lanes: one batched gather)."""
+    from slam_toolkit_tpu_torch.optim import direct_lm
+    if cfg.tracker.method == "indirect":
+        return carry
+    kf_ab = torch.zeros((lefts.shape[0], 2), dtype=torch.float32,
+                        device=lefts.device)
+    refvals = None
+    if cfg.tracker.method == "hybrid":
+        refvals = direct_lm.reference_values(
+            direct_lm.DirectState(T_cw=carry.latest_T, a=kf_ab[:, 0],
+                                  b=kf_ab[:, 1]),
+            lefts, cam.left, carry.lm_Xw, carry.lm_valid, 1.0)
+    return carry._replace(kf_img=lefts.clone(), kf_ab=kf_ab,
+                          kf_refvals=refvals)
+
+
 def dp_run(make_step, cfg, cam, first, chunks, kernels: dict, cap=None):
     """One layout over the lanes: every count set to 0 just before the
-    bootstrap, read just after the last chunk; frame 1 alone (where the
-    graphs are captured, outside the profiler), frames 2 to DP_PROFILED +
-    1 under torch.profiler (operations a frame), the second chunk timed
-    alone. Returns the chunk function too."""
+    bootstrap, read just after the last chunk (a photometric tracker's
+    anchor added after the bootstrap, anchored()); frame 1 alone (where
+    the graphs are captured, outside the profiler), frames 2 to
+    DP_PROFILED + 1 under torch.profiler (operations a frame), the second
+    chunk timed alone. Returns the chunk function too."""
     from slam_toolkit_tpu_torch.parallel import mesh
     from slam_toolkit_tpu_torch.utils.timing import device_activity
     step = make_step(cfg, cam)
     for k in kernels.values():
         k.launches = 0
     try:
-        carry = mesh.batched_bootstrap(cfg, cam)(
+        carry = anchored(mesh.batched_bootstrap(cfg, cam)(
             mesh.batched_empty_map(cfg, first.shape[0], first.device),
-            first[:, 0], first[:, 1])
+            first[:, 0], first[:, 1]), first[:, 0], cam, cfg)
         carry, p0 = step(carry, chunks[0][:1])
         (carry, p1), act = device_activity(step, carry,
                                            chunks[0][1:1 + DP_PROFILED])
@@ -1625,9 +1829,118 @@ def lanes_apart(a: np.ndarray, b: np.ndarray, tol: float = 1e-3):
     return (int(bad[0]) + 1 if len(bad) else None), float(dt.max())
 
 
+def alone_rows(cfg, seqs):
+    """Each sequence alone through ChunkedSlamEngine (graphed, chunks of
+    DP_CHUNK): its rows without T_rel, and its frames/s over frames
+    16-31."""
+    alone, fps = [], []
+    for seq in seqs:
+        eng, chunk_s = run_engine(cfg, seq, DP_CHUNK, "cuda")
+        alone.append(np.stack([np.concatenate([
+            T.reshape(-1), np.zeros(16, np.float32),
+            [sl, st["ok"], st["kf"], st["inliers"]]]) for T, (sl, _), st in
+            zip(eng.trajectory[1:], eng._traj_anchor[1:],
+                eng.frame_stats[1:])]).astype(np.float32))
+        fps.append(DP_CHUNK / chunk_s[1])             # frames 16-31
+    return alone, float(np.mean(fps))
+
+
+def compare_lanes(rows_v, others: dict, what: str) -> None:
+    """Each lane of the batched rows against each other layout's: flags,
+    ok and slots equal, translations within 1e-3 m (a lane that parts
+    names the frame)."""
+    for b in range(rows_v.shape[1]):
+        kf = [int(v) for v in rows_v[:, b, 34]]
+        for name, other in others.items():
+            part, dt = lanes_apart(rows_v[:, b], other[b])
+            same = np.array_equal(rows_v[:, b, :16], other[b][:, :16])
+            print(f"[phase13] {what} lane {b} batched vs {name}: max |dt| "
+                  f"{dt:.2e} m, poses {'bit-equal' if same else 'differ'}, "
+                  + ("flags and slots equal" if part is None
+                     else f"parts at frame {part}"))
+            if part is not None:
+                raise AssertionError(f"{what} lane {b}: the batched layout "
+                                     f"and the {name} part at frame {part}")
+        print(f"[phase13] {what} lane {b}: keyframes at frames "
+              f"{[i + 1 for i, v in enumerate(kf) if v]}, inliers "
+              f"{[int(v) for v in rows_v[:, b, 35]]}")
+
+
+def keyframe_launches(rows_v, launch_v, launch_l, what: str) -> int:
+    """The batched layout must launch the batched SAD once for the
+    bootstrap and once a frame where any lane is flagged, the batched
+    local BA once a frame where any lane is flagged, and their single
+    entries never; the lane layout launches the single ones. Returns the
+    frames with a flagged lane."""
+    n_any = int((rows_v[..., 34] > 0.5).any(1).sum())
+    want = {"sad_curve_batched": 1 + n_any, "local_ba_batched": n_any,
+            "stereo_sad": 0, "local_ba": 0}
+    got = {k: launch_v[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{what} batched layout: keyframe-event "
+                             f"launches {got}, expected {want}")
+    if launch_l["stereo_sad"] == 0 or launch_l["local_ba"] == 0:
+        raise AssertionError(f"{what} lane layout launches {launch_l}")
+    return n_any
+
+
+def print_batched_row(label: str, r: dict, call: str) -> None:
+    lib_ms = "none" if r["library_ms"] is None else \
+        f"{r['library_ms']:.4f} ms"
+    print(f"[phase13] {label} {r['name']} ({r['what']}; {call}): exact per "
+          f"lane against the single launch, max_abs_err {r['max_abs_err']}; "
+          f"kernel {r['ms']:.4f} ms (device), wrapper {r['host_ms']:.4f} ms "
+          f"(host), plain {r['plain_ms']:.4f} ms, library {lib_ms}, bound "
+          f"{r['bound_ms']:.6f} ms ({r['bound_by']}), loss "
+          f"{r['launches'] * (r['ms'] - r['bound_ms']):.4f} ms over its "
+          f"{r['launches']} launches")
+
+
+def phase13_photometric(cfg, method: str, seqs, first, chunks, cam,
+                        every: dict, label: str) -> dict:
+    """The four sequences under tracker.method `method` through both
+    layouts from the same hand-built anchor (anchored()), and each alone
+    through ChunkedSlamEngine: flags, ok and slots equal, translations
+    within 1e-3 m; the batched keyframe-event launches as for "indirect".
+    The hybrid batched run keeps the batched gather's 8x8 inputs."""
+    from slam_toolkit_tpu_torch.parallel import mesh
+    cfg_m = dataclasses.replace(cfg, tracker=dataclasses.replace(
+        cfg.tracker, method=method))
+    t0 = time.perf_counter()
+    _, rows_l, secs_l, launch_l, _, _ = dp_run(
+        mesh.multi_sequence_lane_chunk, cfg_m, cam, first, chunks, every)
+    cap = BatchedCapture(call=DP_CHUNK)
+    _, rows_v, secs_v, launch_v, act_v, step_v = dp_run(
+        mesh.multi_sequence_chunk, cfg_m, cam, first, chunks, every, cap)
+    t1 = time.perf_counter()
+    alone, alone_fps = alone_rows(cfg_m, seqs)
+    lanes = first.shape[0]
+    fps = {"lane": lanes * DP_CHUNK / secs_l, "vmap": lanes * DP_CHUNK /
+           secs_v, "alone": alone_fps}
+    print(f"[phase13] {label} {method}: aggregate frames/s lane "
+          f"{fps['lane']:.2f}, vmap {fps['vmap']:.2f} ({lanes} lanes, chunk "
+          f"2); one lane alone {fps['alone']:.2f}; busy share vmap "
+          f"{act_v['busy']}; seconds: layouts {t1 - t0:.1f}, alone "
+          f"{time.perf_counter() - t1:.1f}")
+    print(f"[phase13] {label} {method} launches, lane layout: {launch_l}")
+    print(f"[phase13] {label} {method} launches, batched layout: "
+          f"{launch_v}; batched gather by window {cap.shape_counts}")
+    compare_lanes(rows_v, {"lane layout": rows_l.transpose(1, 0, 2),
+                           "alone": alone}, method)
+    n_any = keyframe_launches(rows_v, launch_v, launch_l, method)
+    n8 = cap.shape_counts.get("patch_gather_batched_8x8", 0)
+    if n8 == 0 or launch_v["patch_gather"] != 0:
+        raise AssertionError(f"{method}: the batched gather at 8x8 launched "
+                             f"{n8} times, the single one "
+                             f"{launch_v['patch_gather']}")
+    return {"launches": launch_v, "rows_v": rows_v, "fps": fps,
+            "n_any": n_any, "n8": n8, "cap": cap, "cfg": cfg_m,
+            "graphs_v": step_v.graph_stats()}
+
+
 def phase13(cfg, frames7, loop_frames, kernels: dict, label: str) -> dict:
     """Multi-sequence lanes (parallel/mesh) at full width; returns the
-    batched run's launch counts and the batched entries' rows."""
+    batched runs' launch counts and the batched entries' rows."""
     from slam_toolkit_tpu_torch.geometry.camera import StereoCamera
     from slam_toolkit_tpu_torch.parallel import mesh
     t_phase = time.perf_counter()
@@ -1652,21 +1965,13 @@ def phase13(cfg, frames7, loop_frames, kernels: dict, label: str) -> dict:
     _, rows_v, secs_v, launch_v, act_v, step_v = dp_run(
         mesh.multi_sequence_chunk, cfg, cam, first, chunks, every, cap)
     t2 = time.perf_counter()
-    alone, alone_fps = [], []
-    for b, seq in enumerate(seqs):
-        eng, chunk_s = run_engine(cfg, seq, DP_CHUNK, "cuda")
-        alone.append(np.stack([np.concatenate([
-            T.reshape(-1), np.zeros(16, np.float32),
-            [sl, st["ok"], st["kf"], st["inliers"]]]) for T, (sl, _), st in
-            zip(eng.trajectory[1:], eng._traj_anchor[1:],
-                eng.frame_stats[1:])]).astype(np.float32))
-        alone_fps.append(DP_CHUNK / chunk_s[1])       # frames 16-31
+    alone, alone_fps = alone_rows(cfg, seqs)
     print(f"[phase13] seconds: lane layout {t1 - t0:.1f}, batched "
           f"{t2 - t1:.1f}, the lanes alone {time.perf_counter() - t2:.1f} "
           "(profiled frames and first uses included)")
     n = DP_CHUNK
     fps = {"lane": lanes * n / secs_l, "vmap": lanes * n / secs_v,
-           "alone": float(np.mean(alone_fps))}
+           "alone": alone_fps}
     per_frame = {k: None if a["kernels"] is None else
                  a["kernels"] / DP_PROFILED
                  for k, a in (("lane", act_l), ("vmap", act_v))}
@@ -1680,22 +1985,8 @@ def phase13(cfg, frames7, loop_frames, kernels: dict, label: str) -> dict:
           f"{act_l['busy']}, vmap {act_v['busy']}")
     print(f"[phase13] {label} launches, lane layout: {launch_l}")
     print(f"[phase13] {label} launches, batched layout: {launch_v}")
-    for b in range(lanes):
-        kf = [int(v) for v in rows_v[:, b, 34]]
-        for what, other in (("lane layout", rows_l[:, b]),
-                            ("alone", alone[b])):
-            part, dt = lanes_apart(rows_v[:, b], other)
-            same = np.array_equal(rows_v[:, b, :16], other[:, :16])
-            print(f"[phase13] lane {b} batched vs {what}: max |dt| "
-                  f"{dt:.2e} m, poses {'bit-equal' if same else 'differ'}, "
-                  + ("flags and slots equal" if part is None
-                     else f"parts at frame {part}"))
-            if part is not None:
-                raise AssertionError(f"lane {b}: the batched layout and the "
-                                     f"{what} part at frame {part}")
-        print(f"[phase13] lane {b}: keyframes at frames "
-              f"{[i + 1 for i, v in enumerate(kf) if v]}, inliers "
-              f"{[int(v) for v in rows_v[:, b, 35]]}")
+    compare_lanes(rows_v, {"lane layout": rows_l.transpose(1, 0, 2),
+                           "alone": alone}, "indirect")
     n_frames = DP_FRAMES - 1
     want_v = {"patch_gather_batched": 1 + n_frames,
               "topk2_match_batched": n_frames, "pose_lm_batched": n_frames,
@@ -1707,28 +1998,39 @@ def phase13(cfg, frames7, loop_frames, kernels: dict, label: str) -> dict:
     if launch_l["patch_gather"] != lanes * n_frames or \
             launch_l["pose_lm"] != lanes * n_frames:
         raise AssertionError(f"lane layout launches {launch_l}")
-    for k in ("stereo_sad", "local_ba"):
-        if launch_v[k] == 0 or launch_l[k] == 0:
-            raise AssertionError(f"{k}: {launch_l[k]} launches in the lane "
-                                 f"layout, {launch_v[k]} batched")
+    n_any = keyframe_launches(rows_v, launch_v, launch_l, "indirect")
+    print(f"[phase13] {label} batched layout: {n_any} of {n_frames} frames "
+          f"with a flagged lane, {int((rows_v[..., 34] > 0.5).sum())} lane "
+          f"keyframes; keyframe graphs captured: "
+          f"{step_v.graph_stats()['captures'] - 1}")
     rows = [check_gather_batched(cap.args["patch_gather_batched"]),
             check_topk2_batched(cap.args["topk2_match_batched"]),
-            check_pose_lm_batched(cap.args["pose_lm_batched"])]
+            check_pose_lm_batched(cap.args["pose_lm_batched"]),
+            check_sad_batched(cap.args["sad_curve_batched"]),
+            check_ba_batched(cap.args["local_ba_batched"],
+                             cap.kwargs["local_ba_batched"])]
     for r in rows:
-        lib_ms = "none" if r["library_ms"] is None else \
-            f"{r['library_ms']:.4f} ms"
-        print(f"[phase13] {label} {r['name']} ({r['what']}; its call "
-              f"{DP_CHUNK} of the batched run): exact per lane against the "
-              f"single launch, max_abs_err {r['max_abs_err']}; kernel "
-              f"{r['ms']:.4f} ms (device), wrapper {r['host_ms']:.4f} ms "
-              f"(host), plain {r['plain_ms']:.4f} ms, library {lib_ms}, "
-              f"bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
+        r["launches"] = launch_v[r["name"]]
+        print_batched_row(label, r, "the last frame of the batched run "
+                          "that ran it" if r["name"] in
+                          ("sad_curve_batched", "local_ba_batched")
+                          else f"its call {DP_CHUNK} of the batched run")
+    photo = {m: phase13_photometric(cfg, m, seqs, first, chunks, cam, every,
+                                    label) for m in PHOTOMETRIC}
+    r8 = check_gather_batched(
+        photo["hybrid"]["cap"].args["patch_gather_batched_8x8"])
+    r8.update(name="patch_gather_batched_8x8",
+              launches=photo["hybrid"]["n8"])
+    print_batched_row(label, r8, "the last 8x8 call of the batched hybrid "
+                      "run")
+    rows.append(r8)
     print(f"[phase13] {label} phase seconds "
           f"{time.perf_counter() - t_phase:.1f}")
-    return {"launches": launch_v, "rows": rows, "rows_v": rows_v,
+    return {"launches": launch_v, "shapes_v": cap.shape_counts,
+            "rows": rows, "rows_v": rows_v,
             "fps_v": fps["vmap"], "fps_l": fps["lane"],
             "graphs_v": step_v.graph_stats(), "inputs": (cam, first, chunks),
-            "kernels": every}
+            "kernels": every, "photo": photo}
 
 
 # ---------------------------------------------------------------- phase 14
@@ -1788,24 +2090,35 @@ def phase14(cfg, frames, kernels: dict, label: str, dp: dict) -> None:
           f"eager counts {ref['launches']}, gather by window "
           f"{ref['shapes']}")
     cam, first, chunks = dp["inputs"]
-    _, rows_e, secs_e, launch_e, _, _ = dp_run(
-        lambda c, cm: mesh.multi_sequence_chunk(c, cm, graphs=False), cfg,
-        cam, first, chunks, dp["kernels"])
     lanes = first.shape[0]
-    print(f"[phase14] {label} batched layout, {lanes} lanes: aggregate "
-          f"frames/s eager {lanes * DP_CHUNK / secs_e:.2f}, graphed "
-          f"{dp['fps_v']:.2f} (phase 13; chunk 2); graphed "
-          f"{graph_line(dp['graphs_v'])}")
-    if not np.array_equal(rows_e, dp["rows_v"]):
-        bad = np.flatnonzero((rows_e != dp["rows_v"]).any((1, 2)))
-        raise AssertionError(f"the batched layout's graphed rows part from "
-                             f"the eager ones at frame {int(bad[0]) + 1}")
-    if launch_e != dp["launches"]:
-        raise AssertionError(f"batched launches: eager {launch_e}, graphed "
-                             f"{dp['launches']}")
-    print(f"[phase14] {label} batched layout: {rows_e.shape[0]} x {lanes} x "
-          f"{rows_e.shape[2]} packed values bit-equal to phase 13's graphed "
-          f"run, launches equal {launch_e}; phase seconds "
+    for method, run in (("indirect", dp), ("hybrid", dp["photo"]["hybrid"])):
+        cfg_m = run.get("cfg", cfg)
+        _, rows_e, secs_e, launch_e, _, _ = dp_run(
+            lambda c, cm: mesh.multi_sequence_chunk(c, cm, graphs=False),
+            cfg_m, cam, first, chunks, dp["kernels"])
+        fps_g = run["fps_v"] if method == "indirect" else run["fps"]["vmap"]
+        stats = run["graphs_v"]
+        print(f"[phase14] {label} batched {method}, {lanes} lanes: aggregate "
+              f"frames/s eager {lanes * DP_CHUNK / secs_e:.2f}, graphed "
+              f"{fps_g:.2f} (phase 13; chunk 2); graphed "
+              f"{graph_line(stats)}; graphs: 1 tracking + "
+              f"{stats['captures'] - 1} keyframe graph for {lanes} lanes "
+              f"(one a lane would make 1 + {lanes})")
+        if stats["captures"] != 2:
+            raise AssertionError(f"batched {method}: {stats['captures']} "
+                                 "graphs captured, expected 2")
+        if not np.array_equal(rows_e, run["rows_v"]):
+            bad = np.flatnonzero((rows_e != run["rows_v"]).any((1, 2)))
+            raise AssertionError(f"batched {method}: the graphed rows part "
+                                 f"from the eager ones at frame "
+                                 f"{int(bad[0]) + 1}")
+        if launch_e != run["launches"]:
+            raise AssertionError(f"batched {method} launches: eager "
+                                 f"{launch_e}, graphed {run['launches']}")
+        print(f"[phase14] {label} batched {method}: {rows_e.shape[0]} x "
+              f"{lanes} x {rows_e.shape[2]} packed values bit-equal to "
+              f"phase 13's graphed run, launches equal {launch_e}")
+    print(f"[phase14] {label} phase seconds "
           f"{time.perf_counter() - t_phase:.1f}")
 
 
@@ -2083,8 +2396,10 @@ def batched_option(cfg, name: str, frames, kernels: dict,
     """Phase 15 (d): two lanes under option set `name` (frames 0-16 and
     16-32 of the track) through mesh.multi_sequence_chunk, graphed: each
     lane's rows bit-equal to ChunkedSlamEngine on that lane's frames.
-    Counts reset just before, read just after; under O3 the batched
-    bfloat16 gather must launch."""
+    Counts reset just before, read just after: every gather, top-2 and
+    local-BA launch on the batched entries (the keyframe events' right
+    images extracted and refined over the lanes at once), under O3 the
+    descriptors' on the batched bfloat16 gather."""
     from slam_toolkit_tpu_torch.geometry.camera import StereoCamera
     from slam_toolkit_tpu_torch.parallel import mesh
     from slam_toolkit_tpu_torch.pipeline.scan_engine import ChunkedSlamEngine
@@ -2120,11 +2435,20 @@ def batched_option(cfg, name: str, frames, kernels: dict,
           f"its single step; keyframes a lane "
           f"{[int(rows[:, b, 34].sum()) for b in range(2)]}; launches "
           f"{launches}")
-    entry = "patch_gather_bf16_batched" if name == "O3" else \
-        "patch_gather_batched"
-    if launches[entry] != n or launches["topk2_match_batched"] != n - 1:
-        raise AssertionError(f"batched {name}: the batched gather entries "
-                             f"launched {launches}")
+    # the keyframe events (the bootstrap's too) extract the right images
+    # and refine (11x11 and 11x17 windows) over the lanes at once
+    events = 1 + int((rows[..., 34] > 0.5).any(1).sum())
+    f32 = 2 * events + (0 if name == "O3" else n + events)
+    want = {"patch_gather_batched": f32,
+            "patch_gather_bf16_batched": n + events if name == "O3" else 0,
+            "topk2_match_batched": n - 1, "local_ba_batched": events - 1,
+            "sad_curve_batched": 0, "patch_gather": 0,
+            "patch_gather_bf16": 0, "topk2_match": 0, "local_ba": 0,
+            "stereo_sad": 0}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"batched {name}: launches {got}, expected "
+                             f"{want}")
     return launches
 
 
@@ -2457,14 +2781,16 @@ def main() -> int:
               "launches_classic": classic[r["name"]],
               "launches_cluster": cluster[r["name"]],
               "launches_dp": dp["launches"][r["name"]]} for r in rows]
-    # the batched entries' own path is phase 13's batched layout
+    # the batched entries' own path is phase 13's batched layout (the
+    # 8x8 gather's its batched hybrid run; launches_dp is the indirect
+    # batched run's on every row)
     table += [{"name": r["name"], "route": "cuda", "source": r["source"],
-               "replaces": r["replaces"],
-               "launches": dp["launches"][r["name"]],
+               "replaces": r["replaces"], "launches": r["launches"],
                **{k: r[k] for k in keys}, "launches_loop": 0,
                "launches_classic": 0, "launches_cluster": 0,
-               "launches_dp": dp["launches"][r["name"]]}
-              for r in dp["rows"]]
+               "launches_dp": dp["shapes_v"].get(r["name"], 0)
+               if r["name"] == "patch_gather_batched_8x8"
+               else r["launches"]} for r in dp["rows"]]
     # the bfloat16 entries' own paths are phase 15's O3 run and its
     # batched O3 lanes
     table += [{"name": r["name"], "route": "cuda", "source": r["source"],
@@ -2482,6 +2808,10 @@ def main() -> int:
             t[f"launches_{name.lower()}_batched"] = dp_l.get(t["name"], 0)
         if t["name"] == "topk2_match":
             t["launches_loop_closer"] = loop["closer"]
+        for name, run in dp["photo"].items():
+            t[f"launches_dp_{name}"] = run["cap"].shape_counts.get(
+                t["name"], 0) if t["name"] == "patch_gather_batched_8x8" \
+                else run["launches"].get(t["name"], 0)
     print(card)
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -57,6 +57,15 @@
 // still read its shared memory. Given a phase_cycles buffer, thread 0 of
 // rank 0 adds up the clock64() cycles of each phase (see Phase), read at
 // the barriers that end them, and writes them there at exit.
+//
+// The batched entry solves B problems of the same W and P in one launch,
+// one cluster a problem (the JAX package's vmapped _ba_pallas): the grid
+// is (8, B), the cluster's lane blockIdx.y, whose pointers are offset to
+// its b-th problem before the single launch's body runs, so each lane's
+// solve is its single launch's bit for bit. A lane whose entry of the
+// int32 mask `lanes` is 0 writes nothing: every CTA of its cluster reads
+// the mask first, before any cluster.sync() or distributed shared-memory
+// access, and all 8 return together.
 #include <cooperative_groups.h>
 #include <math.h>
 
@@ -273,9 +282,29 @@ local_ba_kernel(const float* __restrict__ T_in, const float* __restrict__ FP,
                 const float* __restrict__ SW, const float* __restrict__ PV,
                 const float* __restrict__ PF,
                 const float* __restrict__ baseline, Params prm,
-                float* __restrict__ T_out, float* __restrict__ X_out,
-                float* __restrict__ cost_out, float* __restrict__ r2_out,
+                const int* __restrict__ lanes, float* __restrict__ T_out,
+                float* __restrict__ X_out, float* __restrict__ cost_out,
+                float* __restrict__ r2_out,
                 long long* __restrict__ phase_cycles) {
+  // every CTA of the cluster reads the same entry and leaves together
+  if (lanes != nullptr && lanes[blockIdx.y] == 0) return;
+  {
+    // this cluster's problem of a batched launch (0 for a single one)
+    const size_t b = blockIdx.y, W = prm.W, P = prm.P;
+    T_in += b * W * 16;
+    FP += b * W;
+    X_in += b * P * 3;
+    Z += b * W * P * 3;
+    ISG += b * W * P;
+    OW += b * W * P;
+    SW += b * W * P;
+    PV += b * P;
+    PF += b * P;
+    T_out += b * W * 16;
+    X_out += b * P * 3;
+    cost_out += b;
+    r2_out += b * W * P;
+  }
   extern __shared__ float dyn[];
   __shared__ float sT[kMaxW][16], sTtry[kMaxW][16];
   __shared__ float sFp[kMaxW];
@@ -311,7 +340,8 @@ local_ba_kernel(const float* __restrict__ T_in, const float* __restrict__ FP,
   const float delta = prm.delta;
   const float behind_pen = delta * (1e3f - 0.5f * delta);
   // per-phase cycles, counted at the barrier that ends each phase
-  const bool clocked = phase_cycles != nullptr && rank == 0 && tid == 0;
+  const bool clocked = phase_cycles != nullptr && rank == 0 && tid == 0 &&
+                       blockIdx.y == 0;
   long long cycles[kPhases] = {};
   long long t_mark = clock64();
   auto mark = [&](Phase ph) {
@@ -703,17 +733,23 @@ SLAM_API int slam_local_ba_max_points(int W) {
   return P;
 }
 
-SLAM_API int slam_local_ba(const float* T_in, const float* free_pose,
-                           const float* X_in, const float* Z,
-                           const float* inv_sigma, const float* obs_w,
-                           const float* stereo_w, const float* pt_valid,
-                           const float* pt_free, const float* baseline, int W,
-                           int P, int iters, float delta, float lam0,
-                           float lam_up, float lam_down, float trim,
-                           float* T_out, float* X_out, float* cost_out,
-                           float* r2_out, long long* phase_cycles,
-                           cudaStream_t stream) {
-  if (W < 1 || W > kMaxW || P < 1 || iters < 0) {
+// `problems` problems of the same W and P: T_in (problems, W, 16),
+// free_pose (problems, W), X_in (problems, P, 3), Z (problems, W, P, 3),
+// inv_sigma, obs_w and stereo_w (problems, W, P), pt_valid and pt_free
+// (problems, P), one baseline; T_out, X_out, cost_out and r2_out with the
+// same leading axis. lanes: (problems,) int32, 0 for a problem to skip,
+// or null for none skipped. phase_cycles (null, or the clocks of problem
+// 0) as slam_local_ba's.
+SLAM_API int slam_local_ba_batched(
+    const float* T_in, const float* free_pose, const float* X_in,
+    const float* Z, const float* inv_sigma, const float* obs_w,
+    const float* stereo_w, const float* pt_valid, const float* pt_free,
+    const float* baseline, int W, int P, int iters, float delta, float lam0,
+    float lam_up, float lam_down, float trim, int problems, const int* lanes,
+    float* T_out, float* X_out, float* cost_out, float* r2_out,
+    long long* phase_cycles, cudaStream_t stream) {
+  if (W < 1 || W > kMaxW || P < 1 || iters < 0 || problems < 1 ||
+      problems > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // the opt-in above 48 KB: queried and set once per device, so a call
@@ -738,8 +774,25 @@ SLAM_API int slam_local_ba(const float* T_in, const float* free_pose,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Params prm{W, P, iters, delta, lam0, lam_up, lam_down, trim};
-  local_ba_kernel<<<kCluster, kThreads, bytes, stream>>>(
+  local_ba_kernel<<<dim3(kCluster, problems), kThreads, bytes, stream>>>(
       T_in, free_pose, X_in, Z, inv_sigma, obs_w, stereo_w, pt_valid, pt_free,
-      baseline, prm, T_out, X_out, cost_out, r2_out, phase_cycles);
+      baseline, prm, lanes, T_out, X_out, cost_out, r2_out, phase_cycles);
   return static_cast<int>(cudaGetLastError());
+}
+
+SLAM_API int slam_local_ba(const float* T_in, const float* free_pose,
+                           const float* X_in, const float* Z,
+                           const float* inv_sigma, const float* obs_w,
+                           const float* stereo_w, const float* pt_valid,
+                           const float* pt_free, const float* baseline, int W,
+                           int P, int iters, float delta, float lam0,
+                           float lam_up, float lam_down, float trim,
+                           float* T_out, float* X_out, float* cost_out,
+                           float* r2_out, long long* phase_cycles,
+                           cudaStream_t stream) {
+  return slam_local_ba_batched(T_in, free_pose, X_in, Z, inv_sigma, obs_w,
+                               stereo_w, pt_valid, pt_free, baseline, W, P,
+                               iters, delta, lam0, lam_up, lam_down, trim, 1,
+                               nullptr, T_out, X_out, cost_out, r2_out,
+                               phase_cycles, stream);
 }

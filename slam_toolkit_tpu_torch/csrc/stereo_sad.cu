@@ -28,6 +28,13 @@
 // order of the JAX package's _sad_from_blocks: along a window row
 // (columns 0..10), then over the rows 0..10. Corners are clamped into
 // the image like lax.dynamic_slice.
+//
+// The batched entry takes B problems of the same size (B lanes' image
+// pairs and corners, the JAX package's vmapped _curve_pallas): lane b is
+// blockIdx.y, whose pointers are offset to its b-th problem before the
+// single launch's body runs, so each lane's curves are its single
+// launch's. A lane whose entry of the int32 mask `lanes` is 0 writes
+// nothing: its blocks return at once.
 #include "common.cuh"
 
 namespace {
@@ -53,7 +60,18 @@ sad_curve_kernel(const float* __restrict__ img_l,
                  const float* __restrict__ img_r, int h, int w,
                  const int* __restrict__ ys0, const int* __restrict__ xl0,
                  const int* __restrict__ xs0, int k, int max_disp,
-                 float* __restrict__ out) {
+                 const int* __restrict__ lanes, float* __restrict__ out) {
+  if (lanes != nullptr && __ldg(lanes + blockIdx.y) == 0) return;
+  {
+    // this block's problem of a batched launch (0 for a single one)
+    const size_t p = blockIdx.y;
+    img_l += p * h * w;
+    img_r += p * h * w;
+    ys0 += p * k;
+    xl0 += p * k;
+    xs0 += p * k;
+    out += p * k * (max_disp + 2 * kPad + 1);
+  }
   __shared__ __align__(16) float patch_s[kWarps][kSide][kPatchW];
   __shared__ __align__(16) float strip_s[kWarps][kSide][kSegW];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -132,14 +150,30 @@ sad_curve_kernel(const float* __restrict__ img_l,
 
 }  // namespace
 
+// `problems` problems: img_l and img_r (problems, h, w), ys0, xl0 and
+// xs0 (problems, k), out (problems, k, max_disp + 3); lanes (problems,)
+// int32, 0 for a problem to skip, or null for none skipped.
+SLAM_API int slam_sad_curve_batched(const float* img_l, const float* img_r,
+                                    int h, int w, const int* ys0,
+                                    const int* xl0, const int* xs0, int k,
+                                    int max_disp, int problems,
+                                    const int* lanes, float* out,
+                                    cudaStream_t stream) {
+  if (k < 0 || max_disp < 0 || problems < 1 || problems > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (k > 0) {
+    const dim3 grid((k + kWarps - 1) / kWarps, problems);
+    sad_curve_kernel<<<grid, kWarps * 32, 0, stream>>>(
+        img_l, img_r, h, w, ys0, xl0, xs0, k, max_disp, lanes, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 SLAM_API int slam_sad_curve(const float* img_l, const float* img_r, int h,
                             int w, const int* ys0, const int* xl0,
                             const int* xs0, int k, int max_disp, float* out,
                             cudaStream_t stream) {
-  if (k > 0) {
-    const int blocks = (k + kWarps - 1) / kWarps;
-    sad_curve_kernel<<<blocks, kWarps * 32, 0, stream>>>(
-        img_l, img_r, h, w, ys0, xl0, xs0, k, max_disp, out);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return slam_sad_curve_batched(img_l, img_r, h, w, ys0, xl0, xs0, k,
+                                max_disp, 1, nullptr, out, stream);
 }

@@ -3,7 +3,11 @@
 Counterpart of slam_toolkit_tpu/frontend/direct_tracker.py (ref
 BrightenDirectPoseTracker, src/posetracker.cpp:250-353; DirectPyramid
 ratio 0.6, src/optimizer.cpp:15-37): SE3 pose plus affine brightness
-(a, b) against landmarks with known anchor-frame intensities.
+(a, b) against landmarks with known anchor-frame intensities. With a
+leading lane axis on the images, poses, landmarks and frame (B lanes,
+the JAX package's vmapped tracker) each lane is tracked as its single
+call tracks it (optim/direct_lm over lanes, one batched top-2 for the
+binding, the pose algebra lane by lane).
 """
 
 from __future__ import annotations
@@ -15,7 +19,7 @@ import torch
 from slam_toolkit_tpu_torch.config import SlamConfig
 from slam_toolkit_tpu_torch.frontend.frame import FrameState
 from slam_toolkit_tpu_torch.frontend.matching import projection_match
-from slam_toolkit_tpu_torch.frontend.tracker import TrackResult
+from slam_toolkit_tpu_torch.frontend.tracker import TrackResult, take
 from slam_toolkit_tpu_torch.geometry import camera as cam_mod
 from slam_toolkit_tpu_torch.geometry import se3
 from slam_toolkit_tpu_torch.geometry.camera import Camera, StereoCamera
@@ -30,8 +34,8 @@ PYRAMID_LEVELS = 4
 def build_direct_pyramid(image: torch.Tensor, levels: int = PYRAMID_LEVELS,
                          ratio: float = PYRAMID_RATIO):
     """[(image, scale)] from fine to coarse, each level resized from the
-    full image."""
-    h, w = image.shape
+    full image ((H, W), or (B, H, W) for lanes)."""
+    h, w = image.shape[-2:]
     out = []
     for lvl in range(levels):
         s = ratio ** lvl
@@ -71,19 +75,28 @@ def track_direct_bound(frame: FrameState, image: torch.Tensor,
     binding within direct_bind_px for the map's bookkeeping (ref
     src/posetracker.cpp:250-353, :278-317). Returns the tracking result
     and the frame's (a, b)."""
-    ref = DirectState(T_cw=kf_T, a=kf_ab[0], b=kf_ab[1])
+    ref = DirectState(T_cw=kf_T, a=kf_ab[..., 0], b=kf_ab[..., 1])
     dres = track_direct(kf_img, ref, image, T_pred, cam.left, Xw, valid)
-    T_dir = se3.normalize(dres.state.T_cw)
+    lanes = Xw.dim() == 3
+    T_dir = se3.per_lane(se3.normalize, dres.state.T_cw) if lanes else \
+        se3.normalize(dres.state.T_cw)
     mm = projection_match(Xw, desc, valid, frame.feats, T_dir, cam,
                           cfg.matcher, cfg.tracker.direct_bind_px)
-    Xc = se3.transform(T_dir, Xw)
-    xy = frame.feats.xy[mm.kpt_idx.long()]
-    err_px = torch.linalg.vector_norm(cam_mod.project(cam.left, Xc) - xy,
-                                      dim=-1)
+    if lanes:
+        Xc = se3.per_lane(se3.transform, T_dir, Xw)
+        xy = take(frame.feats.xy, mm.kpt_idx.long())
+        err_px = se3.per_lane(
+            lambda a, b: torch.linalg.vector_norm(a - b, dim=-1),
+            cam_mod.project(cam.left, Xc), xy)
+    else:
+        Xc = se3.transform(T_dir, Xw)
+        xy = frame.feats.xy[mm.kpt_idx.long()]
+        err_px = torch.linalg.vector_norm(cam_mod.project(cam.left, Xc) - xy,
+                                          dim=-1)
     inlier = mm.ok & (Xc[..., 2] > 0.0) & \
         (err_px <= cfg.tracker.direct_bind_px)
-    n_in = torch.sum(inlier)
+    n_in = torch.sum(inlier, dim=-1)
     res = TrackResult(T_cw=T_dir, mp_kpt=mm.kpt_idx, mp_xy=xy,
                       mp_inlier=inlier, n_matches=mm.n_matches,
                       n_inliers=n_in, ok=n_in >= cfg.tracker.min_matches)
-    return res, torch.stack([dres.state.a, dres.state.b])
+    return res, torch.stack([dres.state.a, dres.state.b], dim=-1)

@@ -7,7 +7,7 @@ per eye; "descriptor", the right image extracted, matched along the
 rows and refined to subpixel) and backproject. Slots without a keypoint
 are feats.valid == False, never a shorter tensor. build_frame also
 takes B lanes' images (B, H, W) and gives a FrameState with a leading
-lane axis.
+lane axis, and add_stereo takes such a frame with a lane mask.
 """
 
 from __future__ import annotations
@@ -57,16 +57,16 @@ def _brief_gate(frame: FrameState, image_left: torch.Tensor,
                 cfg: SlamConfig) -> torch.Tensor:
     """(K,) the SAD matches whose upright BRIEF at level 0 of the blurred
     left image, at xy, and of the blurred right image, at (right_x, y),
-    differ in at most max_hamming bits. Both eyes' patches are one gather
-    launch."""
+    differ in at most max_hamming bits; (B, K) for B lanes. Both eyes'
+    patches are one gather launch."""
     sigma = cfg.extractor.blur_sigma
     xy_l = frame.feats.xy
-    xy_r = torch.stack([right_x, xy_l[:, 1]], dim=-1)
+    xy_r = torch.stack([right_x, xy_l[..., 1]], dim=-1)
     d = brief.upright_patch_descriptors_levels(
         [pyramid.gaussian_blur(image_left, 7, sigma),
          pyramid.gaussian_blur(image_right, 7, sigma)], [xy_l, xy_r])
-    k = xy_l.shape[0]
-    diff = (d[:k] ^ d[k:]).long() & 0xFFFFFFFF
+    k = xy_l.shape[-2]
+    diff = (d[..., :k, :] ^ d[..., k:, :]).long() & 0xFFFFFFFF
     shifts = torch.arange(32, device=diff.device)
     ham = torch.sum((diff[..., None] >> shifts) & 1, dim=(-2, -1))
     return ham <= cfg.matcher.max_hamming
@@ -74,17 +74,29 @@ def _brief_gate(frame: FrameState, image_left: torch.Tensor,
 
 def add_stereo(frame: FrameState, image_left: torch.Tensor,
                image_right: torch.Tensor, cam: StereoCamera,
-               cfg: SlamConfig) -> FrameState:
+               cfg: SlamConfig, lanes=None) -> FrameState:
     """Stereo for a keyframe -> subpixel right x and depth. "sad": the SAD
     sweep along the rectified row (with stereo_brief_gate, SAD proposes
     and one BRIEF per eye verifies); "descriptor": the right image
     extracted (ref ExtractRightKeypoints, src/frame.cpp:384-389),
-    stereo_match, then refine_disparity."""
+    stereo_match, then refine_disparity.
+
+    B lanes: a frame with a leading lane axis, images (B, H, W) and
+    `lanes` a (B,) mask on their device (None: every lane). Each step
+    runs once over the lanes: the SAD curves of the lanes the mask keeps
+    in one batched launch; the BRIEF gate's patches, and descriptor
+    stereo's right-image extraction and refinement, in batched gathers
+    of every lane (the mask is applied to the result). Each kept lane
+    gets the single call's stereo, a lane the mask leaves out none."""
+    batched = image_left.dim() == 3
+    if batched and lanes is None:
+        lanes = torch.ones(image_left.shape[:1], dtype=torch.bool,
+                           device=image_left.device)
     if cfg.matcher.stereo_method == "sad":
         right_x, ok = stereo_sad.match(
             image_left, image_right, frame.feats.xy, frame.feats.valid,
             max_disp=int(cfg.matcher.stereo_max_dx),
-            uniqueness=cfg.matcher.stereo_uniqueness)
+            uniqueness=cfg.matcher.stereo_uniqueness, lanes=lanes)
         if cfg.matcher.stereo_brief_gate:
             ok = ok & _brief_gate(frame, image_left, image_right, right_x,
                                   cfg)
@@ -93,7 +105,9 @@ def add_stereo(frame: FrameState, image_left: torch.Tensor,
         right_x, _, ok = stereo_match(frame.feats, right, cam, cfg.matcher)
         right_x, ok = refine_disparity(image_left, image_right,
                                        frame.feats.xy, right_x, ok)
-    depth = cam_mod.stereo_depth(cam, frame.feats.xy[:, 0], right_x)
+        if batched:
+            ok = ok & lanes.bool()[:, None]
+    depth = cam_mod.stereo_depth(cam, frame.feats.xy[..., 0], right_x)
     ok = ok & (depth > 0.0)
     right_x_norm = (right_x - cam.left.cx) / cam.left.fx
     zero = torch.zeros_like(depth)

@@ -36,22 +36,23 @@ def stereo_match(left: FrameFeatures, right: FrameFeatures,
     stereo_max_dx], octaves within 1, the ratio test, and the matched
     right keypoint's own best left keypoint this one (torch.argmin, as
     jnp.argmin, takes the first of equal minima). Returns (right_x (K,)
-    the matched right x, depth (K,) 0 where not ok, ok (K,))."""
-    dy = torch.abs(left.xy[:, 1, None] - right.xy[None, :, 1])
-    dx = left.xy[:, 0, None] - right.xy[None, :, 0]
-    same_octave = torch.abs(left.octave[:, None] -
-                            right.octave[None, :]) <= 1
-    mask = (left.valid[:, None] & right.valid[None, :] &
+    the matched right x, depth (K,) 0 where not ok, ok (K,)); (B, K)
+    each for B lanes' features (a leading lane axis on both)."""
+    dy = torch.abs(left.xy[..., :, None, 1] - right.xy[..., None, :, 1])
+    dx = left.xy[..., :, None, 0] - right.xy[..., None, :, 0]
+    same_octave = torch.abs(left.octave[..., :, None] -
+                            right.octave[..., None, :]) <= 1
+    mask = (left.valid[..., :, None] & right.valid[..., None, :] &
             (dy <= cfg.stereo_max_dy) &
             (dx >= cfg.stereo_min_dx) & (dx <= cfg.stereo_max_dx) &
             same_octave)
     dist = hamming.masked_distance(left.desc, right.desc, mask)
     idx, ok = hamming.ratio_test_match(dist, cfg.ratio, cfg.max_hamming)
-    back = torch.argmin(dist, dim=0)
-    ok = ok & (back[idx.long()] == torch.arange(idx.shape[0],
-                                                 device=idx.device))
-    right_x = right.xy[idx.long(), 0]
-    depth = cam_mod.stereo_depth(cam, left.xy[:, 0], right_x)
+    back = torch.argmin(dist, dim=-2)
+    ok = ok & (torch.gather(back, -1, idx.long()) ==
+               torch.arange(idx.shape[-1], device=idx.device))
+    right_x = torch.gather(right.xy[..., 0], -1, idx.long())
+    depth = cam_mod.stereo_depth(cam, left.xy[..., 0], right_x)
     ok = ok & (depth > 0.0)
     return right_x, torch.where(ok, depth, torch.zeros_like(depth)), ok
 

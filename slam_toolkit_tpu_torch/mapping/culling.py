@@ -20,8 +20,9 @@ from typing import Tuple
 import torch
 
 from slam_toolkit_tpu_torch.geometry import se3
-from slam_toolkit_tpu_torch.mapping.map_state import (MapState,
+from slam_toolkit_tpu_torch.mapping.map_state import (MapState, lane_index,
                                                       mappoint_positions)
+from slam_toolkit_tpu_torch.utils.lanes import with_lane
 
 
 def redundancy_scores(m: MapState, protect_recent: int = 8) -> torch.Tensor:
@@ -110,25 +111,38 @@ def cull_most_redundant(m: MapState, min_fraction: float = 0.8,
 
 
 def cull_weak_mappoints(m: MapState, cur_frame_id: int,
-                        grace_frames: int = 12, min_obs: int = 2) -> MapState:
+                        grace_frames: int = 12, min_obs: int = 2,
+                        lanes=None) -> MapState:
     """Free landmarks not re-observed by >= min_obs keyframes within
     grace_frames frames of their anchor, once >= min_obs newer keyframes
     exist. Clears each freed landmark's anchor cell in kf_obs (for every
     valid landmark, kf_obs[mp_ref_kf, mp_kpt] is that landmark). Updates
-    `m` in place and returns it."""
-    F, K = m.kf_obs.shape
-    newer = torch.sum(m.kf_valid[None, :] &
-                      (m.kf_frame_id[None, :] > m.kf_frame_id[:, None]), dim=1)
+    `m` in place and returns it. A batched map (B lanes) is culled in one
+    pass, only in the lanes the (B,) mask `lanes` keeps (None: every
+    lane); each kept lane as by the single call, one map as one lane."""
+    if m.kf_obs.dim() == 2:
+        cull_weak_mappoints(with_lane(m), cur_frame_id, grace_frames,
+                            min_obs)
+        return m
+    B, F, K = m.kf_obs.shape
+    newer = torch.sum(m.kf_valid[:, None, :] &
+                      (m.kf_frame_id[:, None, :] >
+                       m.kf_frame_id[:, :, None]), dim=-1)
     kf_elig = ((cur_frame_id - m.kf_frame_id > grace_frames) &
                (newer >= min_obs))
     weak = m.mp_valid & (m.mp_obs_count < min_obs) & \
-        kf_elig[m.mp_ref_kf.long()]
-    flat_idx = m.mp_ref_kf.long() * K + m.mp_kpt.long()
+        torch.gather(kf_elig, 1, m.mp_ref_kf.long())
+    if lanes is not None:
+        weak = weak & lanes.bool()[:, None]
+    n = B * F * K
+    flat_idx = (m.mp_ref_kf.long() + lane_index(B, weak.device) * F) * K + \
+        m.mp_kpt.long()
     # mark the cells to clear; every write is True, so repeats agree
-    clear = torch.zeros((F * K + 1,), dtype=torch.bool, device=weak.device)
+    clear = torch.zeros((n + 1,), dtype=torch.bool, device=weak.device)
     clear.index_fill_(0, torch.where(weak, flat_idx,
-                                     torch.full_like(flat_idx, F * K)), True)
-    m.kf_obs.masked_fill_(clear[:-1].reshape(F, K), -1)
+                                     torch.full_like(flat_idx, n)).reshape(-1),
+                      True)
+    m.kf_obs.masked_fill_(clear[:-1].reshape(m.kf_obs.shape), -1)
     m.mp_valid.logical_and_(~weak)
     m.mp_obs_count.masked_fill_(weak, 0)
     return m

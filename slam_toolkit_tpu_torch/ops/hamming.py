@@ -2,7 +2,9 @@
 
 Counterpart of the parts of slam_toolkit_tpu/ops/hamming.py that
 projection matching and the loop closer's global match use. Descriptors
-are (N, 8) int32 words.
+are (N, 8) int32 words; unpack_pm1, distance_matrix, masked_distance
+and ratio_test_match also take leading lane axes (B, N, 8), each lane
+on its own.
 """
 
 from __future__ import annotations
@@ -13,10 +15,10 @@ BIG = 1e9  # distance of masked-out pairs
 
 
 def unpack_pm1(desc: torch.Tensor) -> torch.Tensor:
-    """(N, 8) packed words -> (N, 256) float32 in {-1, +1}."""
+    """(..., N, 8) packed words -> (..., N, 256) float32 in {-1, +1}."""
     shifts = torch.arange(32, dtype=torch.int32, device=desc.device)
-    bits = (desc[:, :, None] >> shifts) & 1
-    return 2.0 * bits.reshape(desc.shape[0], 256).float() - 1.0
+    bits = (desc[..., None] >> shifts) & 1
+    return 2.0 * bits.reshape(desc.shape[:-1] + (256,)).float() - 1.0
 
 
 def distance_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor):
@@ -25,7 +27,8 @@ def distance_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor):
     With bits as +-1, a.b = 256 - 2 * hamming; the float32 product of
     +-1 values sums integers below 2^24, so it is exact (TF32 must be
     off on the GPU, which the engine sets)."""
-    return 0.5 * (256.0 - unpack_pm1(desc_a) @ unpack_pm1(desc_b).T)
+    return 0.5 * (256.0 - unpack_pm1(desc_a) @
+                  unpack_pm1(desc_b).transpose(-1, -2))
 
 
 def masked_distance(desc_a: torch.Tensor, desc_b: torch.Tensor,
@@ -39,11 +42,9 @@ def ratio_test_match(dist: torch.Tensor, ratio: float, max_dist: float):
     """Row-wise best column (first minimum) and the ratio test
     d_best <= max_dist and d_best < ratio * d_second (ref
     src/matcher.cpp:112-128). Returns (idx (M,) int32, ok (M,))."""
-    best_idx = torch.argmin(dist, dim=1)
-    rows = torch.arange(dist.shape[0], device=dist.device)
-    d_best = dist[rows, best_idx]
-    d_second = dist.index_put((rows, best_idx),
-                              torch.full_like(d_best, BIG)).min(dim=1).values
+    best_idx = torch.argmin(dist, dim=-1)
+    d_best = torch.gather(dist, -1, best_idx[..., None])[..., 0]
+    d_second = dist.scatter(-1, best_idx[..., None], BIG).min(dim=-1).values
     ok = (d_best <= max_dist) & (d_best < ratio * d_second)
     return best_idx.int(), ok
 

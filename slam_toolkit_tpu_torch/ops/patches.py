@@ -187,9 +187,17 @@ def gather_blocks_cuda(img: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
 
 def gather_blocks(img: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
                   bh: int, bw: int) -> torch.Tensor:
-    """(K,) corners -> (K, bh, bw) windows of img."""
-    ys = ys.to(torch.int32)
-    xs = xs.to(torch.int32)
+    """(K,) corners -> (K, bh, bw) windows of img; corners of any shape
+    (...) give (..., bh, bw). A (B, H, W) img takes (B, K) corners: lane
+    b's windows of img[b], one launch of the batched entry
+    (gather_blocks_batched)."""
+    if img.dim() == 3:
+        return gather_blocks_batched([img], ys, xs, [ys.shape[-1]], bh, bw)
+    shape = ys.shape
+    ys = ys.to(torch.int32).reshape(-1)
+    xs = xs.to(torch.int32).reshape(-1)
     if on_cuda(img):
-        return gather_blocks_cuda(img, ys, xs, bh, bw)
-    return gather_blocks_plain(img, ys, xs, bh, bw)
+        out = gather_blocks_cuda(img, ys, xs, bh, bw)
+    else:
+        out = gather_blocks_plain(img, ys, xs, bh, bw)
+    return out.reshape(shape + (bh, bw))

@@ -7,7 +7,7 @@ sequence axis with jax.vmap and shards that axis over a device mesh. Here
 a batched carry is a ChunkCarry whose tensors have a leading lane axis B
 (the map too); `frame_id` is one host int, as every lane starts
 together (a 0-dim device int in the static carry of a graphed chunk).
-Three layouts run it:
+Every tracker.method runs in every layout. Three layouts run it:
 
 - lanes in turn (multi_sequence_lane_chunk, the JAX lax.map over lanes):
   each lane runs the single-sequence chunk (pipeline/scan_engine.
@@ -17,17 +17,26 @@ Three layouts run it:
 - batched lanes (multi_sequence_chunk, multi_sequence_engine, the JAX
   vmap): pipeline/scan_engine.make_batched_frame_body runs everything
   before the keyframe flag once over all B lanes, with batched entries
-  of the patch-gather, top-2 and pose-LM kernels, then the keyframe
-  event per flagged lane (JAX lowers its vmapped lax.cond to both
-  branches, masked; that is XLA's lowering, not what the step computes).
-  multi_sequence_chunk runs it on a static carry as B + 1 CUDA graphs
-  (scan_engine._StaticBatchedChunk); multi_sequence_engine's per-frame
-  step is eager.
+  of the patch-gather, top-2 and pose-LM kernels, then, on a frame where
+  any lane is flagged, the keyframe event once over all lanes with the
+  flags as its lane mask, with batched entries of the stereo-SAD and
+  local-BA kernels (JAX lowers its vmapped lax.cond to both branches,
+  masked: the same computation). multi_sequence_chunk runs it on a
+  static carry as two CUDA graphs for any B (scan_engine.
+  _StaticBatchedChunk); multi_sequence_engine's per-frame step is eager.
 - lanes over devices (multi_sequence_shard_chunk, the JAX shard_map): a
   mesh is a tuple of torch.devices; shard_batch splits the lanes evenly
   into one batched carry a device, and each device's lanes run the lane
   chunk eagerly on their own host thread, with no communication between
   them.
+
+batched_bootstrap, as the JAX package's, gives a carry without the
+photometric anchor that "direct" and "hybrid" track against (kf_img,
+kf_ab, and for "hybrid" kf_refvals); JAX's multi_sequence_chunk then
+fails on a None field, the port's raises ValueError naming the missing
+fields (scan_engine.require_anchor). The caller adds the anchor as
+ChunkedSlamEngine builds its own: the keyframe's left image, (a, b) =
+(0, 0), and direct_lm.reference_values at latest_T.
 
 Entry points that make state take device="cuda" by default and raise on
 a host without CUDA; the others run on the device of the data given.
@@ -36,7 +45,7 @@ a host without CUDA; the others run on the device of the data given.
 from __future__ import annotations
 
 from concurrent.futures import ThreadPoolExecutor
-from typing import List, Sequence, Tuple
+from typing import List, Tuple
 
 import torch
 
@@ -75,16 +84,6 @@ def make_mesh(n_devices: int, device: str = "cuda") -> Mesh:
     return tuple(torch.device("cuda", i) for i in range(n_devices))
 
 
-def _stack(items: Sequence):
-    """Stack B tuples (NamedTuples or plain) of tensors into one with a
-    leading lane axis; other fields are taken from the first."""
-    fields = [torch.stack(list(f)) if torch.is_tensor(f[0]) else
-              _stack(f) if isinstance(f[0], tuple) else f[0]
-              for f in zip(*items)]
-    kind = type(items[0])
-    return kind(*fields) if hasattr(kind, "_fields") else kind(fields)
-
-
 def batched_empty_map(cfg: SlamConfig, batch: int,
                       device="cuda") -> MapState:
     """B empty maps with a leading lane axis (contiguous, so each lane's
@@ -99,35 +98,32 @@ def batched_bootstrap(cfg: SlamConfig, cam: StereoCamera):
     frame 0 of every lane inserted as its first keyframe at the identity,
     with no tracked landmarks and quality 2 * min_matches, then each
     lane's landmark snapshot (the JAX batched_bootstrap: no weak-mappoint
-    cull, no BA)."""
+    cull, no BA, no photometric anchor). Stereo, insert and snapshot run
+    once over the lanes (one batched SAD launch)."""
 
     @full_float32()
     def boot(maps: MapState, lefts: torch.Tensor,
              rights: torch.Tensor) -> ChunkCarry:
         dev = lefts.device
-        frames = build_frame(lefts, cam, cfg)
+        B = lefts.shape[0]
+        frames = add_stereo(build_frame(lefts, cam, cfg), lefts, rights, cam,
+                            cfg)
         L = cfg.map.track_landmarks
-        zi = torch.zeros((L,), dtype=torch.int32, device=dev)
-        no = torch.zeros((L,), dtype=torch.bool, device=dev)
-        eye = torch.eye(4, dtype=torch.float32, device=dev)
-        lanes = []
-        for b in range(lefts.shape[0]):
-            m = lane(maps, b)
-            fr = add_stereo(lane(frames, b), lefts[b], rights[b], cam, cfg)
-            snap = _snapshot(m, cfg)
-            m, slot = insert_keyframe(
-                m, fr, eye, 0, zi, zi, no, cfg,
-                lm_snapshot=(snap[0], snap[3]),
-                quality=float(2 * cfg.tracker.min_matches))
-            write_lane(maps, b, m)
-            lm = _snapshot(m, cfg)
-            lanes.append(ChunkCarry(
-                m=None, T_cw=eye, velocity=eye, lm_Xw=lm[0], lm_desc=lm[1],
-                lm_ids=lm[2], lm_valid=lm[3], latest_slot=slot,
-                latest_T=m.kf_T_cw[slot].clone(), frame_id=1,
-                inlier_peak=torch.zeros((), dtype=torch.float32,
-                                        device=dev)))
-        return _stack(lanes)._replace(m=maps)
+        zi = torch.zeros((B, L), dtype=torch.int32, device=dev)
+        no = torch.zeros((B, L), dtype=torch.bool, device=dev)
+        eye = torch.eye(4, dtype=torch.float32, device=dev).repeat(B, 1, 1)
+        snap = _snapshot(maps, cfg)
+        maps, slot = insert_keyframe(
+            maps, frames, eye, 0, zi, zi, no, cfg,
+            lm_snapshot=(snap[0], snap[3]),
+            quality=float(2 * cfg.tracker.min_matches))
+        lm = _snapshot(maps, cfg)
+        return ChunkCarry(
+            m=maps, T_cw=eye, velocity=eye.clone(), lm_Xw=lm[0],
+            lm_desc=lm[1], lm_ids=lm[2], lm_valid=lm[3], latest_slot=slot,
+            latest_T=maps.kf_T_cw[torch.arange(B, device=dev), slot],
+            frame_id=1,
+            inlier_peak=torch.zeros((B,), dtype=torch.float32, device=dev))
 
     return boot
 
@@ -140,8 +136,7 @@ def batched_track_step(cfg: SlamConfig, cam: StereoCamera):
     @full_float32()
     def step(maps: MapState, images: torch.Tensor, T_preds: torch.Tensor):
         frame = build_frame(images, cam, cfg)
-        lm = _stack([_snapshot(lane(maps, b), cfg)
-                     for b in range(images.shape[0])])
+        lm = _snapshot(maps, cfg)
         res = track_pose(frame, lm[0], lm[1], lm[3], T_preds, cam, cfg)
         return res.T_cw, res.n_inliers
 
@@ -149,13 +144,12 @@ def batched_track_step(cfg: SlamConfig, cam: StereoCamera):
 
 
 def batched_map_step(cfg: SlamConfig, cam: StereoCamera):
-    """f(maps) -> maps: local BA of each lane's window, lane by lane."""
+    """f(maps) -> maps: local BA of every lane's window, one batched solve
+    (updated in place)."""
 
     @full_float32()
     def step(maps: MapState) -> MapState:
-        for b in range(maps.kf_valid.shape[0]):
-            write_lane(maps, b, local_ba_step(lane(maps, b), cam, cfg))
-        return maps
+        return local_ba_step(maps, cam, cfg)
 
     return step
 
@@ -195,9 +189,10 @@ def multi_sequence_step(cfg: SlamConfig, cam: StereoCamera, mesh: Mesh):
 
 
 def multi_sequence_engine(cfg: SlamConfig, cam: StereoCamera, mesh: Mesh):
-    """The full engine step batched over lanes, per frame. Returns
-    (bootstrap, step): bootstrap(maps, lefts, rights) -> carry (frame 0 of
-    every lane); step(carry, lefts, rights) -> (carry, packed (B, 36))."""
+    """The full engine step batched over lanes, per frame, for every
+    tracker.method. Returns (bootstrap, step): bootstrap(maps, lefts,
+    rights) -> carry (frame 0 of every lane, no photometric anchor);
+    step(carry, lefts, rights) -> (carry, packed (B, 36))."""
     body = full_float32()(_vmapped_frame_body(cfg, cam))
     return batched_bootstrap(cfg, cam), body
 
@@ -258,11 +253,13 @@ def multi_sequence_chunk(cfg: SlamConfig, cam: StereoCamera,
                          graphs: bool = True):
     """Batched lanes: chunk(carry, images (C, B, 2, H, W)) -> (carry,
     packed (C, B, 36)), C steps of the batched frame body (one launch of
-    each batched kernel a frame for all B lanes). graphs=True: the steps
-    on a static batched carry, B + 1 CUDA graphs on a CUDA device
-    (scan_engine._StaticBatchedChunk); graphs=False: the batched frame
-    body eagerly. The carry returned is overwritten by the next call, as
-    JAX's donated carry is."""
+    each batched kernel a frame for all B lanes, the keyframe event's on
+    a frame where any lane is flagged), for every tracker.method; a
+    photometric one needs the carry's anchor (ValueError otherwise).
+    graphs=True: the steps on a static batched carry, two CUDA graphs on
+    a CUDA device for any B (scan_engine._StaticBatchedChunk);
+    graphs=False: the batched frame body eagerly. The carry returned is
+    overwritten by the next call, as JAX's donated carry is."""
     if graphs:
         return _StaticBatchedChunk(cfg, cam)
     return _eager_chunk(_vmapped_frame_body(cfg, cam))

@@ -69,6 +69,7 @@ from slam_toolkit_tpu_torch.optim.direct_lm import DirectState
 from slam_toolkit_tpu_torch.pipeline.engine import (BOW_ROWS, SlamEngine,
                                                     full_float32)
 from slam_toolkit_tpu_torch.utils.cuda_graphs import StepGraphs
+from slam_toolkit_tpu_torch.utils.lanes import lane
 
 PACK_WIDTH = 16 + 16 + 4  # T, T_rel, [slot, ok, kf, n_inliers]
 
@@ -107,27 +108,36 @@ def _camera_center(T: torch.Tensor) -> torch.Tensor:
 
 
 def keyframe_event(carry: ChunkCarry, frame, left, right, T_new,
-                   res: TrackResult, cam: StereoCamera, cfg: SlamConfig):
+                   res: TrackResult, cam: StereoCamera, cfg: SlamConfig,
+                   lanes=None):
     """The keyframe branch (JAX scan_engine kf_branch): SAD stereo, insert,
     weak-mappoint cull, local BA and the landmark snapshot. Returns (map,
-    slot, snapshot, the keyframe's pose after BA)."""
-    fr2 = add_stereo(frame, left, right, cam, cfg)
+    slot, snapshot, the keyframe's pose after BA).
+
+    B lanes (a batched carry, frame, tracking result and images, and
+    `lanes` the (B,) mask of the flagged lanes on the device): the event
+    runs once over all lanes, the JAX package's vmapped kf_branch with
+    the keyframe select as a mask. Stereo (the SAD curves of every lane
+    in one batched launch), insert, cull and local BA (one batched
+    launch) touch only the flagged lanes' maps, in place; slot, snapshot
+    and pose come back for every lane and hold for the flagged ones
+    (_batched_keyframe keeps the others'). Each flagged lane's result is
+    its single event's bit for bit. Descriptor stereo and the BRIEF gate
+    also run once over the lanes (frontend/frame.add_stereo)."""
+    kw = {} if lanes is None else {"lanes": lanes}
+    fr2 = add_stereo(frame, left, right, cam, cfg, **kw)
     m, slot = insert_keyframe(
         carry.m, fr2, T_new, carry.frame_id, carry.lm_ids, res.mp_kpt,
-        res.mp_inlier, cfg, lm_snapshot=(carry.lm_Xw, carry.lm_valid))
+        res.mp_inlier, cfg, lm_snapshot=(carry.lm_Xw, carry.lm_valid), **kw)
     m = cull_weak_mappoints(m, carry.frame_id, cfg.map.mp_cull_grace_frames,
-                            cfg.map.mp_cull_min_obs)
-    m = local_ba_step(m, cam, cfg)
-    return m, slot, _snapshot(m, cfg), row(m.kf_T_cw, slot)
-
-
-def lane(t, b: int):
-    """Lane b of a batched NamedTuple (carry, map, frame, track result):
-    views t[b] of every tensor field with a lane axis (in-place writes
-    reach the batch); ints, None and 0-dim tensors (a frame id all lanes
-    share) stay as they are."""
-    return type(t)(*(f[b] if torch.is_tensor(f) and f.dim() else
-                     lane(f, b) if isinstance(f, tuple) else f for f in t))
+                            cfg.map.mp_cull_min_obs, **kw)
+    m = local_ba_step(m, cam, cfg, **kw)
+    if m.kf_valid.dim() == 2:
+        latest_T = m.kf_T_cw[torch.arange(slot.shape[0],
+                                          device=slot.device), slot]
+    else:
+        latest_T = row(m.kf_T_cw, slot)
+    return m, slot, _snapshot(m, cfg), latest_T
 
 
 def _write_back(dst_map: MapState, m: MapState) -> None:
@@ -177,72 +187,148 @@ def _pack(T_out, T_rel, slot, res: TrackResult, needs) -> torch.Tensor:
          res.n_inliers.float()], dim=-1)], dim=-1)
 
 
+def require_anchor(cfg: SlamConfig, carry: ChunkCarry) -> None:
+    """Raise ValueError when a photometric tracker ("direct", "hybrid") is
+    handed a carry without its anchor: kf_img and kf_ab, and for "hybrid"
+    kf_refvals. mesh.batched_bootstrap, as the JAX package's, builds no
+    anchor; the caller adds one (the keyframe's left image, (a, b) = (0,
+    0), and for "hybrid" direct_lm.reference_values at latest_T)."""
+    need = {"direct": ("kf_img", "kf_ab"),
+            "hybrid": ("kf_img", "kf_ab", "kf_refvals")}.get(
+                cfg.tracker.method, ())
+    missing = [f for f in need if getattr(carry, f) is None]
+    if missing:
+        raise ValueError(f"tracker.method={cfg.tracker.method!r} needs the "
+                         f"carry's photometric anchor; missing: "
+                         f"{', '.join(missing)}")
+
+
 def _batched_tracker(cfg: SlamConfig, cam: StereoCamera):
     """track(carry, lefts (B, H, W)) -> Tracked: the tracking half of
-    make_batched_frame_body, once over the lane axis."""
-    if cfg.tracker.method != "indirect":
-        raise NotImplementedError(
-            f"the batched frame body tracks 'indirect' only, not "
-            f"{cfg.tracker.method!r}")
+    make_batched_frame_body, once over the lane axis, for every
+    tracker.method (_frame_tracker's over lanes)."""
+    method = cfg.tracker.method
+    if method not in ("indirect", "direct", "hybrid"):
+        raise NotImplementedError(f"tracker.method={method!r}")
+
+    def hybrid_polish(carry: ChunkCarry, lefts, res0: TrackResult):
+        """_frame_tracker's polish over lanes: the photometric LM of every
+        lane at once, its shift gate per lane."""
+        st0 = DirectState(T_cw=res0.T_cw, a=carry.kf_ab[:, 0],
+                          b=carry.kf_ab[:, 1])
+        dres = direct_lm.optimize_direct(
+            st0, lefts, cam.left, carry.lm_Xw, carry.kf_refvals,
+            carry.lm_valid, 1.0, iters=cfg.tracker.hybrid_iters)
+        T_dir = se3.per_lane(se3.normalize, dres.state.T_cw)
+        shift = se3.per_lane(
+            lambda a, b: torch.linalg.vector_norm(_camera_center(a) -
+                                                  _camera_center(b)),
+            T_dir, res0.T_cw)
+        okp = res0.ok & (shift < cfg.tracker.hybrid_max_shift_m)
+        ab = torch.where(okp[:, None], torch.stack(
+            [dres.state.a, dres.state.b], dim=-1), carry.kf_ab)
+        return res0._replace(T_cw=torch.where(okp[:, None, None], T_dir,
+                                              res0.T_cw)), ab
 
     def track(carry: ChunkCarry, lefts: torch.Tensor) -> Tracked:
         frame = build_frame(lefts, cam, cfg)
         T_pred = se3.per_lane(se3.compose, carry.velocity, carry.T_cw)
-        res = track_pose(frame, carry.lm_Xw, carry.lm_desc, carry.lm_valid,
-                         T_pred, cam, cfg)
+        ab_new = None
+        if method == "direct":
+            res, ab_new = track_direct_bound(
+                frame, lefts, T_pred, carry.kf_img, carry.latest_T,
+                carry.kf_ab, carry.lm_Xw, carry.lm_desc, carry.lm_valid, cam,
+                cfg)
+        else:
+            res = track_pose(frame, carry.lm_Xw, carry.lm_desc,
+                             carry.lm_valid, T_pred, cam, cfg)
+            if method == "hybrid":
+                res, ab_new = hybrid_polish(carry, lefts, res)
         needs, peak = _keyframe_rule(res, carry.inlier_peak, cfg)
         T_new = torch.where(res.ok[:, None, None], res.T_cw, T_pred)
         return Tracked(frame, res, needs, T_new,
-                       se3.per_lane(_velocity, T_new, carry.T_cw), peak)
+                       se3.per_lane(_velocity, T_new, carry.T_cw), peak,
+                       ab_new)
 
     return track
+
+
+def _batched_keyframe(cfg: SlamConfig, cam: StereoCamera):
+    """keyframe(carry, tracked, lefts, rights) -> the flagged lanes' new
+    (snapshot, slot, pose, anchor image, "hybrid"'s anchor pattern
+    intensities), every other lane's as the carry holds them: the
+    keyframe half of make_batched_frame_body, once over all lanes with
+    tracked.needs as the lane mask (keyframe_event over lanes). The maps
+    are updated in place."""
+    method = cfg.tracker.method
+
+    def keyframe(carry: ChunkCarry, t: Tracked, lefts, rights):
+        mask = t.needs
+        _, slot, lm, latest_T = keyframe_event(
+            carry, t.frame, lefts, rights, t.T_new, t.res, cam, cfg,
+            lanes=mask)
+
+        def pick(new, old):
+            return torch.where(mask.reshape((-1,) + (1,) * (old.dim() - 1)),
+                               new.to(old.dtype), old)
+        lm = tuple(pick(n, o) for n, o in zip(lm, (
+            carry.lm_Xw, carry.lm_desc, carry.lm_ids, carry.lm_valid)))
+        slot = pick(slot, carry.latest_slot)
+        latest_T = pick(latest_T, carry.latest_T)
+        kf_img = refvals = None
+        if method != "indirect":
+            # the flagged lanes' keyframes become their anchors
+            kf_img = pick(lefts, carry.kf_img)
+        if method == "hybrid":
+            refvals = pick(direct_lm.reference_values(
+                DirectState(T_cw=latest_T, a=t.ab[:, 0], b=t.ab[:, 1]),
+                lefts, cam.left, lm[0], lm[3], 1.0), carry.kf_refvals)
+        return lm, slot, latest_T, kf_img, refvals
+
+    return keyframe
 
 
 def make_batched_frame_body(cfg: SlamConfig, cam: StereoCamera):
     """(carry, lefts (B, H, W), rights (B, H, W)) -> (carry, packed (B,
     36)): make_frame_body over B lanes, the JAX package's vmapped frame
-    body (parallel/mesh._vmapped_frame_body). Everything before the
-    keyframe flag runs once over the lane axis (extraction, frame build,
-    projection match, pose LM, reprojection filter, keyframe rule,
-    velocity and peak): one op, or one kernel launch, for B lanes. The B
-    flags are read back together; the keyframe event then runs for each
-    flagged lane in turn, on that lane's views of the carry. The 4x4 pose
-    algebra and the landmark transforms run lane by lane (se3.per_lane):
-    a batched matrix product rounds otherwise, and tracking grows a last
-    bit into centimetres. So each lane's row is the one make_frame_body
-    gives it, bit for bit. Indirect tracking only. The eager step:
-    parallel/mesh.multi_sequence_chunk runs the same halves on a static
-    carry (_StaticBatchedChunk)."""
+    body (parallel/mesh._vmapped_frame_body), for every tracker.method.
+    Everything before the keyframe flag runs once over the lane axis
+    (extraction, frame build, the tracker, keyframe rule, velocity and
+    peak): one op, or one kernel launch, for B lanes. The B flags are
+    read back together; when any is set the keyframe event runs once
+    over all lanes with the flags as its lane mask (stereo, insert, cull,
+    local BA, snapshot and the new anchor of the flagged lanes; one
+    launch each of the batched SAD and local-BA kernels). The 4x4 pose
+    algebra, the landmark transforms, the photometric LM's sums and solve
+    run lane by lane (se3.per_lane): a batched matrix product or
+    reduction rounds otherwise, and tracking grows a last bit into
+    centimetres. So each lane's row is the one make_frame_body gives it,
+    bit for bit. A photometric tracker needs the carry's anchor
+    (require_anchor). The eager step: parallel/mesh.multi_sequence_chunk
+    runs the same halves on a static carry (_StaticBatchedChunk)."""
     track = _batched_tracker(cfg, cam)
+    keyframe = _batched_keyframe(cfg, cam)
 
     def frame_body(carry: ChunkCarry, lefts: torch.Tensor,
                    rights: torch.Tensor):
+        require_anchor(cfg, carry)
         t = track(carry, lefts)
         slot, latest_T = carry.latest_slot, carry.latest_T
         lm = (carry.lm_Xw, carry.lm_desc, carry.lm_ids, carry.lm_valid)
+        kf_img, refvals = carry.kf_img, carry.kf_refvals
         T_out = t.T_new
-        flagged = np.flatnonzero(t.needs.cpu().numpy())   # one readback
-        if len(flagged):
-            slot, latest_T, T_out = slot.clone(), latest_T.clone(), \
-                t.T_new.clone()
-            lm = tuple(x.clone() for x in lm)
-            for b in flagged.tolist():
-                m_b, slot_b, lm_b, latest_b = keyframe_event(
-                    lane(carry, b), lane(t.frame, b), lefts[b], rights[b],
-                    t.T_new[b], lane(t.res, b), cam, cfg)
-                write_lane(carry.m, b, m_b)
-                for dst, src in zip(lm, lm_b):
-                    dst[b] = src
-                slot[b] = slot_b
-                latest_T[b] = latest_b
-                T_out[b] = latest_b
+        if bool(t.needs.any()):                       # one readback
+            lm, slot, latest_T, kf_img, refvals = keyframe(carry, t, lefts,
+                                                           rights)
+            T_out = torch.where(t.needs[:, None, None], latest_T, t.T_new)
         packed = _pack(T_out, se3.per_lane(_relative, T_out, latest_T),
                        slot, t.res, t.needs)
         new_carry = carry._replace(
             T_cw=T_out, velocity=t.velocity, lm_Xw=lm[0], lm_desc=lm[1],
             lm_ids=lm[2], lm_valid=lm[3], latest_slot=slot,
             latest_T=latest_T, frame_id=carry.frame_id + 1,
-            inlier_peak=t.inlier_peak)
+            inlier_peak=t.inlier_peak, kf_img=kf_img, kf_ab=t.ab,
+            kf_refvals=refvals)
         return new_carry, packed
 
     return frame_body
@@ -434,12 +520,9 @@ class _StaticChunk:
         self.row = self.left.new_empty(frame.shape[:-2] + (PACK_WIDTH,))
         self.fid = torch.empty((), dtype=torch.int32, device=frame.device)
 
-    def _keys(self) -> tuple:
-        """The keyframe graphs' keys: one event for one sequence."""
-        return (None,)
-
-    def _flagged(self, t: Tracked) -> tuple:
-        return (None,) if bool(t.needs) else ()
+    def _flagged(self, t: Tracked) -> bool:
+        """Whether graph B runs: the frame's one host synchronisation."""
+        return bool(t.needs)
 
     def _track_step(self, S: ChunkCarry) -> Tracked:
         t = self.track(S, self.left)
@@ -454,7 +537,7 @@ class _StaticChunk:
                              S.latest_slot, t.res, t.needs))
         return t
 
-    def _keyframe_step(self, S: ChunkCarry, t: Tracked, _key=None) -> None:
+    def _keyframe_step(self, S: ChunkCarry, t: Tracked) -> None:
         m, slot, lm, latest_T, refvals = self.keyframe(
             S._replace(frame_id=self.fid), t, self.left, self.right)
         _write_back(S.m, m)
@@ -475,14 +558,11 @@ class _StaticChunk:
         warm = static_copy(self.static)
 
         def warm_step():
-            t = self._track_step(warm)
-            for k in self._keys():
-                self._keyframe_step(warm, t, k)
+            self._keyframe_step(warm, self._track_step(warm))
         g.warm_up(warm_step)
         self._tracked = g.capture("track", self._track_step, self.static)
-        for k in self._keys():
-            g.capture(f"keyframe{'' if k is None else k}",
-                      self._keyframe_step, self.static, self._tracked, k)
+        g.capture("keyframe", self._keyframe_step, self.static,
+                  self._tracked)
         self.graphs = g
 
     def graph_stats(self) -> Optional[dict]:
@@ -510,12 +590,11 @@ class _StaticChunk:
             else:
                 self.graphs.replay("track")
                 t = self._tracked
-            # the frame's one host synchronisation: the flag(s)
-            for k in self._flagged(t):
+            if self._flagged(t):
                 if self.graphs is None:
-                    self._keyframe_step(S, t, k)
+                    self._keyframe_step(S, t)
                 else:
-                    self.graphs.replay(f"keyframe{'' if k is None else k}")
+                    self.graphs.replay("keyframe")
             rows[i].copy_(self.row)
         return S, rows
 
@@ -550,22 +629,24 @@ def _eager_chunk(body):
 class _StaticBatchedChunk(_StaticChunk):
     """mesh.multi_sequence_chunk's chunk: make_batched_frame_body's halves
     on a static batched carry. Graph A tracks all B lanes (images through
-    static (B, H, W) buffers) and packs every lane's row as a frame that
-    is no keyframe; the host reads the B flags back at once; graph B_b,
-    one a lane, runs lane b's keyframe event on its views of the static
-    carry and packs its row again. B + 1 graphs, captured once."""
+    static (B, H, W) buffers) with the configured tracker and packs every
+    lane's row as a frame that is no keyframe; the host reads whether any
+    of the B flags is set; graph B runs the keyframe event once over all
+    lanes with the flags, on the device, as its lane mask (the flagged
+    lanes' maps, snapshots, slots, poses, anchors and rows). Two graphs
+    for any B, captured once."""
 
     def __init__(self, cfg: SlamConfig, cam: StereoCamera):
         self.cfg, self.cam = cfg, cam
         self.track = _batched_tracker(cfg, cam)
+        self.keyframe = _batched_keyframe(cfg, cam)
+        self.photometric = cfg.tracker.method != "indirect"
         self.static = None
         self.graphs = None
 
-    def _keys(self) -> tuple:
-        return tuple(range(self.left.shape[0]))
-
-    def _flagged(self, t: Tracked) -> tuple:
-        return tuple(np.flatnonzero(t.needs.cpu().numpy()).tolist())
+    def _flagged(self, t: Tracked) -> bool:
+        """Whether graph B runs: any lane flagged (one readback of B)."""
+        return bool(t.needs.any())
 
     def _track_step(self, S: ChunkCarry) -> Tracked:
         t = self.track(S, self.left)
@@ -574,24 +655,33 @@ class _StaticBatchedChunk(_StaticChunk):
         S.T_cw.copy_(t.T_new)
         S.velocity.copy_(t.velocity)
         S.inlier_peak.copy_(t.inlier_peak)
+        if t.ab is not None:
+            S.kf_ab.copy_(t.ab)
         self.row.copy_(_pack(t.T_new, se3.per_lane(_relative, t.T_new,
                                                    S.latest_T),
                              S.latest_slot, t.res, t.needs))
         return t
 
-    def _keyframe_step(self, S: ChunkCarry, t: Tracked, b: int) -> None:
-        c = lane(S, b)._replace(frame_id=self.fid)
-        m, slot, lm, latest_T = keyframe_event(
-            c, lane(t.frame, b), self.left[b], self.right[b], t.T_new[b],
-            lane(t.res, b), self.cam, self.cfg)
-        _write_back(c.m, m)
-        for dst, src in zip((c.lm_Xw, c.lm_desc, c.lm_ids, c.lm_valid), lm):
+    def _keyframe_step(self, S: ChunkCarry, t: Tracked) -> None:
+        lm, slot, latest_T, kf_img, refvals = self.keyframe(
+            S._replace(frame_id=self.fid), t, self.left, self.right)
+        for dst, src in zip((S.lm_Xw, S.lm_desc, S.lm_ids, S.lm_valid), lm):
             dst.copy_(src)
-        c.latest_slot.copy_(slot)
-        c.latest_T.copy_(latest_T)
-        c.T_cw.copy_(latest_T)
-        self.row[b].copy_(_pack(latest_T, _relative(latest_T, latest_T),
-                                slot, lane(t.res, b), t.needs[b]))
+        S.latest_slot.copy_(slot)
+        S.latest_T.copy_(latest_T)
+        S.T_cw.copy_(torch.where(t.needs[:, None, None], latest_T,
+                                 t.T_new))
+        if kf_img is not None:
+            S.kf_img.copy_(kf_img)
+        if refvals is not None:
+            S.kf_refvals.copy_(refvals)
+        self.row.copy_(_pack(S.T_cw, se3.per_lane(_relative, S.T_cw,
+                                                  latest_T),
+                             slot, t.res, t.needs))
+
+    def __call__(self, carry: ChunkCarry, images: torch.Tensor):
+        require_anchor(self.cfg, carry)
+        return super().__call__(carry, images)
 
 
 class ChunkedSlamEngine:

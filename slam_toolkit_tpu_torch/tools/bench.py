@@ -29,13 +29,18 @@ layout: "lane" (the default, mesh.multi_sequence_lane_chunk: lanes in
 turn, each lane's keyframe event only on its own keyframes) or "vmap"
 (mesh.multi_sequence_chunk: the step batched over the lanes, one launch
 of the gather, top-2 and pose-LM kernels a frame for all B lanes, the
-keyframe event per flagged lane). It reports aggregate frames/s (B x
-frames / s) and per-lane frames/s, lane 0's ATE from its raw rows (no
-refinement: a coarse check), keyframes a lane, and on the card the
-device work of the last warm-up chunk's first 4 frames (torch.profiler:
-operations a frame of all lanes, busy share). No vs_baseline: bench.py's
-500 is a TPU number. BENCH_TINY=1 runs it at SlamConfig.tiny() (a smoke
-test of the harness, as in bench.py).
+keyframe event once over the lanes on a frame where any is flagged). It
+reports aggregate frames/s (B x frames / s) and per-lane frames/s, lane
+0's ATE from its raw rows (no refinement: a coarse check), keyframes a
+lane, and on the card the device work of the last warm-up chunk's first
+4 frames (torch.profiler: operations a frame of all lanes, busy share).
+No vs_baseline: bench.py's 500 is a TPU number. BENCH_TINY=1 runs it at
+SlamConfig.tiny() (a smoke test of the harness, as in bench.py).
+BENCH_OPTION=O1|O2|O3 runs it under that option set (OPTIONS below).
+BENCH_DP_STAGGER=k starts lane b k * b frames into a longer render of
+the same track, so the lanes keyframe on different frames and the
+batched keyframe event runs with lanes masked out (0, the default: every
+lane the same frames).
 
 BENCH_LOOP=1 runs bench.py's main_loop() instead: full SLAM on a closed
 KITTI-scale track with BoW loop detection and closing between chunks.
@@ -830,33 +835,38 @@ def _loop_config(cfg):
 
 def dp_record(cfg, lanes: int = 4, mode: str = "lane", n_frames: int = 160,
               chunk: int = 16, device="cuda",
-              cache: Optional[str] = None, graphs: bool = True) -> dict:
+              cache: Optional[str] = None, graphs: bool = True,
+              option: Optional[str] = None, stagger: int = 0) -> dict:
     """bench.py main_dp's record for B = `lanes` sequences in layout
     `mode` ("lane" or "vmap"), with the card, its power limit and the
-    device work a frame."""
+    device work a frame; under option set `option` (None: none), lane b
+    starting `stagger` * b frames into the track."""
     from slam_toolkit_tpu_torch.evaluation.traj import ate_rmse
     from slam_toolkit_tpu_torch.geometry.camera import StereoCamera
     from slam_toolkit_tpu_torch.parallel import mesh
     from slam_toolkit_tpu_torch.utils.timing import device_activity
     if mode not in ("lane", "vmap"):
         raise ValueError(f"BENCH_DP_MODE={mode!r}: 'lane' or 'vmap'")
+    if option is not None:
+        cfg = with_option(cfg, option)
     device = torch.device(device)
     build_s = _build_kernels(device)
     card, power = _card(device)
-    stacked, gt = stage_frames(cfg, n_frames, HEADLINE_SEED, cache)
+    stacked, gt = stage_frames(cfg, n_frames + stagger * (lanes - 1),
+                               HEADLINE_SEED, cache)
     cam = StereoCamera.from_config(cfg.camera, device)
     n_full = (n_frames - 1) // chunk * chunk
     if n_full < n_frames - 1:
         _log(f"dp: dropping {n_frames - 1 - n_full} tail frames (not a "
              f"full {chunk}-chunk)")
 
-    def lanes_of(a: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(np.array(a)).to(device, torch.float32)
-        return t.unsqueeze(-4).expand(*t.shape[:-3], lanes,
-                                      *t.shape[-3:]).contiguous()
-    chunks = [lanes_of(stacked[i:i + chunk])
-              for i in range(1, 1 + n_full, chunk)]
-    first = lanes_of(stacked[0])                       # (B, 2, H, W)
+    def lanes_of(i: int, n: int) -> torch.Tensor:
+        """Frames i .. i + n - 1 of every lane, (n, B, 2, H, W)."""
+        a = np.stack([stacked[b * stagger + i:b * stagger + i + n]
+                      for b in range(lanes)], axis=1)
+        return torch.from_numpy(a).to(device, torch.float32)
+    chunks = [lanes_of(i, chunk) for i in range(1, 1 + n_full, chunk)]
+    first = lanes_of(0, 1)[0]                          # (B, 2, H, W)
     carry = mesh.batched_bootstrap(cfg, cam)(
         mesh.batched_empty_map(cfg, lanes, device), first[:, 0],
         first[:, 1])
@@ -901,6 +911,7 @@ def dp_record(cfg, lanes: int = 4, mode: str = "lane", n_frames: int = 160,
         "value": round(agg, 2), "unit": "frames/s",
         "per_lane_fps": round(n_timed / dt, 2), "lanes": lanes,
         "dp_mode": mode, "graphs": graphs, "frames_timed": n_timed,
+        "option": option, "stagger": stagger,
         "chunk": chunk,
         "ate_lane0_raw_m": round(ate, 3), "keyframes_per_lane": kfs,
         "kernels_per_frame": None if per_frame is None
@@ -933,7 +944,9 @@ def main() -> int:
             lanes=int(os.environ["BENCH_DP"]),
             mode=os.environ.get("BENCH_DP_MODE", "lane"),
             n_frames=int(os.environ.get("BENCH_FRAMES", "160")),
-            chunk=int(os.environ.get("BENCH_CHUNK", "16")), graphs=graphs)))
+            chunk=int(os.environ.get("BENCH_CHUNK", "16")), graphs=graphs,
+            option=os.environ.get("BENCH_OPTION") or None,
+            stagger=int(os.environ.get("BENCH_DP_STAGGER", "0")))))
         return 0
     if os.environ.get("BENCH_LOOP"):
         print(json.dumps(loop_record(

@@ -2,7 +2,12 @@
 its per-lane single call (integer outputs exact, floats to 1e-5), and
 extraction and tracking over 2 lanes equal jax.vmap of the JAX package's
 functions at the single calls' bars (tests/test_torch_extractor.py's
-exact features; the pose to 2e-3, inliers to 2)."""
+exact features; the pose to 2e-3, inliers to 2). The keyframe event's
+batched kernels (SAD curves, local BA) and the event itself over lanes
+with a lane mask: each kept lane exactly its single call, a masked lane
+untouched, and the kernels' plain versions against jax.vmap of the JAX
+package's at their bars (SAD rtol 1e-5 / atol 1e-3; BA T 3e-3, X
+2e-2)."""
 
 import numpy as np
 import jax
@@ -16,17 +21,25 @@ from slam_toolkit_tpu.frontend import frame as j_frame
 from slam_toolkit_tpu.frontend import tracker as j_tracker
 from slam_toolkit_tpu.geometry.camera import StereoCamera as JCamera
 from slam_toolkit_tpu.ops import extractor as j_ext
+from slam_toolkit_tpu.ops import stereo_sad as j_sad
+from slam_toolkit_tpu.optim import local_ba as j_ba
 from slam_toolkit_tpu_torch.config import SlamConfig, TrackerConfig
-from slam_toolkit_tpu_torch.frontend.frame import build_frame
+from slam_toolkit_tpu_torch.frontend.frame import add_stereo, build_frame
 from slam_toolkit_tpu_torch.frontend.matching import projection_match
 from slam_toolkit_tpu_torch.frontend.tracker import track_pose
 from slam_toolkit_tpu_torch.geometry import se3
 from slam_toolkit_tpu_torch.geometry.camera import StereoCamera
 from slam_toolkit_tpu_torch.mapping import keyframe as kf_rule
-from slam_toolkit_tpu_torch.ops import match_kernel, patches, pose_lm_kernel
+from slam_toolkit_tpu_torch.mapping.map_state import MapState
+from slam_toolkit_tpu_torch.ops import (ba_kernel, match_kernel, patches,
+                                        pose_lm_kernel, stereo_sad)
 from slam_toolkit_tpu_torch.ops.extractor import extract, extract_batch
+from slam_toolkit_tpu_torch.optim.local_ba import BAProblem
 from slam_toolkit_tpu_torch.parallel import mesh
-from slam_toolkit_tpu_torch.pipeline.scan_engine import lane
+from slam_toolkit_tpu_torch.pipeline.scan_engine import (_batched_tracker,
+                                                         keyframe_event, lane)
+from slam_toolkit_tpu_torch.tools.bench import with_option
+from torch_ba_problems import ba_problem
 
 torch.set_num_threads(1)
 
@@ -210,3 +223,146 @@ def test_pose_lm_batched_plain_equals_per_lane():
     got = pose_lm_kernel.optimize_pose_batched(*args, TrackerConfig())
     _assert_lanes(got, [pose_lm_kernel.optimize_pose(
         *(x[b] for x in args), TrackerConfig()) for b in range(B)])
+
+
+# ---- the keyframe event's kernels and maps over lanes ------------------
+MASK = (True, False, True)        # lane 1 masked out
+
+
+def _sad_inputs(rng, h=48, w=160, k=20, max_disp=30):
+    """B lanes' image pairs and clamped SAD corners (numpy)."""
+    side = 2 * stereo_sad.WIN + 1
+    sw = stereo_sad._strip_w(max_disp)
+    imgs = rng.uniform(0, 255, (2, B, h, w)).astype(np.float32)
+    xl = rng.integers(0, w, (B, k))
+    yl = rng.integers(0, h, (B, k))
+    ys0 = np.clip(yl - stereo_sad.WIN, 0, h - side).astype(np.int32)
+    xl0 = np.clip(xl - stereo_sad.WIN, 0, w - side).astype(np.int32)
+    xs0 = np.clip(xl - (max_disp + stereo_sad.WIN + stereo_sad.PAD), 0,
+                  w - sw).astype(np.int32)
+    return imgs[0], imgs[1], ys0, xl0, xs0, max_disp
+
+
+def test_sad_curve_batched_plain_equals_per_lane():
+    """Each lane the mask keeps exactly its single plain call; the masked
+    lane zeros (the plain version's; the kernel leaves it unwritten)."""
+    *arrs, max_disp = _sad_inputs(np.random.default_rng(8))
+    t = [torch.from_numpy(a) for a in arrs]
+    got = stereo_sad.sad_curve_batched(*t, max_disp, torch.tensor(MASK))
+    assert got.shape == (B, 20, max_disp + 3)
+    for b in range(B):
+        want = stereo_sad.sad_curve_plain(*(x[b] for x in t), max_disp)
+        assert torch.equal(got[b], want if MASK[b] else
+                           torch.zeros_like(want))
+
+
+def test_sad_curve_batched_matches_jax_vmap():
+    """Every lane against jax.vmap of the JAX package's curves, the XLA
+    version and the Pallas kernel in interpret mode, at the SAD bar."""
+    *arrs, max_disp = _sad_inputs(np.random.default_rng(9))
+    j = [jnp.asarray(a) for a in arrs]
+    ref = np.asarray(jax.vmap(lambda *a: j_sad._curve_fallback(
+        *a, max_disp))(*j))
+    pallas = np.asarray(jax.vmap(lambda *a: j_sad._curve_pallas(
+        *a, max_disp, interpret=True))(*j))
+    got = stereo_sad.sad_curve_batched(
+        *[torch.from_numpy(a) for a in arrs], max_disp,
+        torch.ones(B, dtype=torch.bool)).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-3)
+    np.testing.assert_allclose(got, pallas, rtol=1e-5, atol=1e-3)
+
+
+def _ba_lanes():
+    """B seeded local-BA problems of the same W, P (ragged: a fixed pose,
+    an invalid slot, fixed and empty points), stacked; the baseline
+    shared."""
+    probs = [ba_problem("cpu", W=3, P=96, seed=4 + b, one_outlier=True)
+             for b in range(B)]
+    return BAProblem(*(f[0] if n == "baseline" else torch.stack(f)
+                       for n, f in zip(BAProblem._fields, zip(*probs)))), \
+        probs
+
+
+def test_solve_ba_batched_plain_equals_per_lane():
+    """Each lane the mask keeps exactly its single plain solve; the masked
+    lane zeros (the plain version's; the kernel leaves it unwritten)."""
+    p, singles = _ba_lanes()
+    got = ba_kernel.solve_ba_batched(p, torch.tensor(MASK), iters=5)
+    for b in range(B):
+        want = ba_kernel.solve_ba(singles[b], iters=5)
+        for g, w in zip(got, want):
+            assert torch.equal(g[b], w if MASK[b] else torch.zeros_like(w))
+
+
+def test_solve_ba_batched_matches_jax_vmap():
+    """Every lane against jax.vmap of the JAX package's solver (the one
+    its engine runs on the CPU): T within 3e-3, X within 2e-2 on valid
+    points."""
+    p, _ = _ba_lanes()
+    jp = j_ba.BAProblem(**{f: jnp.asarray(
+        np.full((B,), float(p.baseline), np.float32) if f == "baseline"
+        else getattr(p, f).numpy()) for f in BAProblem._fields})
+    ref = jax.jit(jax.vmap(lambda q: j_ba.solve_ba(q, iters=5)))(jp)
+    got = ba_kernel.solve_ba_batched(p, torch.ones(B, dtype=torch.bool),
+                                     iters=5)
+    np.testing.assert_allclose(got.T_cw.numpy(), np.asarray(ref.T_cw),
+                               atol=3e-3)
+    pv = p.point_valid.numpy()
+    np.testing.assert_allclose(got.Xw.numpy()[pv], np.asarray(ref.Xw)[pv],
+                               atol=2e-2)
+
+
+def test_keyframe_event_over_lanes_equals_single(scene):
+    """The keyframe event once over the lanes with MASK against the single
+    keyframe_event on each lane (frame 1 made a keyframe): the kept
+    lanes' maps, slots, snapshots and poses bit for bit; the masked
+    lane's map bit-unchanged in every field."""
+    cfg, cam, lefts, rights, carry = scene
+    L, R = torch.from_numpy(lefts[:, 1]), torch.from_numpy(rights[:, 1])
+    t = _batched_tracker(cfg, cam)(carry, L)
+
+    def own(c):
+        return c._replace(m=MapState(*(f.clone() for f in c.m)))
+    singles = [keyframe_event(own(lane(carry, b)), lane(t.frame, b), L[b],
+                              R[b], t.T_new[b], lane(t.res, b), cam, cfg)
+               for b in range(B)]
+    before = own(carry)
+    m, slot, snap, latest_T = keyframe_event(
+        own(carry), t.frame, L, R, t.T_new, t.res, cam, cfg,
+        lanes=torch.tensor(MASK))
+    for b in range(B):
+        if MASK[b]:
+            m1, slot1, snap1, latest1 = singles[b]
+            for f in MapState._fields:
+                assert torch.equal(getattr(m, f)[b], getattr(m1, f)), f
+            assert int(slot[b]) == int(slot1)
+            assert all(torch.equal(x[b], y) for x, y in zip(snap, snap1))
+            assert torch.equal(latest_T[b], latest1)
+            assert int(m.mp_valid[b].sum()) > int(before.m.mp_valid[b].sum())
+        else:
+            for f in MapState._fields:
+                assert torch.equal(getattr(m, f)[b],
+                                   getattr(before.m, f)[b]), f
+
+
+@pytest.mark.parametrize("option", ["O1", "O2", "O3"])
+def test_add_stereo_over_lanes_equals_single(scene, option):
+    """add_stereo once over the lanes with MASK under each option set (O1,
+    O3: descriptor stereo with subpixel refinement, the right images
+    extracted over the lanes at once; O2: SAD with the BRIEF gate)
+    against the single call on each lane: the kept lanes' stereo bit for
+    bit, the masked lane none."""
+    _, cam, lefts, rights, _ = scene
+    cfg = with_option(SlamConfig.tiny(), option)
+    L, R = torch.from_numpy(lefts[:, 1]), torch.from_numpy(rights[:, 1])
+    got = add_stereo(build_frame(L, cam, cfg), L, R, cam, cfg,
+                     lanes=torch.tensor(MASK))
+    for b in range(B):
+        if not MASK[b]:
+            assert not got.has_stereo[b].any()
+            assert not got.depth[b].any()
+            continue
+        one = add_stereo(build_frame(L[b], cam, cfg), L[b], R[b], cam, cfg)
+        assert int(one.has_stereo.sum()) > 0
+        for f in ("right_x_norm", "depth", "has_stereo"):
+            assert torch.equal(getattr(got, f)[b], getattr(one, f)), f

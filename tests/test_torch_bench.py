@@ -150,7 +150,7 @@ def test_bench_refuses_modes_not_ported(var, monkeypatch):
 DP_KEYS = {"metric", "value", "unit", "per_lane_fps", "lanes", "dp_mode",
            "frames_timed", "chunk", "ate_lane0_raw_m", "keyframes_per_lane",
            "kernels_per_frame", "busy", "backend", "card", "power_limit",
-           "kernel_build_s", "tf32", "graphs"}
+           "kernel_build_s", "tf32", "graphs", "option", "stagger"}
 
 
 @pytest.mark.parametrize("mode", ["lane", "vmap"])
@@ -173,6 +173,24 @@ def test_dp_record_on_cpu(tmp_path, mode):
     kfs = out["keyframes_per_lane"]
     assert len(kfs) == 2 and kfs[0] == kfs[1] >= 2
     assert out["kernels_per_frame"] is None and out["card"] is None
+
+
+def test_dp_record_staggered_option_on_cpu(tmp_path):
+    """BENCH_OPTION and BENCH_DP_STAGGER at the tiny size (O1, 2 lanes,
+    lane 1 three frames ahead): the record names both, its numbers are
+    finite, and the batched and in-turn layouts keep the same keyframes
+    in each lane."""
+    out = {mode: bench.dp_record(SlamConfig.tiny(), lanes=2, mode=mode,
+                                 n_frames=11, chunk=2, device="cpu",
+                                 cache=str(tmp_path), option="O1",
+                                 stagger=3)
+           for mode in ("lane", "vmap")}
+    for rec in out.values():
+        assert set(rec) == DP_KEYS
+        assert rec["option"] == "O1" and rec["stagger"] == 3
+        assert rec["value"] > 0 and np.isfinite(rec["ate_lane0_raw_m"])
+    assert out["vmap"]["keyframes_per_lane"] == \
+        out["lane"]["keyframes_per_lane"]
 
 
 def test_bench_dp_mode_refused(monkeypatch):

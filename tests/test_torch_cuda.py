@@ -839,26 +839,75 @@ def test_graphed_chunks_match_eager(dev, method):
     assert g_eng._chunk.graph_stats()["captures"] == 2
 
 
+def _anchored(carry, lefts, cam, cfg):
+    """batched_bootstrap's carry with the photometric anchor added as
+    ChunkedSlamEngine builds its own (frame 0's left image, (a, b) = (0,
+    0), each lane's pattern intensities by the single reference_values)."""
+    from slam_toolkit_tpu_torch.optim import direct_lm
+    if cfg.tracker.method == "indirect":
+        return carry
+    B = lefts.shape[0]
+    kf_ab = torch.zeros((B, 2), dtype=torch.float32, device=lefts.device)
+    refvals = None
+    if cfg.tracker.method == "hybrid":
+        refvals = torch.stack([direct_lm.reference_values(
+            direct_lm.DirectState(T_cw=carry.latest_T[b], a=kf_ab[b, 0],
+                                  b=kf_ab[b, 1]),
+            lefts[b], cam.left, carry.lm_Xw[b], carry.lm_valid[b], 1.0)
+            for b in range(B)])
+    return carry._replace(kf_img=lefts.clone(), kf_ab=kf_ab,
+                          kf_refvals=refvals)
+
+
+def _batched_gather_by_shape(monkeypatch) -> dict:
+    """Counts the batched gather's launches by window (bh, bw) from here
+    on, as LaunchCounts: a CUDA graph that captured a call adds its
+    launches on every replay, as it does the kernel's own count."""
+    from slam_toolkit_tpu_torch.ops import patches
+    from slam_toolkit_tpu_torch.utils.cuda_lib import LaunchCount
+    orig, by_shape = patches.gather_blocks_batched_cuda, {}
+
+    def counted(images, ys, xs, counts, bh, bw):
+        n0 = patches.BATCHED_KERNEL.launches
+        out = orig(images, ys, xs, counts, bh, bw)
+        by_shape.setdefault((bh, bw), LaunchCount()).launches += \
+            patches.BATCHED_KERNEL.launches - n0
+        return out
+    monkeypatch.setattr(patches, "gather_blocks_batched_cuda", counted)
+    return by_shape
+
+
+@pytest.mark.parametrize("method", ["indirect", "hybrid", "direct"])
 @pytest.mark.parametrize("lanes", [1, 2])
-def test_graphed_batched_chunks_match_eager(dev, lanes):
-    """multi_sequence_chunk's B + 1 CUDA graphs against the eager batched
-    step on the card, tiny config, B lanes of distinct sequences over two
-    chunks: rows and maps bit-equal, launches equal."""
+def test_graphed_batched_chunks_match_eager(dev, lanes, method, monkeypatch):
+    """multi_sequence_chunk's two CUDA graphs (any B) against the eager
+    batched step on the card, tiny config, B lanes of distinct sequences
+    over two chunks, every tracker: rows and maps bit-equal, launches
+    equal, the batched SAD and local-BA entries launched and their single
+    entries never; the batched gather at 31x31 once a frame (and the
+    bootstrap), at 8x8 exactly as the photometric tracker needs."""
+    import dataclasses
+
     from slam_toolkit_tpu_torch.config import SlamConfig
+    from slam_toolkit_tpu_torch.frontend import direct_tracker
     from slam_toolkit_tpu_torch.geometry.camera import StereoCamera
     from slam_toolkit_tpu_torch.parallel import mesh
     from slam_toolkit_tpu_torch.utils import cuda_lib
     cfg = SlamConfig.tiny()
+    cfg = dataclasses.replace(cfg, tracker=dataclasses.replace(
+        cfg.tracker, method=method))
     cam = StereoCamera.from_config(cfg.camera, dev)
     seqs = np.stack([_tiny_images(13, seed=3 + b) for b in range(lanes)],
                     axis=1)
     imgs = torch.from_numpy(seqs).to(dev)
+    by_shape = _batched_gather_by_shape(monkeypatch)
     out = {}
     for graphs in (False, True):
         before = {c: c.launches for c in cuda_lib.launch_counts()}
-        carry = mesh.batched_bootstrap(cfg, cam)(
+        shapes0 = {k: c.launches for k, c in by_shape.items()}
+        carry = _anchored(mesh.batched_bootstrap(cfg, cam)(
             mesh.batched_empty_map(cfg, lanes, dev), imgs[0, :, 0],
-            imgs[0, :, 1])
+            imgs[0, :, 1]), imgs[0, :, 0], cam, cfg)
         chunk = mesh.multi_sequence_chunk(cfg, cam, graphs=graphs)
         carry, p0 = chunk(carry, imgs[1:7])
         carry, p1 = chunk(carry, imgs[7:])
@@ -866,6 +915,8 @@ def test_graphed_batched_chunks_match_eager(dev, lanes):
         launched = {c.symbol: c.launches - before.get(c, 0)
                     for c in cuda_lib.launch_counts()
                     if isinstance(c, cuda_lib.CudaKernel)}
+        launched.update({f"batched {bh}x{bw}": c.launches - shapes0.get(
+            (bh, bw), 0) for (bh, bw), c in by_shape.items()})
         out[graphs] = (carry, torch.cat([p0, p1]).cpu().numpy(), launched,
                        chunk)
     (c_e, r_e, l_e, _), (c_g, r_g, l_g, chunk) = out[False], out[True]
@@ -873,8 +924,139 @@ def test_graphed_batched_chunks_match_eager(dev, lanes):
     np.testing.assert_array_equal(r_g, r_e)
     for f in c_e.m._fields:
         assert torch.equal(getattr(c_g.m, f), getattr(c_e.m, f)), f
-    assert l_g == l_e and l_e["slam_gather_blocks_batched"] == 13
-    assert chunk.graph_stats()["captures"] == lanes + 1
+    n_kf = int((r_e[..., 34] > 0.5).any(1).sum())
+    # 8x8 windows a frame: the photometric LM reads them once for its
+    # first cost, twice an iteration (residuals, trial cost) and once for
+    # the final residuals; "hybrid" polishes once a frame and takes the
+    # new anchor's intensities on a keyframe frame, "direct" runs 7
+    # iterations at each pyramid level after that level's intensities
+    n8 = {"indirect": 0,
+          "hybrid": 12 * (2 * cfg.tracker.hybrid_iters + 2) + n_kf,
+          "direct": 12 * direct_tracker.PYRAMID_LEVELS * (1 + 2 * 7 + 2)}
+    assert l_g == l_e
+    assert l_e["batched 31x31"] == 13                  # + the bootstrap
+    assert l_e.get("batched 8x8", 0) == n8[method]
+    assert l_e["slam_gather_blocks_batched"] == 13 + n8[method]
+    assert l_e["slam_sad_curve_batched"] == 1 + n_kf   # + the bootstrap
+    assert l_e["slam_local_ba_batched"] == n_kf
+    assert l_e["slam_sad_curve"] == l_e["slam_local_ba"] == 0
+    assert chunk.graph_stats()["captures"] == 2
+
+
+def _sad_lanes(dev, lanes, k, max_disp, seed):
+    """B lanes of _sad_args at one shape; the last of several lanes is
+    empty: every corner far outside its images, which are constant."""
+    per = [_sad_args(dev, 60, 400, k, max_disp, seed=seed + b)
+           for b in range(lanes)]
+    if lanes > 1:
+        img_l, img_r, ys, xl, xs, _ = per[-1]
+        per[-1] = (torch.zeros_like(img_l), torch.zeros_like(img_r),
+                   torch.full_like(ys, -999), torch.full_like(xl, 9999),
+                   torch.full_like(xs, -999), max_disp)
+    return [torch.stack(f) for f in list(zip(*per))[:5]]
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4])
+@pytest.mark.parametrize("k,max_disp", [(2048, 100), (77, 130), (0, 37)])
+def test_sad_curve_batched_cuda_exact(dev, lanes, k, max_disp):
+    """B lanes of SAD curves in one launch (K = 2048 at max_disp 100 is a
+    keyframe of the main path; K = 0 launches nothing), the last of
+    several lanes empty and, at B = 4, lane 1 masked: each kept lane
+    exactly its single launch and within the SAD bar of the batched plain
+    version (a masked lane's rows are left unwritten, not defined)."""
+    from slam_toolkit_tpu_torch.ops import stereo_sad as sad
+    t = _sad_lanes(dev, lanes, k, max_disp, seed=k + lanes)
+    mask = torch.ones(lanes, dtype=torch.bool, device=dev)
+    if lanes == 4:
+        mask[1] = False
+    n0, s0 = sad.BATCHED_KERNEL.launches, sad.KERNEL.launches
+    out = sad.sad_curve_batched(*t, max_disp, mask)
+    assert sad.BATCHED_KERNEL.launches == n0 + (k > 0)
+    assert sad.KERNEL.launches == s0
+    assert out.shape == (lanes, k, max_disp + 3)
+    kept = mask.cpu().numpy()
+    for b in np.flatnonzero(kept):
+        assert torch.equal(out[b], sad.sad_curve(*(x[b] for x in t),
+                                                 max_disp))
+    torch.testing.assert_close(out[mask], sad.sad_curve_batched_plain(
+        *t, max_disp, mask)[mask], rtol=1e-5, atol=1e-3)
+
+
+def _ba_lanes(dev, lanes, W, P):
+    """B problems of _ba_problem at one shape; the last of several lanes
+    is empty (no valid point, every pose fixed)."""
+    from slam_toolkit_tpu_torch.optim.local_ba import BAProblem
+    per = [_ba_problem(dev, W=W, P=P, seed=W + P + b, one_outlier=True)
+           for b in range(lanes)]
+    if lanes > 1:
+        per[-1] = per[-1]._replace(
+            point_valid=torch.zeros_like(per[-1].point_valid),
+            pose_fixed=torch.ones_like(per[-1].pose_fixed))
+    return BAProblem(*(f[0] if n == "baseline" else torch.stack(f)
+                       for n, f in zip(BAProblem._fields, zip(*per))))
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4])
+@pytest.mark.parametrize("W,P", [(8, 1024), (4, 37)])
+def test_local_ba_batched_cuda_exact(dev, lanes, W, P):
+    """B local-BA problems in one launch of 8-CTA clusters (W = 8, P =
+    1024 as the main path's), the last of several lanes empty and, at
+    B = 4, lane 1 masked (its cluster leaves before any cluster barrier,
+    its outputs unwritten): each kept lane bit for bit its single launch,
+    the batched plain version within the local-BA bar (T 3e-3; X against
+    the plain float64 run as test_local_ba_cuda_cluster_shapes)."""
+    from slam_toolkit_tpu_torch.ops import ba_kernel
+    p = _ba_lanes(dev, lanes, W, P)
+    mask = torch.ones(lanes, dtype=torch.bool, device=dev)
+    if lanes == 4:
+        mask[1] = False
+    n0, s0 = ba_kernel.BATCHED_KERNEL.launches, ba_kernel.KERNEL.launches
+    out = ba_kernel.solve_ba_batched(p, mask, iters=10, trim_sigma=5.0)
+    assert ba_kernel.BATCHED_KERNEL.launches == n0 + 1
+    assert ba_kernel.KERNEL.launches == s0
+    ref = ba_kernel.solve_ba_batched_plain(p, mask, iters=10,
+                                           trim_sigma=5.0)
+    torch.cuda.synchronize()
+    for b in range(lanes):
+        one = ba_kernel._problem_lane(p, b)
+        if not mask[b]:
+            continue
+        single = ba_kernel.solve_ba(one, iters=10, trim_sigma=5.0)
+        for a, c in zip(out, single):
+            assert torch.equal(a[b], c)
+        torch.testing.assert_close(out.T_cw[b], ref.T_cw[b], rtol=0,
+                                   atol=3e-3)
+        pv = one.point_valid
+        if bool(pv.any()):
+            ref64 = ba_kernel.solve_ba_plain(as_float64(one), iters=10,
+                                             trim_sigma=5.0)
+            spread = float((ref.Xw[b][pv].double() - ref64.Xw[pv]).abs()
+                           .max())
+            err = float((out.Xw[b][pv].double() - ref64.Xw[pv]).abs().max())
+            assert err <= 2e-2 + spread, (b, err, spread)
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4])
+def test_gather_8x8_batched_cuda_exact(dev, lanes):
+    """The direct LM's windows over lanes: 3072 windows 8x8 a lane on a
+    full-size image (B, 376, 1241), some corners outside it, in one
+    batched launch: each lane exactly its single launch and the batched
+    plain version."""
+    from slam_toolkit_tpu_torch.ops import patches
+    rng = np.random.default_rng(lanes + 8)
+    img = _dev(rng.uniform(0, 255, (lanes, 376, 1241)).astype(np.float32),
+               dev)
+    ys = _i32(rng.integers(-10, 376, (lanes, 3072)), dev)
+    xs = _i32(rng.integers(-10, 1241, (lanes, 3072)), dev)
+    n0 = patches.BATCHED_KERNEL.launches
+    out = patches.gather_blocks_batched([img], ys, xs, [3072], 8, 8)
+    assert patches.BATCHED_KERNEL.launches == n0 + 1
+    assert out.shape == (lanes, 3072, 8, 8)
+    for b in range(lanes):
+        assert torch.equal(out[b], patches.gather_blocks(img[b], ys[b],
+                                                         xs[b], 8, 8))
+    assert torch.equal(out, patches.gather_blocks_batched_plain(
+        [img], ys, xs, [3072], 8, 8))
 
 
 # ---- the option sets' shapes: the bfloat16 gather, poly levels, the

@@ -2,8 +2,8 @@
 graphs, on the CPU: against the eager step, bit for bit.
 
 On a CUDA device make_chunk_fn replays two CUDA graphs a frame (tracking;
-the keyframe event) over a static carry, and multi_sequence_chunk B + 1
-for B lanes. On the CPU the same functions run eagerly, as the graphs'
+the keyframe event) over a static carry, and multi_sequence_chunk two
+for any number of lanes. On the CPU the same functions run eagerly, as the graphs'
 plain version: these tests hold them to make_frame_body and
 make_batched_frame_body (the eager steps, graphs=False) exactly, through
 a keyframe-ring cull and a carry re-seeded from the host between chunks,
@@ -142,8 +142,8 @@ PLAIN_TWINS = (
                "gather_blocks_batched_plain")),
     (match_kernel, ("topk2_match_plain", "topk2_match_batched_plain")),
     (pose_lm_kernel, ("optimize_pose_plain", "optimize_pose_batched_plain")),
-    (stereo_sad, ("sad_curve_plain",)),
-    (ba_kernel, ("solve_ba_plain",)),
+    (stereo_sad, ("sad_curve_plain", "sad_curve_batched_plain")),
+    (ba_kernel, ("solve_ba_plain", "solve_ba_batched_plain")),
     (fast_kernel, ("detect_levels_plain", "detect_fused_plain")))
 HOST_CALLS = {"__bool__", "item", "tolist", "numpy", "cpu", "nonzero",
               "tensor", "as_tensor", "__int__", "__float__", "__index__"}
@@ -223,7 +223,8 @@ def test_captured_functions_read_nothing_back(images, guard, method):
 
 
 def test_batched_captured_functions_read_nothing_back(images, guard):
-    """(c) The batched graph A and each lane's graph B the same way."""
+    """(c) The batched graph A and the one batched graph B (the keyframe
+    event over both lanes, the flags as its mask) the same way."""
     cfg = _cfg("indirect")
     cam = StereoCamera.from_config(cfg.camera, "cpu")
     imgs = torch.from_numpy(np.stack([images[:8], images[1:9]], axis=1))
@@ -236,8 +237,7 @@ def test_batched_captured_functions_read_nothing_back(images, guard):
     run.right.copy_(imgs[4, :, 1])
     with guard, HostOpGuard(guard):
         t = run._track_step(run.static)
-        for b in range(LANES):
-            run._keyframe_step(run.static, t, b)
+        run._keyframe_step(run.static, t)
     assert guard.seen == []
 
 
