@@ -100,7 +100,7 @@ Phases (any failure raises and the script exits non-zero):
    `launches_dp` the indirect run's 8x8 count, as on every row); the
    bfloat16
    entries of phase 15 likewise), then
-   the result line. It is printed last, after phases 10-15.
+   the result line. It is printed last, after phases 10-16.
 10. Loop closing at full width: SlamConfig(), the loop bench's world and
    clothoid (tools/bench.stage_loop_frames: 192 frames, the track closing
    at frame 160, then its first 32 frames again; rendered in parallel
@@ -241,6 +241,33 @@ Phases (any failure raises and the script exits non-zero):
    the two bfloat16 rows (launches: O3's run and the batched O3 lanes)
    and on every row `launches_o1` ... `launches_o3` and
    `launches_o1_batched`, `launches_o3_batched`.
+16. The pipelined schedule (JAX's default): phase 10's 192 loop frames
+   and vocabulary at SlamConfig(), graphed, through
+   ChunkedSlamEngine(queue_depth=2, loop_thread=True): two chunks in
+   flight, the loop phases on the mapping worker's thread and CUDA
+   stream. (a) Counts set to 0 just before and read just after (the
+   kernel table's `launches_loop_pipelined`); the launches made on the
+   main thread and by the worker's jobs are counted apart
+   (cuda_lib.counting) and must add up to every kernel's count. Gates:
+   a closure and a replay, every pose finite, the kernels of the loop
+   path launched, the closer's relative pose measured on the worker
+   with the top-2 kernel, every such call on the worker's stream
+   (torch.cuda.current_stream inside the job), the top-2 exact against
+   its plain version on the inputs the first such call handed it, and
+   no exception or work left on the worker. Frames/s, ATE, seam,
+   closures, the frames run when each landed and replays are printed
+   beside phase 10's inline run. (b) The same run with its last 2
+   chunks under torch.profiler: each stream's busy time and the share
+   of the wall in which another stream's work overlapped the graphs'.
+   The same frames at depth 2 with the loop phases inline right after
+   (a): its frames/s and closures, and the host's flag reads (ms a
+   frame) in both runs. (c) Without a vocabulary, phase 3's frames at
+   depths 0 and 2: the rows returned (none while the queue fills)
+   concatenated with the flush's are bit-equal. (d) The interpreter
+   lock: a pure-Python loop on another thread ticks through the depth-2
+   run's chunks 2-3; its rate against its rate alone is the share of
+   the lock the main thread leaves free, and those chunks' walls are
+   printed beside depth 0's without it.
 
 It imports nothing of JAX.
 """
@@ -1200,7 +1227,9 @@ def phase10(cfg, kernels: dict, rows: list, label: str) -> dict:
               f"({b['bound_by']})")
     check_seam_ba(eng, closures[0], label)
     return {"launches": launches, "closer": sum(cap.launches.values()),
-            "frames": frames, "engine": eng, "closure": closures[0]}
+            "frames": frames, "engine": eng, "closure": closures[0],
+            "gt": gt, "vocab": vocab, "chunk_s": chunk_s, "ate": ate,
+            "seam": seam}
 
 
 # ---------------------------------------------------------------- phase 11
@@ -1542,7 +1571,7 @@ class BatchedCapture:
             out = orig(*args, **kw)
             if key not in self.by_shape:
                 self.by_shape[key] = LaunchCount()
-            self.by_shape[key].launches += kernel.launches - n0
+            self.by_shape[key].add(kernel.launches - n0)
             return out
         return call
 
@@ -2473,6 +2502,353 @@ def phase15(cfg, frames, gt, kernels: dict, loop: dict, label: str):
     return new_rows, launches, dp
 
 
+# ---------------------------------------------------------------- phase 16
+class WorkerCounts:
+    """While installed on an engine with a mapping worker: every launch a
+    worker job makes is counted apart (cuda_lib.counting on the worker's
+    thread), and every call of the closer's relative pose (the host's
+    SlamEngine._relpose, its call site of the top-2 matcher) records
+    whether it ran on the worker's thread, whether the current stream
+    there was the worker's, and the top-2 launches its thread made inside
+    it; the inputs the first call on the worker hands the top-2 matcher
+    are kept on the card (cloned on the worker's stream)."""
+
+    def __init__(self, eng):
+        import threading
+        from slam_toolkit_tpu_torch.frontend import matching
+        from slam_toolkit_tpu_torch.ops import match_kernel as mk
+        self.eng, self.matching, self.mk = eng, matching, mk
+        self.orig_match = matching.topk2_match
+        self.orig_relpose = eng._host._relpose
+        self.orig_job = eng._run_job
+        self.local = threading.local()
+        self.calls = []          # (worker thread, worker stream, launches)
+        self.job_launches = {}   # {LaunchCount: launches} of the jobs
+        self.args = None
+        matching.topk2_match = self._match
+        eng._host._relpose = self._relpose
+        eng._run_job = self._job
+
+    def _job(self, *args):
+        from slam_toolkit_tpu_torch.utils import cuda_lib
+        with cuda_lib.counting() as d:
+            self.orig_job(*args)
+        for c, n in d.items():
+            self.job_launches[c] = self.job_launches.get(c, 0) + n
+
+    def _relpose(self, *args):
+        from slam_toolkit_tpu_torch.utils import cuda_lib
+        w = self.eng._worker
+        on_stream = torch.cuda.current_stream(self.eng.device) == w.stream
+        self.local.inside = True
+        try:
+            with cuda_lib.counting() as d:
+                out = self.orig_relpose(*args)
+        finally:
+            self.local.inside = False
+        self.calls.append((w.on_thread(), on_stream,
+                           d.get(self.mk.KERNEL, 0)))
+        return out
+
+    def _match(self, *args):
+        if getattr(self.local, "inside", False) and self.args is None \
+                and self.eng._worker.on_thread():
+            self.args = [a.clone() if isinstance(a, torch.Tensor) else a
+                         for a in args]
+        return self.orig_match(*args)
+
+    def close(self):
+        self.matching.topk2_match = self.orig_match
+        del self.eng._host._relpose, self.eng._run_job
+
+
+def _union(ivs):
+    out = []
+    for a, b in sorted(ivs):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _overlap_us(xs, ys) -> float:
+    i = j = 0
+    tot = 0.0
+    while i < len(xs) and j < len(ys):
+        lo, hi = max(xs[i][0], ys[j][0]), min(xs[i][1], ys[j][1])
+        tot += max(0.0, hi - lo)
+        if xs[i][1] < ys[j][1]:
+            i += 1
+        else:
+            j += 1
+    return tot
+
+
+def stream_overlap(prof, wall_ms: float) -> dict:
+    """From a torch.profiler pass: the card's busy ms on each stream
+    (kernels, copies and fills), the stream that was busiest (the
+    graphs' replays), and the ms and the share of the wall in which work
+    on another stream ran while that stream was busy."""
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    by_stream = {}
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") \
+                and "dur" in e:
+            s = (e.get("args") or {}).get("stream", e.get("tid"))
+            by_stream.setdefault(s, []).append(
+                (float(e["ts"]), float(e["ts"]) + float(e["dur"])))
+    if not by_stream:
+        return {"streams": {}, "main": None, "overlap_ms": None,
+                "share": None}
+    merged = {s: _union(v) for s, v in by_stream.items()}
+    busy = {s: sum(b - a for a, b in m) for s, m in merged.items()}
+    main = max(busy, key=busy.get)
+    other = _union([iv for s, m in merged.items() if s != main
+                    for iv in m])
+    ov = _overlap_us(merged[main], other) / 1000.0
+    return {"streams": {str(s): round(v / 1000.0, 3)
+                        for s, v in busy.items()},
+            "main": str(main), "overlap_ms": ov, "share": ov / wall_ms}
+
+
+def timed_flags(eng) -> list:
+    """Time the host's flag reads of `eng`'s graphed chunk (the frame's
+    one synchronisation, _StaticChunk._flagged): [seconds, reads]."""
+    orig, acc = eng._chunk._flagged, [0.0, 0]
+
+    def flagged(t):
+        t0 = time.perf_counter()
+        out = orig(t)
+        acc[0] += time.perf_counter() - t0
+        acc[1] += 1
+        return out
+    eng._chunk._flagged = flagged
+    return acc
+
+
+def timed_run(eng, frames, chunk: int):
+    """(chunk seconds, flush seconds) of `eng` over `frames`, each ending
+    in a synchronise."""
+    chunk_s = []
+    for i in range(0, len(frames), chunk):
+        t0 = time.perf_counter()
+        eng.process_chunk(frames[i:i + chunk])
+        torch.cuda.synchronize()
+        chunk_s.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    eng.flush()
+    torch.cuda.synchronize()
+    return chunk_s, time.perf_counter() - t0
+
+
+def gil_ticks(seconds: float = None, until=None) -> float:
+    """Iterations a second of a pure-Python loop on another thread, run
+    for `seconds`, or until the threading.Event `until` is set: how much
+    of the interpreter lock the rest of the process leaves free."""
+    import threading
+    stop = until or threading.Event()
+    out = []
+
+    def tick():
+        n, t0 = 0, time.perf_counter()
+        while not stop.is_set():
+            n += 1
+        out.append(n / (time.perf_counter() - t0))
+    t = threading.Thread(target=tick)
+    t.start()
+    if seconds is not None:
+        time.sleep(seconds)
+        stop.set()
+    return t, out
+
+
+def phase16(cfg, frames48, loop: dict, kernels: dict, label: str) -> dict:
+    """The chunked engine's pipelined schedule at full width: phase 10's
+    loop frames and vocabulary, graphed, at queue_depth=2 with the
+    mapping worker (loop_thread=True); then the open engine at depths 0
+    and 2 on phase 3's frames. Returns the launch counts."""
+    from slam_toolkit_tpu_torch.evaluation.traj import ate_rmse
+    from slam_toolkit_tpu_torch.ops import match_kernel as mk
+    from slam_toolkit_tpu_torch.pipeline.scan_engine import \
+        ChunkedSlamEngine
+    from slam_toolkit_tpu_torch.tools import bench
+    from slam_toolkit_tpu_torch.utils import cuda_lib
+    t_phase = time.perf_counter()
+    chunk = 16
+    frames, gt, vocab = loop["frames"], loop["gt"], loop["vocab"]
+    lap, revisit, _, _ = bench.loop_geometry(LOOP_FRAMES, chunk)
+
+    def pipelined():
+        return ChunkedSlamEngine(cfg, vocab=vocab, chunk_size=chunk,
+                                 device="cuda", queue_depth=2,
+                                 loop_thread=True)
+
+    # (a) the timed run: counts from 0 just before, read just after
+    eng = pipelined()
+    spy = WorkerCounts(eng)
+    flags = timed_flags(eng)
+    for k in kernels.values():
+        k.launches = 0
+    try:
+        with cuda_lib.counting() as main_counts:
+            chunk_s, flush_s = timed_run(eng, frames, chunk)
+    finally:
+        spy.close()
+    launches = {n: k.launches for n, k in kernels.items()}
+    traj = finite_trajectory(eng, LOOP_FRAMES, "pipelined loop path")
+    ate = ate_rmse(traj, gt, align=True)
+    c = bench._centers(traj)
+    seam = float(np.mean(np.linalg.norm(c[lap:lap + revisit] - c[:revisit],
+                                        axis=1)))
+    closures = [e for e in eng.loop_events if "cand" in e]
+    fps = LOOP_FRAMES / sum(chunk_s)
+    fps_all = LOOP_FRAMES / (sum(chunk_s) + flush_s)
+    print(f"[phase16] {label} queue depth 2 + mapping worker, "
+          f"{LOOP_FRAMES} frames: frames/s {fps:.2f} over the chunks, "
+          f"{fps_all:.2f} with the flush (chunk seconds "
+          f"{[round(x, 3) for x in chunk_s]}, flush {flush_s:.3f} s), ATE "
+          f"{ate:.4f} m, seam {seam:.4f} m, keyframes {eng.n_keyframes}, "
+          f"closures {len(closures)} (frames "
+          f"{[(e['frame'], e['fid_cand']) for e in closures]}, landed with "
+          f"{eng.closures_landed} frames run), replays {eng.n_replays}")
+    print(f"[phase16] {label} phase 10's inline run on the same frames: "
+          f"frames/s {LOOP_FRAMES / sum(loop['chunk_s']):.2f} over the "
+          f"chunks, ATE {loop['ate']:.4f} m, seam {loop['seam']:.4f} m, "
+          f"closures {len([e for e in loop['engine'].loop_events if 'cand' in e])}"
+          f", replays {loop['engine'].n_replays}")
+    # the queue alone, without the thread, right after: which of the two
+    # moves the chunk's wall
+    eng_q = ChunkedSlamEngine(cfg, vocab=vocab, chunk_size=chunk,
+                              device="cuda", queue_depth=2,
+                              loop_thread=False)
+    flags_q = timed_flags(eng_q)
+    chunk_q, flush_q = timed_run(eng_q, frames, chunk)
+    print(f"[phase16] {label} queue depth 2, loop phases inline: frames/s "
+          f"{LOOP_FRAMES / sum(chunk_q):.2f} over the chunks, "
+          f"{LOOP_FRAMES / (sum(chunk_q) + flush_q):.2f} with the flush "
+          f"(chunk seconds {[round(x, 3) for x in chunk_q]}, flush "
+          f"{flush_q:.3f} s), closures "
+          f"{[(e['frame'], e['fid_cand']) for e in eng_q.loop_events if 'cand' in e]}"
+          f"; the host's flag reads {1000 * flags_q[0] / flags_q[1]:.3f} "
+          f"ms a frame, with the worker {1000 * flags[0] / flags[1]:.3f}")
+    on_worker = [(s, n) for t, s, n in spy.calls if t]
+    on_main = [(s, n) for t, s, n in spy.calls if not t]
+    worker_top2 = sum(n for _, n in on_worker)
+    print(f"[phase16] {label} launches {launches}; made by the worker's "
+          f"jobs { {getattr(k, 'symbol', '?'): n for k, n in spy.job_launches.items()} }"
+          f"; the closer's relative pose: {len(on_worker)} calls on the "
+          f"worker ({sum(s for s, _ in on_worker)} on its stream, "
+          f"{worker_top2} top-2 launches), {len(on_main)} on the main "
+          f"thread at the flush ({sum(n for _, n in on_main)} top-2 "
+          f"launches)")
+    if not closures or eng.n_replays < 1:
+        raise AssertionError(f"pipelined: {len(closures)} closures, "
+                             f"{eng.n_replays} replays")
+    missing = [n for n, v in launches.items() if v == 0 and n != "fast_nms"]
+    if missing:
+        raise AssertionError(f"kernels not launched on the pipelined loop "
+                             f"path: {missing}")
+    if not on_worker or worker_top2 == 0:
+        raise AssertionError("the worker measured no relative pose with "
+                             "the top-2 kernel")
+    if not all(s for s, _ in on_worker):
+        raise AssertionError("a relative pose on the worker ran on "
+                             "another stream than the worker's")
+    for name, k in kernels.items():
+        made = main_counts.get(k, 0) + spy.job_launches.get(k, 0)
+        if launches[name] != made:
+            raise AssertionError(
+                f"{name}: {launches[name]} launches counted, "
+                f"{main_counts.get(k, 0)} by the main thread + "
+                f"{spy.job_launches.get(k, 0)} by the worker's jobs")
+    if spy.job_launches.get(mk.KERNEL, 0) < worker_top2:
+        raise AssertionError("the worker's relative poses launched more "
+                             "top-2 kernels than its jobs")
+    if eng._worker.error is not None or eng._closure_pend or \
+            eng._loop_stash or eng._worker.outstanding:
+        raise AssertionError("the worker left an exception or work behind")
+    *t, r = spy.args
+    topk2_exact(t, r, "the mapping worker's relative pose")
+    b, _ = topk2_bound(t, r)
+    print(f"[phase16] {label} top-2 from the worker's relative pose "
+          f"(M={t[0].shape[0]} N={t[1].shape[0]} r={r}): exact, "
+          f"{gate_shares(t, r)}; bound {b['bound_ms']:.6f} ms "
+          f"({b['bound_by']})")
+
+    # (b) the same run again, its last 2 chunks under torch.profiler:
+    # the share of their wall in which the worker's stream overlapped
+    # the graphs'
+    eng2 = pipelined()
+    starts = list(range(0, len(frames), chunk))
+    for i in starts[:-2]:
+        eng2.process_chunk(frames[i:i + chunk])
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for i in starts[-2:]:
+            eng2.process_chunk(frames[i:i + chunk])
+        torch.cuda.synchronize()
+        wall_ms = 1000.0 * (time.perf_counter() - t0)
+    eng2.flush()
+    ov = stream_overlap(prof, wall_ms)
+    share = "not measured (no device events)" if ov["share"] is None \
+        else f"{ov['share']:.4f} ({ov['overlap_ms']:.3f} ms)"
+    print(f"[phase16] {label} last 2 chunks under torch.profiler: wall "
+          f"{wall_ms:.1f} ms, busy ms by stream {ov['streams']} (graphs on "
+          f"stream {ov['main']}); another stream busy while the graphs' "
+          f"was: {share}")
+
+    # (c) no vocabulary: depth 2 returns depth 0's rows bit for bit. (d)
+    # The interpreter lock: a pure-Python loop on another thread ticks
+    # alone, then through depth 2's chunks 2-3 (the share of the lock
+    # the main thread's replays and flag reads leave free), whose wall
+    # is set beside depth 0's without it
+    import threading
+    th, alone = gil_ticks(0.3)
+    th.join()
+    outs, rates = {}, []
+    for depth in (0, 2):
+        e = ChunkedSlamEngine(cfg, chunk_size=chunk, device="cuda",
+                              queue_depth=depth, loop_thread=True)
+        got, walls = [], []
+        for i in range(0, len(frames48), chunk):
+            stop = threading.Event()
+            if depth == 2 and i:
+                th, ticks = gil_ticks(until=stop)
+            t0 = time.perf_counter()
+            got.append(e.process_chunk(frames48[i:i + chunk]))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            stop.set()
+            if depth == 2 and i:
+                th.join()
+                rates += ticks
+        got.append(e.flush())
+        outs[depth] = ([len(g) for g in got], np.concatenate(got), walls)
+    if not np.array_equal(outs[2][1], outs[0][1]):
+        raise AssertionError("depth 2 rows part from depth 0's")
+    print(f"[phase16] {label} no vocabulary, phase 3's {len(frames48)} "
+          f"frames: rows returned per call at depth 0 {outs[0][0]}, at "
+          f"depth 2 {outs[2][0]}; {outs[0][1].shape[0]} x "
+          f"{outs[0][1].shape[1]} packed values bit-equal")
+    print(f"[phase16] {label} interpreter lock: a Python loop on another "
+          f"thread ticks {np.mean(rates) / alone[0]:.3f} of its rate alone "
+          f"through graphed chunks (chunks 2-3); they take "
+          f"{[round(x, 3) for x in outs[2][2][1:]]} s beside it, "
+          f"{[round(x, 3) for x in outs[0][2][1:]]} s without")
+    print(f"[phase16] {label} phase seconds "
+          f"{time.perf_counter() - t_phase:.1f}")
+    return {"launches": launches, "fps": fps, "ate": ate, "seam": seam,
+            "closures": len(closures), "overlap": ov["share"]}
+
+
 # ---------------------------------------------------------------- phase 3
 def run_engine(cfg, frames, chunk: int, device: str, ring=None,
                vocab=None, graphs: bool = True):
@@ -2527,7 +2903,7 @@ class GatherShapes:
                               else "")
         if key not in self.by_shape:
             self.by_shape[key] = LaunchCount()
-        self.by_shape[key].launches += self._launched() - n0
+        self.by_shape[key].add(self._launched() - n0)
         return out
 
     def close(self):
@@ -2771,6 +3147,9 @@ def main() -> int:
     opt_rows, opt_launches, opt_dp = phase15(cfg, frames, gt, kernels, loop,
                                              label)
 
+    # ---- phase 16: the pipelined schedule (queue depth 2, mapping worker)
+    pipe = phase16(cfg, frames, loop, kernels, label)
+
     # ---- phase 9
     keys = ("max_abs_err", "ms", "host_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
@@ -2808,6 +3187,7 @@ def main() -> int:
             t[f"launches_{name.lower()}_batched"] = dp_l.get(t["name"], 0)
         if t["name"] == "topk2_match":
             t["launches_loop_closer"] = loop["closer"]
+        t["launches_loop_pipelined"] = pipe["launches"].get(t["name"], 0)
         for name, run in dp["photo"].items():
             t[f"launches_dp_{name}"] = run["cap"].shape_counts.get(
                 t["name"], 0) if t["name"] == "patch_gather_batched_8x8" \

@@ -34,6 +34,7 @@ pipeline/checkpoint.py.
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 from typing import List, Optional
 
@@ -70,20 +71,49 @@ BOW_ROWS = 4
 _PG_TIERS = (32, 64, 128, 256, 512, 1024)
 
 
+class _Float32Blocks:
+    """The open full_float32 blocks of the process, on every thread. The
+    TF32 flags are global to the process, so the first block to open
+    saves the caller's flags and turns TF32 off, and the last to close
+    restores them: a block that closes on one thread never turns TF32
+    back on under a block still open on another (the chunked engine's
+    mapping worker)."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.open = 0
+        self.saved = None
+
+    def enter(self) -> None:
+        with self.lock:
+            if self.open == 0:
+                self.saved = (torch.backends.cuda.matmul.allow_tf32,
+                              torch.backends.cudnn.allow_tf32)
+                torch.backends.cuda.matmul.allow_tf32 = False
+                torch.backends.cudnn.allow_tf32 = False
+            self.open += 1
+
+    def exit(self) -> None:
+        with self.lock:
+            self.open -= 1
+            if self.open == 0:
+                (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32) = self.saved
+
+
+_FLOAT32_BLOCKS = _Float32Blocks()
+
+
 @contextlib.contextmanager
 def full_float32():
     """Run the block with TF32 off for matmuls and cuDNN (the pyramid,
     blur and pose math are specified in full float32), then restore the
-    caller's flags."""
-    matmul = torch.backends.cuda.matmul.allow_tf32
-    cudnn = torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    caller's flags once no block is open on any thread."""
+    _FLOAT32_BLOCKS.enter()
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = matmul
-        torch.backends.cudnn.allow_tf32 = cudnn
+        _FLOAT32_BLOCKS.exit()
 
 
 def _stack_scores(rows: List[det_mod.LoopScores]) -> det_mod.LoopScores:
@@ -554,9 +584,10 @@ class SlamEngine:
 
     def _detect_accept(self, slot: int, cand_mask: np.ndarray,
                        scores: np.ndarray, covis_of: Optional[dict],
-                       fid: int) -> list:
+                       fid: int, m: Optional[MapState] = None) -> list:
         """accScore groups + consistency for one new keyframe: the
-        accepted candidate slots, strongest first ([] = none)."""
+        accepted candidate slots, strongest first ([] = none). Missing
+        covisibility rows are read from `m` (default the engine's map)."""
         loop = self.cfg.loop
         if self.n_keyframes < 3:
             return []
@@ -569,7 +600,8 @@ class SlamEngine:
                                         for s in raw_slots):
             covis_rows = np.stack([covis_of[int(s)] for s in raw_slots])
         else:
-            covis_rows = self._covis(self.map, raw_slots).cpu().numpy()
+            covis_rows = self._covis(self.map if m is None else m,
+                                     raw_slots).cpu().numpy()
         cand_slots, _ = det_mod.acc_score_retrieval(
             scores, raw_slots, covis_rows, loop.acc_score_ratio,
             loop.acc_group_size)

@@ -20,27 +20,41 @@ device->host synchronisation of a frame. make_chunk_fn runs the halves
 on a static carry, each captured once as a CUDA graph on a CUDA device
 and replayed every frame (eagerly on the CPU); make_frame_body runs
 them eagerly on a carry rebuilt every frame. Everything else stays on
-the device; a chunk's packed result rows are read back once, at its
-end. Chunks run synchronously, so nothing is in flight between calls.
+the device; a chunk's packed result rows are read back once, when the
+chunk is folded.
 
-With a vocabulary, loop closing and relocalization run between chunks
-(the JAX engine's mapping-thread phases, through pipeline/engine.py's
-SlamEngine): each chunk's keyframes are BoW-registered and scored as
-soon as the chunk ends; its fold then (1) relocalizes on a lost streak,
-(2) closes the measurements one fold old (pose graph, merge), re-seeding
-the tracking head through the latest keyframe, (3) consumes the
-detections stashed two folds earlier (accScore groups, consistency) and
-measures the accepted candidates' relative poses, and (4) stashes this
-chunk's detections with their covisibility rows. The JAX engine ages the
-stash and the pending measurements by fold count and, on top, by whether
-their device results have landed; here every result has landed when it
-is read, so the ages alone decide: a stash entry is consumed at age 2, a
-pending measurement at age 1, and the closure count is deterministic.
+ChunkedSlamEngine keeps up to queue_depth chunks run and not yet folded
+(the JAX engine's in-flight queue, SLAM_QUEUE_DEPTH; 0 by default here):
+process_chunk returns the rows of the chunks it folds, and flush() the
+rest. With a vocabulary, loop closing and relocalization run at each
+fold (the JAX engine's mapping-thread phases, through
+pipeline/engine.py's SlamEngine): each chunk's keyframes are
+BoW-registered and scored on the device as soon as the chunk has run;
+its fold then (1) relocalizes on a lost streak, from the newest image
+run, and folds the chunks in flight at once, (2) closes the
+measurements one fold old (pose graph, merge), re-seeding the tracking
+head through the latest keyframe, (3) consumes the detections stashed
+two folds earlier (accScore groups, consistency) and measures the
+accepted candidates' relative poses, and (4) stashes this chunk's
+detections with their covisibility rows. A pending measurement is
+consumed once it is a fold old and its result has landed (an event
+recorded after it has completed), or at 4 folds; on the CPU every
+result has landed, so the ages alone decide. Phases (2)-(4) run inline
+by default, or with loop_thread (SLAM_LOOP_THREAD) as jobs on a mapping
+thread with a CUDA stream of its own (_MappingWorker), beside the next
+chunk's replays; a closure it decides lands at the next chunk boundary.
+Inline, the closure count is deterministic; under the thread it depends
+on timing, as under the JAX engine's.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
+import queue
+import threading
 import time
+import weakref
 from typing import List, NamedTuple, Optional
 
 import numpy as np
@@ -684,26 +698,237 @@ class _StaticBatchedChunk(_StaticChunk):
         return super().__call__(carry, images)
 
 
+def _worker_main(ref, w: "_MappingWorker") -> None:
+    """The mapping thread's loop: run each job on the engine `ref` names
+    (a weak reference, so that a dropped engine ends the thread); an
+    exception is kept for the next flush, and later jobs still run."""
+    while True:
+        job = w.jobs.get()
+        eng = None if job is None else ref()
+        if eng is None:
+            return
+        try:
+            eng._run_job(*job)
+        except Exception as e:             # raised by the next flush
+            if w.error is None:
+                w.error = e
+        finally:
+            del eng
+            with w.cv:
+                w.outstanding -= 1
+                w.cv.notify_all()
+
+
+class _MappingWorker:
+    """The JAX engine's mapping thread (_loop_worker_main, its job queue
+    and _loop_lock), with what the port's static carry asks on top.
+
+    A chunk here runs synchronously on the host and writes the map in
+    place (the static carry), so a worker reading the live map while the
+    next chunk's graphs write it would race, and a lock around the chunk
+    would leave nothing to overlap. Instead:
+
+    - at each chunk boundary the main thread copies the map into one of
+      two published buffers (device to device, on the main stream) and
+      records an event (publish); a job reads the newest published map
+      on the worker's own CUDA stream, after that event (reading). The
+      buffer a job holds is never the one written next, and the main
+      stream waits for the job's reads before it writes a buffer again;
+    - a job changes no map: a closure it decides is handed to the main
+      thread (request_close), which runs it on the live carry at the next
+      chunk boundary (serve) and publishes the corrected map; the job
+      waits for that and reads on from the new copy. Relocalization and
+      the keyframe culls stay on the main thread, as do all host
+      counters (the JAX single-writer rule); the job owns the detection
+      stash, the pending measurements and the consistency groups;
+    - the BoW database, written by the main thread's registration at
+      dispatch and by a job's registration of keyframe rows beyond
+      BOW_ROWS, is read and replaced under bow_lock, each stream ordered
+      after the last writer's (bow_event).
+    """
+
+    def __init__(self, eng: "ChunkedSlamEngine"):
+        self.device = eng.device
+        self.cuda = self.device.type == "cuda"
+        self.stream = torch.cuda.Stream(self.device) if self.cuda else None
+        self.jobs: queue.Queue = queue.Queue()
+        self.cv = threading.Condition()
+        self.outstanding = 0          # jobs submitted and not finished
+        self.requests: List[dict] = []  # closures for the main thread
+        self.error: Optional[Exception] = None
+        self.bow_lock = threading.Lock()
+        self.bow_event = None
+        self.lock = threading.Lock()  # the published buffers' indices
+        self.bufs: List[Optional[MapState]] = [None, None]
+        self.ready = [None, None]     # main-stream events: buffer written
+        self.done = [None, None]      # worker-stream events: reads queued
+        self.newest: Optional[int] = None
+        self.held: Optional[int] = None
+        self.map: Optional[MapState] = None   # what the running job reads
+        self.thread = threading.Thread(
+            target=_worker_main, args=(weakref.ref(eng), self), daemon=True,
+            name="slam-mapping")
+        self.thread.start()
+        weakref.finalize(eng, self.jobs.put, None)
+
+    def on_thread(self) -> bool:
+        return threading.current_thread() is self.thread
+
+    def submit(self, kind: str, args: tuple) -> None:
+        with self.cv:
+            self.outstanding += 1
+        self.jobs.put((kind, args))
+
+    def publish(self, m: MapState) -> None:
+        """Main thread: copy the live map into the buffer no job holds."""
+        with self.lock:
+            if self.held is not None:
+                j = 1 - self.held
+            else:
+                j = 0 if self.newest is None else 1 - self.newest
+            if self.bufs[j] is None:
+                self.bufs[j] = MapState(*(torch.empty_like(t) for t in m))
+            if self.done[j] is not None:
+                torch.cuda.current_stream(self.device).wait_event(
+                    self.done[j])
+            for dst, src in zip(self.bufs[j], m):
+                dst.copy_(src)
+            if self.cuda:
+                self.ready[j] = torch.cuda.Event()
+                self.ready[j].record(torch.cuda.current_stream(self.device))
+            self.newest = j
+
+    def _acquire(self) -> None:
+        with self.lock:
+            i = self.held = self.newest
+        if self.cuda:
+            self.stream.wait_event(self.ready[i])
+        self.map = self.bufs[i]
+
+    def _release(self) -> None:
+        with self.lock:
+            if self.cuda:
+                self.done[self.held] = torch.cuda.Event()
+                self.done[self.held].record(self.stream)
+            self.held, self.map = None, None
+
+    def reacquire(self) -> None:
+        """Read on from the newest published map (after a closure)."""
+        self._release()
+        self._acquire()
+
+    @contextlib.contextmanager
+    def reading(self):
+        """Worker thread: a job's block, on the worker's stream, reading
+        the newest published map (self.map)."""
+        self._acquire()
+        try:
+            if self.cuda:
+                with torch.cuda.device(self.device), \
+                        torch.cuda.stream(self.stream):
+                    yield
+            else:
+                yield
+        finally:
+            self._release()
+
+    def request_close(self, fn) -> None:
+        """Worker thread: have the main thread run fn at its next chunk
+        boundary, and wait until it has."""
+        req = {"fn": fn, "done": threading.Event(), "ran": False}
+        with self.cv:
+            self.requests.append(req)
+            self.cv.notify_all()
+        req["done"].wait()
+        if not req["ran"]:
+            raise RuntimeError("a closure decided on the mapping worker "
+                               "failed on the main thread")
+
+    def serve(self) -> None:
+        """Main thread, at a chunk boundary: run the closures the worker
+        handed over, after everything the worker's stream has queued."""
+        with self.cv:
+            reqs, self.requests = self.requests, []
+        if reqs and self.cuda:
+            torch.cuda.current_stream(self.device).wait_stream(self.stream)
+        for req in reqs:
+            try:
+                req["fn"]()
+                req["ran"] = True
+            finally:
+                req["done"].set()
+
+    def drain(self) -> None:
+        """Main thread: serve closures until every job has finished, order
+        the main stream after the worker's, and raise the first exception
+        a job raised since the last drain."""
+        while True:
+            with self.cv:
+                while not self.requests and self.outstanding:
+                    self.cv.wait()
+                idle = not self.requests and not self.outstanding
+            if idle:
+                break
+            self.serve()
+        if self.cuda:
+            torch.cuda.current_stream(self.device).wait_stream(self.stream)
+        if self.error is not None:
+            err, self.error = self.error, None
+            raise err
+
+
+def _rows(rows: List[np.ndarray]) -> np.ndarray:
+    return np.concatenate(rows, axis=0) if rows else \
+        np.zeros((0, PACK_WIDTH), np.float32)
+
+
+def _knob(value, env: str, default: str) -> str:
+    return os.environ.get(env, default) if value is None else str(int(value))
+
+
 class ChunkedSlamEngine:
     """Host loop over chunks of stereo frames on one device.
 
     The JAX package's ChunkedSlamEngine interface: process_chunk(images
     (C, 2, H, W)), flush(), run(frames), warmup(), trajectory_refined(),
-    map, loop_events, frame_stats, n_replays. Chunks run synchronously,
-    so process_chunk returns its own chunk's packed rows; flush() ends the
-    loop phases still pending (detections stashed, measurements not yet
-    closed). `cam` (a StereoCamera already on `device`) defaults to the
-    one cfg.camera describes; `vocab` (a loop.vocab.Vocabulary) turns on
-    loop closing and relocalization. Chunks run through make_chunk_fn:
-    with graphs=True (the default) the step on a static carry, replayed
-    as two CUDA graphs on a CUDA device, captured at the first chunk and
-    never again; graphs=False runs make_frame_body eagerly (the same rows
-    bit for bit), for comparisons.
+    map, loop_events, frame_stats, n_replays. `cam` (a StereoCamera
+    already on `device`) defaults to the one cfg.camera describes;
+    `vocab` (a loop.vocab.Vocabulary) turns on loop closing and
+    relocalization. Chunks run through make_chunk_fn: with graphs=True
+    (the default) the step on a static carry, replayed as two CUDA
+    graphs on a CUDA device, captured at the first chunk and never
+    again; graphs=False runs make_frame_body eagerly (the same rows bit
+    for bit), for comparisons.
+
+    The schedule, under the JAX package's two knobs (None reads the
+    environment variable of the same name):
+
+    - queue_depth (SLAM_QUEUE_DEPTH): chunks run but not yet folded.
+      process_chunk returns the rows of the chunks it folds, none while
+      the queue fills; flush() folds the rest and returns their rows.
+      The host mirrors (frame ids, keyframe counts, the loop phases) lag
+      the device by the chunks in flight, as the JAX engine's do.
+    - loop_thread (SLAM_LOOP_THREAD, "1" on): with a vocabulary, the
+      loop phases of each fold run on a mapping thread (_MappingWorker)
+      on a CUDA stream of its own, beside the next chunk's graph
+      replays; a closure it decides lands on the main thread at the next
+      chunk boundary. The JAX engine's worker closes inside its job, so
+      its correction reaches the next chunk dispatched; here the job runs
+      while that chunk is replayed, so a closure can reach the chunk
+      after it: up to chunk_size frames more than JAX's one fold of lag.
+      Which fold a closure lands in depends on timing, as under the JAX
+      engine's thread.
+
+    The defaults differ from the JAX engine's (2 and "1"): 0 and "0", the
+    JAX engine's deterministic schedule, in which each chunk is folded
+    as soon as it ran and the loop phases run inline.
     """
 
     def __init__(self, cfg: Optional[SlamConfig] = None,
                  cam: Optional[StereoCamera] = None, vocab=None,
-                 chunk_size: int = 8, device="cuda", graphs: bool = True):
+                 chunk_size: int = 8, device="cuda", graphs: bool = True,
+                 queue_depth: Optional[int] = None,
+                 loop_thread: Optional[bool] = None):
         self.cfg = cfg or SlamConfig()
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -713,6 +938,11 @@ class ChunkedSlamEngine:
             StereoCamera.from_config(self.cfg.camera, self.device)
         self.vocab = vocab
         self.chunk_size = chunk_size
+        self.queue_depth = int(_knob(queue_depth, "SLAM_QUEUE_DEPTH", "0"))
+        if self.queue_depth < 0:
+            raise ValueError(f"queue_depth {self.queue_depth} < 0")
+        self.loop_thread = vocab is not None and \
+            _knob(loop_thread, "SLAM_LOOP_THREAD", "0") == "1"
         self._chunk = make_chunk_fn(self.cfg, self.cam, graphs)
         self.carry: Optional[ChunkCarry] = None
         self.n_keyframes = 0          # keyframes inserted, culled ones too
@@ -722,8 +952,19 @@ class ChunkedSlamEngine:
         self._traj_anchor: List[tuple] = []
         self.frame_stats: List[dict] = []
         self.n_replays = 0            # closures that re-seeded the head
+        # frames dispatched before each closure landed (the first frame
+        # that tracked against the corrected map)
+        self.closures_landed: List[int] = []
+        self._n_dispatched = 0
+        # chunks run and not folded, oldest first: packed rows and scores
+        # on the device, the chunk's last image for a relocalization
+        self._pending: List[dict] = []
+        # rows folded inside a call that returns none (a flush before a
+        # cull, a relocalization's drain), owed to the next return
+        self._owed_rows: List[np.ndarray] = []
         # the loop machinery (None without a vocabulary)
         self._host: Optional[SlamEngine] = None
+        self._worker: Optional[_MappingWorker] = None
         if vocab is not None:
             self._host = SlamEngine(self.cfg, self.cam, vocab, self.device,
                                     own_map=False)
@@ -734,6 +975,8 @@ class ChunkedSlamEngine:
                                         np.int64)
             self._lost_streak = 0
             self._reloc_block_fid = -1
+            if self.loop_thread:
+                self._worker = _MappingWorker(self)
 
     @property
     def loop_events(self) -> List[dict]:
@@ -818,13 +1061,18 @@ class ChunkedSlamEngine:
         frame of the next chunk may become one) plus 2: the most redundant
         unprotected keyframe at a 0.8 bar, else the most redundant one
         at any score (forced eviction; the newest window_keyframes are
-        never culled). Trajectory rows anchored on a culled slot move to
-        the latest keyframe. JAX scan_engine._ensure_headroom with its
-        host engine's _cull, _cull_any and _refresh_kf_mirrors."""
+        never culled). Every frame in flight counts as a keyframe in the
+        estimate; a cull first flushes (its rows are owed to the caller).
+        Trajectory rows anchored on a culled slot move to the latest
+        keyframe. JAX scan_engine._ensure_headroom with its host engine's
+        _cull, _cull_any and _refresh_kf_mirrors."""
         cap = self.cfg.map.max_keyframes
-        if self._n_kf_valid < cap - n_next - 2:
+        in_flight = sum(p["n"] for p in self._pending)
+        if self._n_kf_valid + in_flight < cap - n_next - 2:
             return
-        self.flush()                  # the JAX engine drains before a cull
+        rows = self.flush()           # the JAX engine drains before a cull
+        if len(rows):
+            self._owed_rows.append(rows)
         protect = self.cfg.local_ba.window_keyframes
         m = self.carry.m
         latest = None
@@ -847,13 +1095,27 @@ class ChunkedSlamEngine:
                 if sl == s:
                     self._traj_anchor[i] = (
                         slot_np, (rel @ kf_T_pre[s]) @ T_new_inv)
-        self.carry = self._with_snapshot(self.carry._replace(m=m), latest)
+        if latest is not None:        # the frames in flight made no room
+            self.carry = self._with_snapshot(self.carry._replace(m=m),
+                                             latest)
+
+    def _fold_down_to(self, depth: int) -> List[np.ndarray]:
+        """Fold the oldest chunks until `depth` are in flight; their rows
+        in frame order, a relocalization's drained chunks included."""
+        rows = []
+        while len(self._pending) > depth:
+            rows.append(self._fold_one())
+            rows += self._owed_rows
+            self._owed_rows = []
+        return rows
 
     @full_float32()
     def process_chunk(self, images) -> np.ndarray:
         """images: (C, 2, H, W) stereo pairs (numpy or tensor, any real
-        dtype). Returns this chunk's (C, 36) packed rows [T(16), T_rel(16),
-        slot, ok, kf, n_inliers] (the bootstrap frame has no row). The
+        dtype). Runs the chunk, then folds every chunk beyond queue_depth
+        and returns their packed rows, (n, 36) [T(16), T_rel(16), slot,
+        ok, kf, n_inliers] in frame order (none while the queue fills;
+        flush() returns the rest; the bootstrap frame has no row). The
         engine's work runs in full float32; the caller's TF32 flags are
         restored on return."""
         t0 = time.perf_counter()
@@ -861,22 +1123,42 @@ class ChunkedSlamEngine:
             images) else images).to(self.device, torch.float32)
         if self.carry is None:
             self._bootstrap(imgs[0, 0], imgs[0, 1], t0)
+            self._n_dispatched = 1
             imgs = imgs[1:]
         if len(imgs) == 0:
             return np.zeros((0, PACK_WIDTH), np.float32)
+        if self._worker is not None:
+            self._worker.serve()      # closures the worker decided land here
         self._ensure_headroom(len(imgs))
+        self._dispatch(imgs, t0)
+        owed, self._owed_rows = self._owed_rows, []
+        return _rows(owed + self._fold_down_to(self.queue_depth))
+
+    def _dispatch(self, imgs: torch.Tensor, t0: float) -> None:
+        """Run one chunk; register and score its keyframes' BoW rows on
+        the device right after it (JAX _loop_dispatch), publish the map
+        for the mapping worker, and queue the chunk for its fold."""
         self.carry, packed = self._chunk(self.carry, imgs)
-        carry = self.carry
+        self._n_dispatched += len(imgs)
         sc = None
         if self._host is not None:
-            # BoW-register and score this chunk's keyframes on the device
-            # rows, before the fold (JAX _loop_dispatch)
             h = self._host
-            h.bow_db, sc = h._bow_register(carry.m, h.bow_db, packed)
-        packed_np = packed.cpu().numpy()               # one readback
-        self._fold(packed_np, t0)
+            with self._bow_guard():
+                h.bow_db, sc = h._bow_register(self.carry.m, h.bow_db, packed)
+        if self._worker is not None:
+            self._worker.publish(self.carry.m)
+        self._pending.append({"packed": packed, "t0": t0, "n": len(imgs),
+                              "sc": sc, "last_img": imgs[-1]})
+
+    def _fold_one(self) -> np.ndarray:
+        """Fold the oldest chunk in flight: its one readback of packed
+        rows, the host rows and mirrors, and with a vocabulary the loop
+        work of the fold (JAX _fold_one)."""
+        p = self._pending.pop(0)
+        packed_np = p["packed"].cpu().numpy()            # one readback
+        self._fold(packed_np, p["t0"])
         if self._host is not None:
-            self._loop_fold(packed_np, sc, imgs[-1])
+            self._loop_fold(packed_np, p)
         return packed_np
 
     def _fold(self, packed_np: np.ndarray, t0: float) -> None:
@@ -896,17 +1178,60 @@ class ChunkedSlamEngine:
 
     @full_float32()
     def flush(self) -> np.ndarray:
-        """No chunk is in flight between calls. With a vocabulary, the
-        stashed detections are consumed now and the measurements they
-        start closed (the JAX engine's flush); returns no rows."""
+        """Fold every chunk in flight and return their rows (and any owed).
+        With a vocabulary, wait for the mapping worker (raising the first
+        exception a job raised), then consume the stashed detections and
+        close the measurements they start (the JAX engine's flush)."""
+        owed, self._owed_rows = self._owed_rows, []
+        rows = _rows(owed + self._fold_down_to(0))
         if self._host is not None and self.carry is not None:
+            if self._worker is not None:
+                self._worker.drain()
             self._host.map = self.carry.m
             if self._loop_stash:
                 self._loop_phase2(force=True)
             self._finish_pending_closures()
-        return np.zeros((0, PACK_WIDTH), np.float32)
+        return rows
 
     # ---- loop closing and relocalization between chunks ---------------
+    @contextlib.contextmanager
+    def _bow_guard(self):
+        """A read-and-replace of the BoW database: with the mapping worker,
+        under its lock, the current stream ordered after the last one that
+        wrote the database, and the database's tensors marked as used by
+        it (the caching allocator then keeps them until its reads end)."""
+        w = self._worker
+        if w is None:
+            yield
+            return
+        with w.bow_lock:
+            if w.cuda:
+                cur = torch.cuda.current_stream(self.device)
+                if w.bow_event is not None:
+                    cur.wait_event(w.bow_event)
+                db = self._host.bow_db
+                for t in (db if isinstance(db, tuple) else (db,)):
+                    t.record_stream(cur)
+            yield
+            if w.cuda:
+                w.bow_event = torch.cuda.Event()
+                w.bow_event.record(cur)
+
+    def _read_map(self) -> MapState:
+        """The map the loop phases read: on the mapping worker the
+        published copy its job holds, else the live one."""
+        w = self._worker
+        return w.map if w is not None and w.on_thread() else self.carry.m
+
+    def _run_job(self, kind: str, args: tuple) -> None:
+        """A mapping-worker job (JAX _loop_worker_main): phase 2 of a fold,
+        or phase 1 of a folded chunk, on the worker's stream."""
+        with full_float32(), self._worker.reading():
+            if kind == "p1":
+                self._loop_phase1(*args)
+            else:
+                self._loop_phase2()
+
     def _rebuild_carry(self, **changes) -> None:
         """The carry as the JAX engine rebuilds it after the host moved
         the head or the map (relocalization, closure): inlier_peak reset,
@@ -919,16 +1244,19 @@ class ChunkedSlamEngine:
                 c.kf_img, self.cam.left, c.lm_Xw, c.lm_valid, 1.0))
         self.carry = c
 
-    def _loop_fold(self, packed_np: np.ndarray, sc, last_img) -> None:
+    def _loop_fold(self, packed_np: np.ndarray, p: dict) -> None:
         """The fold's loop work (JAX _fold_one with a vocabulary): host
         mirrors, relocalization on a lost streak, then phase 2 (the
-        detections two folds old) and phase 1 (this chunk's)."""
+        detections two folds old) and phase 1 (this chunk's), inline or
+        as jobs for the mapping worker."""
         h = self._host
         h.map = self.carry.m
         h.frame_id = len(self.trajectory)
         h.n_keyframes = self.n_keyframes
         h._n_kf_valid_host = self._n_kf_valid
         h._latest_slot_host = int(packed_np[-1, 32])
+        # this chunk's first frame, taken before a relocalization below
+        # folds the chunks behind it and advances the mirrors
         base_fid = h.frame_id - len(packed_np)
         for i in np.flatnonzero(packed_np[:, 34] > 0.5):
             self._kf_fid_host[int(packed_np[i, 32])] = base_fid + i
@@ -941,24 +1269,46 @@ class ChunkedSlamEngine:
         self._lost_streak = streak
         if fire and h.frame_id >= self._reloc_block_fid \
                 and h.n_keyframes >= 2:
-            self._try_chunked_reloc(last_img)
-        self._loop_phase2()
-        if sc is not None:
-            self._loop_phase1(sc, packed_np, base_fid)
+            # the newest image run: the recovered pose re-seeds the head,
+            # which is the chunks in flight ahead of this fold
+            head = self._pending[-1] if self._pending else p
+            self._try_chunked_reloc(head["last_img"])
+        if self._worker is not None:
+            self._submit("p2", ())
+            self._submit("p1", (p["sc"], packed_np, base_fid))
+        else:
+            self._loop_phase2()
+            self._loop_phase1(p["sc"], packed_np, base_fid)
+
+    def _submit(self, kind: str, args: tuple) -> None:
+        """Queue a job for the mapping worker. The CUDA graphs are
+        captured in the first chunk, before any job: a capture (global
+        mode) fails if another thread touches the card meanwhile."""
+        if self.device.type == "cuda" and isinstance(
+                self._chunk, _StaticChunk) and self._chunk.graphs is None:
+            raise RuntimeError("a mapping job before the chunk's CUDA "
+                               "graphs were captured")
+        self._worker.submit(kind, args)
 
     def _try_chunked_reloc(self, last_img) -> None:
-        """BoW relocalization of the chunk's last left image; on success
-        the next chunk starts from the recovered pose at zero velocity,
-        and re-attempts wait until a chunk has run from it."""
+        """BoW relocalization of `last_img` (the newest image run); on
+        success the next chunk starts from the recovered pose at zero
+        velocity, re-attempts wait until a chunk has run from it, and the
+        chunks in flight (tracked from the lost pose) are folded now,
+        their rows owed to the caller."""
         h = self._host
         frame = h._build(last_img[0])
-        reloc_T = h._try_relocalize(frame)
+        with self._bow_guard():
+            reloc_T = h._try_relocalize(frame)
         if reloc_T is None:
             return
         self._rebuild_carry(T_cw=reloc_T, velocity=torch.eye(
             4, dtype=torch.float32, device=self.device))
         self._lost_streak = 0
-        self._reloc_block_fid = h.frame_id + self.chunk_size
+        self._reloc_block_fid = h.frame_id + sum(
+            q["n"] for q in self._pending) + self.chunk_size
+        while self._pending:
+            self._owed_rows.append(self._fold_one())
 
     def _loop_phase1(self, sc, packed_np: np.ndarray, base_fid: int) -> None:
         """Read this chunk's scores, register and score its keyframe rows
@@ -969,6 +1319,7 @@ class ChunkedSlamEngine:
         kf_rows = np.flatnonzero(packed_np[:, 34] > 0.5)
         if len(kf_rows) == 0:
             return
+        m = self._read_map()
         n_cap = min(len(kf_rows), BOW_ROWS)
         cand_np = sc.candidates[:n_cap].cpu().numpy()
         scores_np = sc.scores[:n_cap].cpu().numpy()
@@ -980,9 +1331,10 @@ class ChunkedSlamEngine:
                 pad = np.zeros(BOW_ROWS, np.int64)
                 pad[:len(batch)] = batch
                 vmask = np.arange(BOW_ROWS) < len(batch)
-                h.bow_db, sc2 = h._bow_register_only(
-                    h.map, h.bow_db, torch.from_numpy(pad).to(self.device),
-                    torch.from_numpy(vmask).to(self.device))
+                with self._bow_guard():
+                    h.bow_db, sc2 = h._bow_register_only(
+                        m, h.bow_db, torch.from_numpy(pad).to(self.device),
+                        torch.from_numpy(vmask).to(self.device))
                 ex_c.append(sc2.candidates[:len(batch)].cpu().numpy())
                 ex_s.append(sc2.scores[:len(batch)].cpu().numpy())
             cand_np = np.concatenate(ex_c, axis=0)
@@ -993,7 +1345,7 @@ class ChunkedSlamEngine:
             cand_all = np.unique(np.concatenate(
                 [np.flatnonzero(cand_np[i]) for i in range(len(kf_rows))]))
             if len(cand_all):
-                covis_rows = h._covis(h.map, cand_all).cpu().numpy()
+                covis_rows = h._covis(m, cand_all).cpu().numpy()
             hot = any(n >= h.consistency.threshold - 1
                       for _, n in h.consistency.groups)
             for i, s in enumerate(slots) if hot else ():
@@ -1001,12 +1353,23 @@ class ChunkedSlamEngine:
                 if not mask.any():
                     continue
                 top = int(np.argmax(np.where(mask, scores_np[i], -1.0)))
-                spec[int(s)] = (top, h._relpose(h.map, int(s), top))
+                spec[int(s)] = (top, self._measure(m, int(s), top))
         self._loop_stash.append({
             "kf_rows": kf_rows, "slots": slots, "cand_np": cand_np,
             "scores_np": scores_np, "covis_rows": covis_rows,
             "cand_all": cand_all, "spec": spec, "base_fid": base_fid,
             "age": 0})
+
+    def _measure(self, m: MapState, cur: int, cand: int):
+        """The closer's relative pose of keyframe cur against cand on `m`
+        (the top-2 kernel), and an event that its packed row is done, on
+        the stream it ran on (None on the CPU, where it always is)."""
+        rel, pk = self._host._relpose(m, cur, cand)
+        ev = None
+        if pk.is_cuda:
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(self.device))
+        return rel, pk, ev
 
     def _loop_phase2(self, force: bool = False) -> None:
         """Close the measurements pending from the last fold, age the
@@ -1021,6 +1384,7 @@ class ChunkedSlamEngine:
             st["age"] += 1
         while self._loop_stash and (force or self._loop_stash[0]["age"] >= 2):
             st = self._loop_stash.pop(0)
+            m = self._read_map()
             covis_of = None
             if st["covis_rows"] is not None:
                 covis_of = {int(s): st["covis_rows"][i]
@@ -1028,27 +1392,29 @@ class ChunkedSlamEngine:
             for i, (r, s) in enumerate(zip(st["kf_rows"], st["slots"])):
                 fid = st["base_fid"] + int(r)
                 cands = h._detect_accept(int(s), st["cand_np"][i],
-                                         st["scores_np"][i], covis_of, fid)
+                                         st["scores_np"][i], covis_of, fid,
+                                         m)
                 if not cands:
                     continue
                 spec = st["spec"].get(int(s))
                 hit = spec is not None and spec[0] == cands[0]
                 rels = [spec] if hit else []
                 for cand in cands[1 if hit else 0:4]:
-                    rels.append((int(cand), h._relpose(h.map, int(s),
-                                                       int(cand))))
+                    rels.append((int(cand), self._measure(m, int(s),
+                                                          int(cand))))
                 self._closure_pend.append({"slot": int(s), "fid": fid,
                                            "rels": rels, "ready": hit})
         self._finish_pending_closures(ready_only=True)
 
     def _finish_pending_closures(self, ready_only: bool = False) -> None:
         """Close the pending measurements (with ready_only, only those a
-        fold old; speculative hits are born a fold old): past the
-        cooldown, the first candidate that measured ok and is no
-        duplicate closes; the map is corrected, the landmark snapshot
-        rebuilt from it and the head re-seeded through the latest
-        keyframe; stashed covisibility rows are re-read on the corrected
-        map."""
+        fold old whose results have landed, or 4 folds old; speculative
+        hits are born a fold old): past the cooldown, the first candidate
+        that measured ok and is no duplicate closes (_land_closure); the
+        stashed covisibility rows are then re-read on the corrected map.
+        A result "has landed" when the event recorded after its packed
+        row has completed (the JAX engine's is_ready); on the CPU it
+        always has, so there the ages alone decide."""
         h = self._host
         remaining = []
         while self._closure_pend:
@@ -1056,36 +1422,75 @@ class ChunkedSlamEngine:
             if ready_only:
                 age = pc.get("age", 1 if pc["ready"] else 0)
                 pc["age"] = age + 1
-                if age < 1:
+                landed = age >= 4 or (age >= 1 and all(
+                    ev is None or ev.query() for _, (_, _, ev) in pc["rels"]))
+                if not landed:
                     remaining.append(pc)
                     continue
             if h.n_keyframes - h._last_closure_nkf \
                     < self.cfg.loop.closure_cooldown_kfs:
                 continue
-            for cand, (rel, pk) in pc["rels"]:
+            for cand, (rel, pk, _) in pc["rels"]:
                 vals = pk.cpu().numpy()
                 if not vals[17] > 0.5:
                     continue
                 fid_cand = int(self._kf_fid_host[cand])
                 if h._closure_is_dup(pc["fid"], fid_cand, int(vals[16])):
                     continue
-                latest_T_old = self.carry.latest_T
-                h._dispatch_close(pc["slot"], cand, rel, pc["fid"],
-                                  fid_cand, vals)
-                lm, latest_T, counts = h._snapshot(h.map)
-                self._rebuild_carry(
-                    m=h.map, lm_Xw=lm[0], lm_desc=lm[1], lm_ids=lm[2],
-                    lm_valid=lm[3], latest_slot=counts[0], latest_T=latest_T,
-                    T_cw=se3.compose(se3.compose(self.carry.T_cw,
-                                                 se3.inv(latest_T_old)),
-                                     latest_T))
-                self.n_replays += 1
+                self._land_closure(pc["slot"], cand, rel, pc["fid"],
+                                   fid_cand, vals)
+                m = self._read_map()
                 for later in self._loop_stash:
                     ca = later["cand_all"]
                     later["covis_rows"] = None if ca is None or not len(ca) \
-                        else h._covis(h.map, ca).cpu().numpy()
+                        else h._covis(m, ca).cpu().numpy()
                 break
         self._closure_pend = remaining
+
+    def _land_closure(self, slot: int, cand: int, rel, fid: int,
+                      fid_cand: int, vals: np.ndarray) -> None:
+        """Close on the live carry: here on the main thread, or from the
+        mapping worker through the main thread at its next chunk
+        boundary (the job then reads on from the corrected map)."""
+        w = self._worker
+        if w is None or not w.on_thread():
+            self._apply_close(slot, cand, rel, fid, fid_cand, vals)
+            return
+        w.request_close(lambda: self._apply_close(slot, cand, rel, fid,
+                                                  fid_cand, vals))
+        w.reacquire()
+
+    def _apply_close(self, slot: int, cand: int, rel, fid: int,
+                     fid_cand: int, vals: np.ndarray) -> None:
+        """Main thread, between chunks: the close (pose graph, merge, seam
+        BA) on the live map, the landmark snapshot rebuilt from it and the
+        head re-seeded through the latest keyframe. The pose-graph tier
+        covers the live keyframes, those of chunks in flight included
+        (one readback at this rare event; the JAX engine pads the folded
+        count by the queue instead, its _tier_margin). The snapshot's
+        latest slot goes to the carry on the device, so no host mirror of
+        it is consumed later (JAX's _pending_counts handshake)."""
+        h = self._host
+        w = self._worker
+        if w is not None and w.cuda:
+            main = torch.cuda.current_stream(self.device)
+            for t in rel:
+                if torch.is_tensor(t):
+                    t.record_stream(main)
+        h.map = self.carry.m
+        h._n_kf_valid_host = int(h.map.kf_valid.sum())
+        latest_T_old = self.carry.latest_T
+        h._dispatch_close(slot, cand, rel, fid, fid_cand, vals)
+        lm, latest_T, counts = h._snapshot(h.map)
+        self._rebuild_carry(
+            m=h.map, lm_Xw=lm[0], lm_desc=lm[1], lm_ids=lm[2],
+            lm_valid=lm[3], latest_slot=counts[0], latest_T=latest_T,
+            T_cw=se3.compose(se3.compose(self.carry.T_cw,
+                                         se3.inv(latest_T_old)), latest_T))
+        self.n_replays += 1
+        self.closures_landed.append(self._n_dispatched)
+        if w is not None:
+            w.publish(self.carry.m)
 
     def run(self, frames) -> None:
         """Convenience: iterate (left, right) pairs in chunks."""
@@ -1101,6 +1506,8 @@ class ChunkedSlamEngine:
 
     @property
     def map(self) -> MapState:
+        """The map after a flush (the JAX engine's)."""
+        self.flush()
         return self.carry.m
 
     def trajectory_refined(self) -> List[np.ndarray]:

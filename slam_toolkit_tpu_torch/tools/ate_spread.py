@@ -25,7 +25,8 @@ between both visits' camera centres of the re-driven poses), closures
 (frame, candidate frame, inliers, loop-edge error against the ground
 truth) and keyframes, each frame's tracking inliers and the keyframes'
 frame numbers (where two runs of one draw part), and the medians of ATE
-and seam over the noisy draws.
+and seam over the noisy draws. The engine's schedule comes from
+SLAM_QUEUE_DEPTH and SLAM_LOOP_THREAD, named in the output.
 """
 
 from __future__ import annotations
@@ -131,6 +132,7 @@ def loop_spread(cfg, n_frames: int = 320, chunk: int = 16,
         sys.stderr.write(f"[ate_spread] {runs[-1]}\n")
     noisy = [r for r in runs if r["draw"]] or runs
     return {"track": "clothoid", "frames": n_frames, "eps": eps,
+            "queue_depth": eng.queue_depth, "loop_thread": eng.loop_thread,
             "ate_median_m": float(np.median([r["ate_m"] for r in noisy])),
             "seam_median_m": float(np.median([r["seam_m"] for r in noisy])),
             "ate_min_m": min(r["ate_m"] for r in noisy),

@@ -56,7 +56,10 @@ and each closure's loop-edge error against it. Switches:
 BENCH_LOOP_TRACK=fig8 (a figure-eight: two seams and a final pass),
 BENCH_LOOP_VOCAB=0 (the same frames with loop closing off),
 BENCH_LOOP_GROUP=sim3 (the 7-DoF pose graph) and
-BENCH_LOOP_OVER="key=val,..." (LoopConfig overrides).
+BENCH_LOOP_OVER="key=val,..." (LoopConfig overrides). The engine's
+schedule comes from SLAM_QUEUE_DEPTH and SLAM_LOOP_THREAD (default 0 and
+0, inline; the JAX package's bench runs 2 and 1, two chunks in flight
+and the loop phases on the mapping thread); the record names both.
 
 BENCH_CLUSTER=1 runs bench.py's main_cluster() instead: the dense
 motion-clustering workload (cluster/tracker.FusedDenseTracker, queue
@@ -364,7 +367,8 @@ def run_loop(cfg, vocab, stacked, gt, chunk: int = 16, device="cuda",
     out = {"fps": fps, "ate_m": ate, "seam_m": seam,
            "seam_profile_m": profile, "revisit_drift_m": float(drift[-1]),
            "n_keyframes": eng.n_keyframes, "n_culls": eng.n_culls,
-           "replays": eng.n_replays}
+           "replays": eng.n_replays, "queue_depth": eng.queue_depth,
+           "loop_thread": eng.loop_thread}
     if track == "fig8":
         out["seam_lap2_m"] = float(np.mean(np.linalg.norm(
             centers[lobe:2 * lobe:4] - centers[:lobe:4], axis=1)))
@@ -417,6 +421,7 @@ def loop_record(cfg, n_frames: int = 320, chunk: int = 16, device="cuda",
         "closures": r["closures"], "replays": r["replays"],
         "blocked_chunk_ms": round(r["blocked_chunk_ms"], 1), "chunk": chunk,
         "loop_closing": use_vocab, "graphs": graphs,
+        "queue_depth": r["queue_depth"], "loop_thread": r["loop_thread"],
         "backend": f"torch-{device.type}",
         "card": card, "power_limit": power,
         "kernel_build_s": None if build_s is None else round(build_s, 2),

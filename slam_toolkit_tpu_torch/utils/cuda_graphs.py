@@ -22,29 +22,12 @@ A failed capture or replay raises; nothing falls back to eager launches.
 
 from __future__ import annotations
 
-import contextlib
 import time
 from typing import Callable, Dict, Optional
 
 import torch
 
 from slam_toolkit_tpu_torch.utils import cuda_lib
-
-
-@contextlib.contextmanager
-def counts_apart():
-    """Launches counted inside the block are taken back on exit; the
-    yielded dict receives {LaunchCount: launches} of the block."""
-    before = {c: c.launches for c in cuda_lib.launch_counts()}
-    delta: Dict[cuda_lib.LaunchCount, int] = {}
-    try:
-        yield delta
-    finally:
-        for c in cuda_lib.launch_counts():
-            d = c.launches - before.get(c, 0)
-            if d:
-                delta[c] = d
-                c.launches -= d
 
 
 class StepGraphs:
@@ -67,7 +50,7 @@ class StepGraphs:
         main = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(main)
-        with counts_apart() as delta:
+        with cuda_lib.counts_apart() as delta:
             with torch.cuda.stream(side):
                 fn(*args)
             main.wait_stream(side)
@@ -84,7 +67,7 @@ class StepGraphs:
             raise RuntimeError(f"graph {name!r} is captured already")
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
-        with counts_apart() as delta:
+        with cuda_lib.counts_apart() as delta:
             with torch.cuda.graph(graph, pool=self.pool):
                 out = fn(*args)
         if self.pool is None:
@@ -98,7 +81,7 @@ class StepGraphs:
         graph, delta = self._graphs[name]
         graph.replay()
         for c, n in delta.items():
-            c.launches += n
+            c.add(n)
 
     def pool_bytes(self) -> Optional[int]:
         """Bytes the caching allocator holds in the graphs' shared pool, or

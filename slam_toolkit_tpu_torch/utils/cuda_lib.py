@@ -14,16 +14,24 @@ launch. Nothing here falls back to another implementation. Every launch
 count (:class:`LaunchCount`: each kernel's own, and any a caller keeps
 beside them) is listed in :func:`launch_counts`, so that a CUDA graph
 (utils/cuda_graphs) can add on each replay what its capture recorded.
+
+The chunked engine's mapping worker launches kernels on a thread of its
+own while the main thread replays graphs, so counts are added under a
+lock (:meth:`LaunchCount.add`), and :func:`counting` and
+:func:`counts_apart` see only the launches of the thread that opened
+them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 import weakref
 from pathlib import Path
@@ -122,6 +130,8 @@ def library() -> Library:
 
 
 _COUNTS: "weakref.WeakSet[LaunchCount]" = weakref.WeakSet()
+_COUNT_LOCK = threading.Lock()
+_COUNTING = threading.local()      # .blocks: the thread's open counting()s
 
 
 class LaunchCount:
@@ -131,6 +141,52 @@ class LaunchCount:
     def __init__(self):
         self.launches = 0
         _COUNTS.add(self)
+
+    def add(self, n: int = 1) -> None:
+        """Count n launches made by this thread: under a lock (an
+        increment from another thread is never lost), and into the
+        thread's innermost open counting() or counts_apart() block."""
+        with _COUNT_LOCK:
+            self.launches += n
+        blocks = getattr(_COUNTING, "blocks", None)
+        if blocks:
+            blocks[-1][self] = blocks[-1].get(self, 0) + n
+
+
+@contextlib.contextmanager
+def _block(merge: bool):
+    blocks = _COUNTING.__dict__.setdefault("blocks", [])
+    delta: dict = {}
+    blocks.append(delta)
+    try:
+        yield delta
+    finally:
+        blocks.pop()
+        if merge and blocks:
+            for c, n in delta.items():
+                blocks[-1][c] = blocks[-1].get(c, 0) + n
+
+
+def counting():
+    """A block whose yielded dict receives {LaunchCount: launches} made by
+    this thread inside it (those of nested blocks too). Launches another
+    thread makes meanwhile are not in it."""
+    return _block(merge=True)
+
+
+@contextlib.contextmanager
+def counts_apart():
+    """Launches this thread counts inside the block are taken back on
+    exit (an enclosing counting() block does not see them); the yielded
+    dict receives {LaunchCount: launches} of the block. Another thread's
+    launches meanwhile (the mapping worker's) stay counted."""
+    with _block(merge=False) as delta:
+        try:
+            yield delta
+        finally:
+            for c, n in delta.items():
+                with _COUNT_LOCK:
+                    c.launches -= n
 
 
 def launch_counts() -> list:
@@ -168,7 +224,7 @@ class CudaKernel(LaunchCount):
         if err != 0:
             msg = lib.slam_cuda_error_string(err).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {err} ({msg})")
-        self.launches += 1
+        self.add()
 
 
 def check_cuda(t: torch.Tensor, name: str, dtype: torch.dtype,

@@ -132,6 +132,8 @@ def test_loop_spread_draw0_is_the_loop_bench(tmp_path):
     assert np.isfinite(out["runs"][1]["seam_m"])
     assert out["ate_median_m"] == out["runs"][1]["ate_m"]
     assert out["seam_median_m"] == out["runs"][1]["seam_m"]
+    assert (out["queue_depth"], out["loop_thread"]) == \
+        (ref["queue_depth"], ref["loop_thread"]) == (0, False)
 
 
 @pytest.mark.parametrize("var", ["BENCH_DP", "BENCH_CLUSTER"])
@@ -240,7 +242,7 @@ LOOP_KEYS = {"metric", "value", "unit", "ate_m", "seam_m", "closures",
              "backend", "card", "power_limit", "kernel_build_s",
              "n_keyframes", "tf32", "seam_profile_m", "revisit_drift_m",
              "relocalizations", "closure_events", "pose_graph_tiers",
-             "graphs"}
+             "graphs", "queue_depth", "loop_thread"}
 
 
 @pytest.mark.parametrize("track", ["clothoid", "fig8"])
@@ -262,6 +264,9 @@ def test_loop_bench_record_on_cpu(tmp_path, track):
     assert out["value"] > 0 and np.isfinite(out["ate_m"])
     assert np.isfinite(out["seam_m"]) and out["loop_closing"] is True
     assert out["closures"] == len(out["closure_events"])
+    # the engine's schedule: the port's defaults, the JAX engine's
+    # deterministic one
+    assert (out["queue_depth"], out["loop_thread"]) == (0, False)
     assert sorted(p.suffix for p in tmp_path.iterdir()) == \
         [".npy", ".npy", ".txt"]
     stem = f"slam_torch_loop_{track}_seed7_48f_chunk8_"

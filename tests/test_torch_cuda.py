@@ -839,6 +839,49 @@ def test_graphed_chunks_match_eager(dev, method):
     assert g_eng._chunk.graph_stats()["captures"] == 2
 
 
+@pytest.mark.parametrize("thread", [False, True])
+def test_graphed_pipelined_engine_cuda(dev, thread):
+    """The pipelined schedule on the card, graphed, tiny config, 17
+    frames in chunks of 4 past a small keyframe ring: without a
+    vocabulary, the rows returned at queue depth 2 (none from the first
+    call; the ring's headroom flushes the queue before a cull),
+    concatenated with the flush's, equal depth 0's bit for bit; with one, at depth 2 with the loop phases inline or on the
+    mapping worker's stream, the graphs are captured once, in the first
+    chunk (before any job), the culls fall as depth 0's, every pose is
+    finite and the worker ends with no error and no work left."""
+    import dataclasses
+
+    from slam_toolkit_tpu_torch.config import SlamConfig
+    from slam_toolkit_tpu_torch.loop import vocab as V
+    from slam_toolkit_tpu_torch.pipeline.scan_engine import ChunkedSlamEngine
+    cfg = SlamConfig.tiny()
+    cfg = dataclasses.replace(
+        cfg, map=dataclasses.replace(cfg.map, max_keyframes=11),
+        keyframe=dataclasses.replace(cfg.keyframe, decay_ratio=0.95))
+    imgs = _tiny_images(17)
+
+    def run(**kw):
+        eng = ChunkedSlamEngine(cfg, chunk_size=4, device=dev, **kw)
+        got = [eng.process_chunk(imgs[a:a + 4 + (a == 0)])
+               for a in (0, 5, 9, 13)] + [eng.flush()]
+        torch.cuda.synchronize()
+        return eng, got
+    e0, g0 = run(queue_depth=0)
+    e2, g2 = run(queue_depth=2, loop_thread=thread)
+    assert len(g2[0]) == 0
+    np.testing.assert_array_equal(np.concatenate(g2), np.concatenate(g0))
+    ev, _ = run(vocab=V.synthesize(4, 3, seed=0), queue_depth=2,
+                loop_thread=thread)
+    assert ev.loop_thread == thread
+    assert ev._chunk.graph_stats()["captures"] == 2
+    assert ev.n_culls == e0.n_culls >= 1
+    assert all(np.isfinite(T).all() for T in ev.trajectory_refined())
+    if thread:
+        w = ev._worker
+        assert w.error is None and w.outstanding == 0 and not w.requests
+    assert ev._closure_pend == [] and ev._loop_stash == []
+
+
 def _anchored(carry, lefts, cam, cfg):
     """batched_bootstrap's carry with the photometric anchor added as
     ChunkedSlamEngine builds its own (frame 0's left image, (a, b) = (0,
@@ -870,8 +913,8 @@ def _batched_gather_by_shape(monkeypatch) -> dict:
     def counted(images, ys, xs, counts, bh, bw):
         n0 = patches.BATCHED_KERNEL.launches
         out = orig(images, ys, xs, counts, bh, bw)
-        by_shape.setdefault((bh, bw), LaunchCount()).launches += \
-            patches.BATCHED_KERNEL.launches - n0
+        by_shape.setdefault((bh, bw), LaunchCount()).add(
+            patches.BATCHED_KERNEL.launches - n0)
         return out
     monkeypatch.setattr(patches, "gather_blocks_batched_cuda", counted)
     return by_shape
