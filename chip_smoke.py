@@ -124,11 +124,13 @@ Phases (any failure raises and the script exits non-zero):
    against the plain run's as in phase 2, and the cost below the
    input's; how far the points moved is printed.
 11. The per-frame engine, checkpoint/resume and the KITTI runner at
-   SlamConfig(): (a) SlamEngine(device="cuda").process over phase 3's 48
-   frames, counts reset just before and read just after: kernels 1-5
-   launched (local BA once per keyframe from the third), every pose
-   finite, ATE <= 0.138 m; frames/s (the process calls alone), keyframes,
-   mappoints and ATE printed beside phase 3's, and the chunked engine's
+   SlamConfig(), graphed (process's _build and _track captured as two
+   CUDA graphs at the first tracking frame, the default; phase 18): (a)
+   SlamEngine(device="cuda").process over phase 3's 48 frames, counts
+   reset just before and read just after: kernels 1-5 launched (local
+   BA once per keyframe from the third), every pose finite, ATE <= 0.138
+   m; frames/s (the process calls alone), keyframes, mappoints and ATE
+   printed beside phase 3's, and the chunked engine's
    frames/s on the same frames run again right after. (b) A checkpoint saved
    after frame 24 (pipeline/checkpoint) and loaded into a fresh engine
    on the card, which processes frames 24-47: its poses, as processed
@@ -143,7 +145,8 @@ Phases (any failure raises and the script exits non-zero):
 12. The dense motion-clustering workload (cluster/) at 1241x376 with
    DenseConfig(max_points=18688), on make_cluster_scene's 60 frames:
    (a) the bench's run, tools/bench.cluster_record (BENCH_CLUSTER=1):
-   FusedDenseTracker(device="cuda") over the frames staged on the card
+   FusedDenseTracker(device="cuda") over the frames staged on the card,
+   graphed (its fused step one CUDA graph, the default; phase 17)
    (kernel counts reset just before and read just after: the workload
    reaches none of the six kernels, so all stay 0; printed as
    `launches_cluster`), frames/s after 5 warm-up frames, and its gates,
@@ -268,6 +271,28 @@ Phases (any failure raises and the script exits non-zero):
    run's chunks 2-3; its rate against its rate alone is the share of
    the lock the main thread leaves free, and those chunks' walls are
    printed beside depth 0's without it.
+17. The cluster tracker's fused step as one CUDA graph: the first 16 of
+   phase 12's frames at 1241x376 staged on the card, through
+   FusedDenseTracker(graphs=False), then (graphs=True), counts set to 0
+   just before each run and read just after (no kernel may launch).
+   Every row (labels, skip flag, counts, sizes, ground flags, the
+   accepted motions and their poses) must be bit-equal between the
+   runs, and the graphed run must capture one graph. Printed per run:
+   frames/s over frames 3-10, host syncs a frame over 11-12 (CUDA's sync
+   debug mode) beside the tracker's waits for its packed row (an event
+   wait the debug mode does not see), kernels a frame and the card's
+   busy share on frame 13 (torch.profiler), and the graph's capture
+   seconds and pool. Phase 12 (a)'s record is the graphed 60-frame run.
+18. SlamEngine.process's tracking programs as CUDA graphs: phase 3's 48
+   frames through SlamEngine(graphs=False) and (graphs=True) in the order
+   eager, graphed, graphed, eager, counts set to 0 just before each run
+   and read just after. Every pose (as processed and refined), keyframe
+   flag, inlier count and map field must be bit-equal across the runs,
+   the launches counted from the replays equal to the eager counts, two
+   graphs captured for a graphed engine's life, ATE <= 0.138 m. Printed
+   per run: frames/s over frames 1-31, ATE, host syncs a frame over
+   32-39, kernels a frame and busy share on frame 47, the graphs' capture
+   seconds and pool.
 
 It imports nothing of JAX.
 """
@@ -1377,9 +1402,10 @@ CLUSTER_FRAMES = 60        # make_cluster_scene's frames (bench.py's 60)
 CLUSTER_CLI_FRAMES = 8     # the PNG frames run_cluster reads
 
 
-def phase12(kernels: dict, label: str) -> dict:
+def phase12(kernels: dict, label: str):
     """The dense motion-clustering workload at 1241x376 (see the module
-    docstring); returns each kernel's launches over (a), all 0."""
+    docstring); returns each kernel's launches over (a), all 0, and (a)'s
+    record."""
     from slam_toolkit_tpu_torch import run_cluster
     from slam_toolkit_tpu_torch.cluster import tracker as trk
     from slam_toolkit_tpu_torch.data.synthetic import make_cluster_scene
@@ -1462,7 +1488,7 @@ def phase12(kernels: dict, label: str) -> dict:
                              f"{n} frames processed, {len(masks)} masks")
     print(f"[phase12] {label} phase seconds "
           f"{time.perf_counter() - t_phase:.1f}")
-    return launches
+    return launches, rec
 
 
 # ---------------------------------------------------------------- phase 13
@@ -2849,6 +2875,199 @@ def phase16(cfg, frames48, loop: dict, kernels: dict, label: str) -> dict:
             "closures": len(closures), "overlap": ov["share"]}
 
 
+# ---------------------------------------------------------------- phase 17
+# phase 17's first frames of make_cluster_scene: 3 warm-up frames (the
+# capture in them), 8 timed, 2 with the host syncs counted, 1 under
+# torch.profiler (the eager step's events take ~10 s to collect), the
+# rest folded
+CL_FRAMES, CL_WARM, CL_TIMED, CL_SYNCS, CL_PROF = 16, 3, 11, 13, 14
+
+
+def cluster_run(scene, cfg, staged, graphs: bool, kernels: dict) -> dict:
+    """FusedDenseTracker over the staged frames, graphed or eager: every
+    row, frames/s over frames CL_WARM..CL_TIMED, host syncs (CUDA's sync
+    debug mode) and the tracker's row waits a frame, kernels a frame and
+    the card's busy share, the kernels' launches and the graph's stats."""
+    from slam_toolkit_tpu_torch.cluster.tracker import FusedDenseTracker
+    from slam_toolkit_tpu_torch.utils.timing import (count_syncs,
+                                                     device_activity)
+    for k in kernels.values():
+        k.launches = 0
+    tr = FusedDenseTracker(scene.cam, cfg, queue_depth=2, device="cuda",
+                           graphs=graphs)
+    outs = []
+
+    def run(pairs):
+        for gl, gr in pairs:
+            o = tr.process(gl, gr)
+            if o is not None:
+                outs.append(o)
+    run(staged[:CL_WARM])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(staged[CL_WARM:CL_TIMED])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    waits = tr.waits
+    _, syncs = count_syncs(run, staged[CL_TIMED:CL_SYNCS])
+    n_sync = CL_SYNCS - CL_TIMED
+    waits = (tr.waits - waits) / n_sync
+    _, act = device_activity(run, staged[CL_SYNCS:CL_PROF])
+    run(staged[CL_PROF:])
+    outs += tr.flush()
+    return {"outs": outs, "fps": (CL_TIMED - CL_WARM) / secs,
+            "syncs": syncs / n_sync, "waits": waits,
+            "kernels": act["kernels"] / (CL_PROF - CL_SYNCS)
+            if act["kernels"] else None, "busy": act["busy"],
+            "launches": {n: k.launches for n, k in kernels.items()},
+            "stats": tr.graph_stats()}
+
+
+def phase17(kernels: dict, label: str, cluster_rec: dict) -> None:
+    """The cluster tracker's fused step as one CUDA graph against the
+    eager step at phase 12's size, on the scene's first CL_FRAMES frames,
+    eager then graphed: every row bit-equal."""
+    from slam_toolkit_tpu_torch.cluster import tracker as trk
+    from slam_toolkit_tpu_torch.data.synthetic import make_cluster_scene
+    from slam_toolkit_tpu_torch.tools import bench
+    t_phase = time.perf_counter()
+    scene = make_cluster_scene(n_frames=CLUSTER_FRAMES)
+    cfg = trk.DenseConfig(max_points=bench.CLUSTER_MAX_POINTS)
+    staged = [tuple(torch.from_numpy(a).to("cuda") for a in fr)
+              for fr in scene.frames[:CL_FRAMES]]
+    runs = []
+    for mode in ("eager", "graphed"):
+        t0 = time.perf_counter()
+        r = cluster_run(scene, cfg, staged, mode == "graphed", kernels)
+        runs.append(r)
+        kern = "not seen" if r["kernels"] is None else \
+            f"{r['kernels']:.1f}"
+        busy = "not seen" if r["busy"] is None else f"{r['busy']:.4f}"
+        print(f"[phase17] {label} {mode}: frames/s {r['fps']:.2f} over "
+              f"frames {CL_WARM}-{CL_TIMED - 1}; host syncs a frame "
+              f"{r['syncs']:.2f} (sync debug mode) + row waits "
+              f"{r['waits']:.2f}"
+              f"; kernels a frame {kern}, busy share {busy} (frames "
+              f"{CL_SYNCS}-{CL_PROF - 1}, torch.profiler); launches "
+              f"{r['launches']}; {time.perf_counter() - t0:.1f} s"
+              + ("" if r["stats"] is None else
+                 f"; {graph_line(r['stats'])}"))
+        if any(r["launches"].values()):
+            raise AssertionError(f"cluster {mode}: a kernel launched "
+                                 f"{r['launches']}")
+        if mode == "graphed" and r["stats"]["captures"] != 1:
+            raise AssertionError(f"cluster: {r['stats']['captures']} "
+                                 "graphs captured, expected 1")
+    ref = runs[0]["outs"]
+    for mode, r in (("graphed", runs[1]),):
+        if len(r["outs"]) != len(ref):
+            raise AssertionError(f"cluster {mode}: {len(r['outs'])} rows, "
+                                 f"eager {len(ref)}")
+        for t, (a, b) in enumerate(zip(r["outs"], ref)):
+            bad = [k for k in b if not np.array_equal(a[k], b[k])]
+            if bad:
+                raise AssertionError(f"cluster {mode}: frame {t + 1} parts "
+                                     f"from eager in {bad}")
+    live = sum(not o["skipped"] for o in ref)
+    print(f"[phase17] {label} eager and graphed: {len(ref)} rows bit-equal "
+          f"(labels, skip flags, counts, sizes, ground flags, accepted "
+          f"motions and their poses; {live} live frames, "
+          f"{sum(o['n_new_clusters'] for o in ref)} clusters made); phase "
+          f"12 (a)'s record ran graphed={cluster_rec.get('graphs')}, "
+          f"{cluster_rec.get('captures')} capture; phase seconds "
+          f"{time.perf_counter() - t_phase:.1f}")
+
+
+# ---------------------------------------------------------------- phase 18
+def classic_run(cfg, frames, gt, graphs: bool, kernels: dict) -> dict:
+    """SlamEngine.process over the frames, graphed or eager: frames/s over
+    frames 1-31 (the bootstrap out), host syncs a frame over 32-39, kernels
+    a frame and busy share over the last, ATE, launches, graph stats."""
+    from slam_toolkit_tpu_torch.evaluation.traj import ate_rmse
+    from slam_toolkit_tpu_torch.pipeline.engine import SlamEngine
+    from slam_toolkit_tpu_torch.utils.timing import (count_syncs,
+                                                     device_activity)
+    for k in kernels.values():
+        k.launches = 0
+    eng = SlamEngine(cfg, device="cuda", graphs=graphs)
+    step_s = []
+
+    def run(idx):
+        for i in idx:
+            t0 = time.perf_counter()
+            eng.process(frames[i, 0], frames[i, 1])   # ends in a readback
+            step_s.append(time.perf_counter() - t0)
+    n = len(frames)
+    run(range(32))
+    _, syncs = count_syncs(run, range(32, 40))
+    run(range(40, n - 1))
+    _, act = device_activity(run, range(n - 1, n))
+    traj = finite_trajectory(eng, n, f"per-frame engine, graphs={graphs}")
+    return {"eng": eng, "fps": 31 / sum(step_s[1:32]), "syncs": syncs / 8,
+            "kernels": act["kernels"] if act["kernels"] else None,
+            "busy": act["busy"], "ate": ate_rmse(traj, gt, align=True),
+            "launches": {k: v.launches for k, v in kernels.items()},
+            "stats": eng.graph_stats()}
+
+
+def phase18(cfg, frames, gt, kernels: dict, label: str) -> None:
+    """SlamEngine.process's tracking programs as CUDA graphs against the
+    eager programs on phase 3's frames, in the order eager, graphed,
+    graphed, eager: trajectories, flags, inliers and maps bit-equal."""
+    t_phase = time.perf_counter()
+    runs = []
+    for mode in PAIRED:
+        t0 = time.perf_counter()
+        r = classic_run(cfg, frames, gt, mode == "graphed", kernels)
+        runs.append(r)
+        e = r["eng"]
+        kern = "not seen" if r["kernels"] is None else \
+            f"{r['kernels']:.1f}"
+        busy = "not seen" if r["busy"] is None else f"{r['busy']:.4f}"
+        print(f"[phase18] {label} {mode}: frames/s {r['fps']:.2f} over "
+              f"frames 1-31, ATE {r['ate']:.4f} m, keyframes "
+              f"{e.n_keyframes}, mappoints {e.num_mappoints()}; host syncs "
+              f"a frame {r['syncs']:.2f} (frames 32-39); kernels a frame "
+              f"{kern}, busy share {busy} (frame 47, torch.profiler); "
+              f"launches {r['launches']}; {time.perf_counter() - t0:.1f} s"
+              + ("" if r["stats"] is None else
+                 f"; {graph_line(r['stats'])}"))
+        if mode == "graphed" and r["stats"]["captures"] != 2:
+            raise AssertionError(f"classic: {r['stats']['captures']} "
+                                 "graphs captured, expected 2")
+    ref = runs[0]
+    e0 = ref["eng"]
+    for mode, r in zip(PAIRED[1:], runs[1:]):
+        e = r["eng"]
+        for what, a, b in (
+                ("poses", e.trajectory, e0.trajectory),
+                ("refined poses", e.trajectory_refined(),
+                 e0.trajectory_refined())):
+            if not np.array_equal(np.stack(a), np.stack(b)):
+                bad = [i for i, (x, y) in enumerate(zip(a, b))
+                       if not np.array_equal(x, y)]
+                raise AssertionError(f"classic {mode}: {what} part from "
+                                     f"eager at frame {bad[0]}")
+        if [(s["kf"], s["inliers"]) for s in e.frame_stats] != \
+                [(s["kf"], s["inliers"]) for s in e0.frame_stats]:
+            raise AssertionError(f"classic {mode}: keyframe flags or "
+                                 "inliers part from eager")
+        bad = [f for f in e0.map._fields
+               if not torch.equal(getattr(e.map, f), getattr(e0.map, f))]
+        if bad:
+            raise AssertionError(f"classic {mode}: map fields {bad} part")
+        if r["launches"] != ref["launches"]:
+            raise AssertionError(f"classic {mode} launches {r['launches']},"
+                                 f" eager {ref['launches']}")
+    if not ref["ate"] <= 0.138:
+        raise AssertionError(f"classic: ATE {ref['ate']:.4f} m above 0.138")
+    print(f"[phase18] {label} all {PAIRED} runs: {len(frames)} poses (as "
+          f"processed and refined), keyframe flags, inliers and the map "
+          f"bit-equal, ATE {ref['ate']:.4f} m each; launches counted from "
+          f"the replays equal the eager counts {ref['launches']}; phase "
+          f"seconds {time.perf_counter() - t_phase:.1f}")
+
+
 # ---------------------------------------------------------------- phase 3
 def run_engine(cfg, frames, chunk: int, device: str, ring=None,
                vocab=None, graphs: bool = True):
@@ -3135,7 +3354,7 @@ def main() -> int:
     classic = phase11(cfg, frames, gt, kernels, label, main_path)
 
     # ---- phase 12: the dense motion-clustering workload
-    cluster = phase12(kernels, label)
+    cluster, cluster_rec = phase12(kernels, label)
 
     # ---- phase 13: multi-sequence lanes, in turn and batched
     dp = phase13(cfg, frames, loop["frames"], kernels, label)
@@ -3149,6 +3368,12 @@ def main() -> int:
 
     # ---- phase 16: the pipelined schedule (queue depth 2, mapping worker)
     pipe = phase16(cfg, frames, loop, kernels, label)
+
+    # ---- phase 17: the cluster tracker's step as one CUDA graph
+    phase17(kernels, label, cluster_rec)
+
+    # ---- phase 18: SlamEngine.process's tracking programs as CUDA graphs
+    phase18(cfg, frames, gt, kernels, label)
 
     # ---- phase 9
     keys = ("max_abs_err", "ms", "host_ms", "plain_ms", "bound_ms",

@@ -66,15 +66,17 @@ def pnp_ransac_rows(Xw: torch.Tensor, uv_norm: torch.Tensor,
                     valid: torch.Tensor, keys: Sequence,
                     n_hypotheses: int = 64, sample_size: int = 4,
                     inlier_norm: float = 0.01, min_inliers: int = 20,
-                    refine_iters: int = 5) -> RansacResult:
+                    refine_iters: int = 5, u=None) -> RansacResult:
     """pnp_ransac for each of B problems at once (jax.vmap of the JAX
     pnp_ransac over its inputs and keys): Xw (B, N, 3), uv_norm (B, N,
-    2), valid (B, N), one threefry key a problem."""
+    2), valid (B, N), one threefry key a problem, or instead `u` (B,
+    n_hypotheses * sample_size), the keys' uniforms on the device
+    (threefry.uniform_rows), which makes the call upload nothing."""
     B, n = valid.shape
     probs = valid.float()
     probs = probs / torch.clamp(probs.sum(dim=1, keepdim=True), min=1.0)
-    idx = threefry.choice_p_rows(keys, probs,
-                                 (n_hypotheses, sample_size))   # (B, H, S)
+    idx = threefry.choice_p_rows(keys, probs, (n_hypotheses, sample_size),
+                                 u=u)                           # (B, H, S)
     rows = torch.arange(B, device=Xw.device)[:, None, None]
     Xs, zs = Xw[rows, idx], uv_norm[rows, idx]                 # (B, H, S, .)
 
@@ -110,16 +112,18 @@ def pnp_ransac_rows(Xw: torch.Tensor, uv_norm: torch.Tensor,
 def pnp_ransac(Xw: torch.Tensor, uv_norm: torch.Tensor,
                valid: torch.Tensor, key, n_hypotheses: int = 64,
                sample_size: int = 4, inlier_norm: float = 0.01,
-               min_inliers: int = 20, refine_iters: int = 5
+               min_inliers: int = 20, refine_iters: int = 5, u=None
                ) -> RansacResult:
     """3D->2D pose RANSAC over one problem, all hypotheses batched: each
     hypothesis runs 3 Gauss-Newton steps from identity on sample_size
-    points drawn by `valid` (a threefry key), scored by normalised
-    reprojection error; the best is refined on its inliers by a 5-step
-    LM. Xw (N, 3), uv_norm (N, 2), valid (N,)."""
+    points drawn by `valid` (a threefry key, or `u`, its uniforms on the
+    device), scored by normalised reprojection error; the best is
+    refined on its inliers by a 5-step LM. Xw (N, 3), uv_norm (N, 2),
+    valid (N,)."""
     r = pnp_ransac_rows(Xw[None], uv_norm[None], valid[None], [key],
                         n_hypotheses, sample_size, inlier_norm,
-                        min_inliers, refine_iters)
+                        min_inliers, refine_iters,
+                        None if u is None else u.reshape(1, -1))
     return RansacResult(*(v[0] for v in r))
 
 

@@ -22,12 +22,14 @@ the label mask of ref MakeMask :394-409). Two trackers: `DenseTracker`,
 stepwise with host-side slot allocation (what run_cluster uses), and
 `FusedDenseTracker`, which allocates slots on the device by rank over
 the free slots and reads back one packed row a frame; both give the same
-labels. The fused tracker's host syncs: it reads the skip gate's flag,
-each RANSAC round's stop flag (a finished round breaks the loop) and the
-packed row, and each PnP-RANSAC (track_clusters' and every round's)
-syncs twice more, where optim/pose_lm.optimize_pose uploads its damping
-scalar with torch.tensor(..., device=). On the bench scene that is 9.4
-syncs a frame on an H100 (PERF.md section 5). Every entry point runs with TF32 off
+labels. The fused step (`fused_step`) makes the JAX program's choices on
+the device, as lax.cond and lax.scan make them there: the skip gate and
+each RANSAC round's stop are device flags that select the step's writes,
+every PnP-RANSAC draws from uniforms uploaded ahead (`frame_draws`), and
+optim/pose_lm.optimize_pose's damping is a device fill. With no host
+read and fixed shapes, FusedDenseTracker captures the step as one CUDA
+graph on a card and replays it; the one host synchronisation a frame is
+the wait for its packed row. Every entry point runs with TF32 off
 (pipeline/engine.full_float32) and on the card unless asked for the CPU.
 """
 
@@ -47,6 +49,7 @@ from slam_toolkit_tpu_torch.cluster import stereo_bm
 from slam_toolkit_tpu_torch.config import CameraConfig
 from slam_toolkit_tpu_torch.pipeline.engine import full_float32
 from slam_toolkit_tpu_torch.utils import threefry
+from slam_toolkit_tpu_torch.utils.cuda_graphs import StepGraphs
 from slam_toolkit_tpu_torch.utils.device import upload
 
 
@@ -301,6 +304,13 @@ def frame_parity(got, want) -> dict:
     return out
 
 
+# PnP-RANSAC hypotheses of track_clusters (a cluster slot each) and of a
+# RANSAC round, and the points a hypothesis is solved from
+TRACK_HYPOTHESES = 64
+ROUND_HYPOTHESES = 100
+SAMPLE = 4
+
+
 class TrackOut(NamedTuple):
     labels: torch.Tensor        # (P,) int32, -1 untracked
     cluster_T: torch.Tensor     # (C, 4, 4) accepted rigid motions
@@ -336,9 +346,11 @@ def _prev_pixels(f: DenseFrame, cam: CameraConfig):
 def track_clusters(f: DenseFrame, prev_labels: torch.Tensor,
                    prev_depth: torch.Tensor, is_ground: torch.Tensor,
                    alive: torch.Tensor, key, cam: CameraConfig,
-                   cfg: DenseConfig, grid_shape) -> TrackOut:
+                   cfg: DenseConfig, grid_shape, draws=None) -> TrackOut:
     """TrackCluster (ref tracker.cpp:518-693) over every cluster slot at
-    once; `key` a threefry key. No host synchronisation."""
+    once; `key` a threefry key, or None with `draws`, its uniforms on the
+    device ((C, TRACK_HYPOTHESES * 4), frame_draws). No host
+    synchronisation; with `draws` nothing is uploaded either."""
     P = f.pts_uv.shape[0]
     C = cfg.max_clusters
     ny, nx = grid_shape
@@ -362,9 +374,10 @@ def track_clusters(f: DenseFrame, prev_labels: torch.Tensor,
     memb_ok = torch.gather(member, 1, order)
     res = ransac_mod.pnp_ransac_rows(
         f.pts_xyz[order], img0_norm[order], memb_ok,
-        threefry.split(key, C), n_hypotheses=64,
+        None if draws is not None else threefry.split(key, C),
+        n_hypotheses=TRACK_HYPOTHESES, sample_size=SAMPLE,
         inlier_norm=cfg.max_rprj_px / fx,
-        min_inliers=cfg.min_track_inliers)
+        min_inliers=cfg.min_track_inliers, u=draws)
     cluster_ok = active & res.ok
 
     # accepted inliers back to point labels (members are disjoint across
@@ -429,20 +442,23 @@ class RansacRoundOut(NamedTuple):
 def ransac_round(f: DenseFrame, residual: torch.Tensor,
                  prev_depth: torch.Tensor, is_ground_round: torch.Tensor,
                  key, cam: CameraConfig, cfg: DenseConfig,
-                 grid_shape=None) -> RansacRoundOut:
+                 grid_shape=None, draws=None) -> RansacRoundOut:
     """One RansacCluster iteration (ref tracker.cpp:238-389): rigid
     RANSAC over the residual pool, the disparity-consistency gate (ref
     :274-282), then Euclidean components of the surviving inliers with
-    the ground-2D(px)/object-3D(m) metric (ref :315-323). No host
-    synchronisation; slots are allocated by the caller."""
+    the ground-2D(px)/object-3D(m) metric (ref :315-323). `key` a
+    threefry key, or None with `draws`, its (ROUND_HYPOTHESES * 4,)
+    uniforms on the device. No host synchronisation; slots are
+    allocated by the caller."""
     P = f.pts_uv.shape[0]
     h, w = f.depth.shape
     fx = cam.fx
     img0, in_img, img0_norm = _prev_pixels(f, cam)
     pool = residual & f.pts_valid & in_img
     res = ransac_mod.pnp_ransac(
-        f.pts_xyz, img0_norm, pool, key, n_hypotheses=100,
-        inlier_norm=cfg.max_rprj_px / fx, min_inliers=cfg.min_cluster_size)
+        f.pts_xyz, img0_norm, pool, key, n_hypotheses=ROUND_HYPOTHESES,
+        sample_size=SAMPLE, inlier_norm=cfg.max_rprj_px / fx,
+        min_inliers=cfg.min_cluster_size, u=draws)
 
     # predicted inverse depth in the previous camera against the previous
     # frame's depth at the warped pixel, in disparity pixels
@@ -476,6 +492,19 @@ class FusedState(NamedTuple):
     ever_created: torch.Tensor  # () bool (ref's clusters_.empty() test)
     prev_gray: torch.Tensor     # (H, W)
     prev_depth: torch.Tensor    # (H, W)
+
+
+class FusedOut(NamedTuple):
+    labels: torch.Tensor        # (P,) int32
+    skipped: torch.Tensor       # () bool (low-motion gate)
+    flow_p95: torch.Tensor      # ()
+    n_points: torch.Tensor      # () valid samples
+    n_tracked: torch.Tensor     # () labeled samples, -1 when skipped
+    n_new: torch.Tensor         # () clusters created this frame
+    cluster_T: torch.Tensor     # (C, 4, 4) tracked rigid motions
+    cluster_ok: torch.Tensor    # (C,) bool PnP accepted
+    sizes: torch.Tensor         # (C,) member counts
+    is_ground: torch.Tensor     # (C,) bool
 
 
 def _counts(idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -516,62 +545,91 @@ def _new_clusters(rout: RansacRoundOut, labels, alive, is_ground, ever,
             ever | (assigned > 0), done, torch.sum(ok_root))
 
 
-def _pack(labels, skipped, flow_p95, n_points, n_tracked, n_new, sizes,
-          is_ground, cluster_ok, cluster_T) -> torch.Tensor:
+def _pack(res: FusedOut) -> torch.Tensor:
     """One flat float32 row a frame (labels are cluster ids < 2^24, exact
     in float32), read back with one copy."""
-    def f(v):
-        if isinstance(v, torch.Tensor):
-            return v.float().reshape(-1)
-        return torch.full((1,), float(v), device=labels.device)
-    return torch.cat([f(labels), f(skipped), f(flow_p95), f(n_points),
-                      f(n_tracked), f(n_new), f(sizes), f(is_ground),
-                      f(cluster_ok), f(cluster_T)])
+    return torch.cat([
+        res.labels.float(),
+        torch.stack([res.skipped.float(), res.flow_p95.float(),
+                     res.n_points.float(), res.n_tracked.float(),
+                     res.n_new.float()]),
+        res.sizes.float(), res.is_ground.float(), res.cluster_ok.float(),
+        res.cluster_T.reshape(-1).float()])
+
+
+def frame_draws(key, cfg: DenseConfig) -> np.ndarray:
+    """The uniforms fused_step's PnP-RANSACs draw under the frame's
+    threefry key, as one float32 row: track_clusters' C problems x
+    (TRACK_HYPOTHESES, SAMPLE) (keys split(key, C)), then each of the
+    cfg.max_ransac_rounds rounds' (ROUND_HYPOTHESES, SAMPLE) (key
+    fold_in(key, 100 + round)), every round's drawn whether it runs or
+    not."""
+    rounds = [threefry.fold_in(key, 100 + r)
+              for r in range(cfg.max_ransac_rounds)]
+    return np.concatenate([
+        threefry.uniform_rows(threefry.split(key, cfg.max_clusters),
+                              (TRACK_HYPOTHESES, SAMPLE)).reshape(-1),
+        threefry.uniform_rows(rounds, (ROUND_HYPOTHESES, SAMPLE)
+                              ).reshape(-1)])
 
 
 def fused_step(state: FusedState, gl: torch.Tensor, gr: torch.Tensor,
-               key, cam: CameraConfig, cfg: DenseConfig, grid_shape):
+               draws: torch.Tensor, cam: CameraConfig, cfg: DenseConfig,
+               grid_shape):
     """dense_frame, TrackCluster and the residual RansacCluster rounds
     with slot allocation on the device; returns (new state, packed row).
-    Host reads: the skip flag (below the p95 gate the state, the
-    previous frame included, is returned unchanged so motion
-    accumulates, ref :722-724) and each round's stop flag; each
-    PnP-RANSAC's optimize_pose calls sync on their uploads (see the
-    module docstring)."""
-    C = cfg.max_clusters
+    `draws` is frame_draws' row on the device. The step makes the JAX
+    program's choices on the device and reads nothing back: below the
+    p95 gate (lax.cond(skip, ...)) the state, the previous frame
+    included, is selected unchanged so motion accumulates (ref
+    :722-724), and the packed row is the skipped one; all
+    cfg.max_ransac_rounds rounds run (lax.scan), each one's writes
+    selected by a device flag (lax.cond(do, ...)): a round after the
+    stop leaves everything as it was. Fixed shapes, no upload: the step
+    is what FusedDenseTracker captures as a CUDA graph."""
+    C, R = cfg.max_clusters, cfg.max_ransac_rounds
+    dev = gl.device
+    nt = C * TRACK_HYPOTHESES * SAMPLE
+    round_draws = draws[nt:].reshape(R, -1)
     f = dense_frame(gl, gr, state.prev_gray, cam, cfg)
-    n_points = torch.sum(f.pts_valid)
-    if bool(f.flow_p95 < cfg.min_flow_p95):
-        zc = torch.zeros(C, device=gl.device)
-        return state, _pack(state.labels, 1.0, f.flow_p95, n_points, -1.0,
-                            0.0, zc, state.is_ground, zc,
-                            torch.zeros(C, 4, 4, device=gl.device))
+    skip = f.flow_p95 < cfg.min_flow_p95
     out = track_clusters(f, state.labels, state.prev_depth,
-                         state.is_ground, state.alive, key, cam, cfg,
-                         grid_shape)
-    labels, alive, is_ground, ever = (out.labels, state.alive,
-                                      state.is_ground, state.ever_created)
-    n_new = torch.zeros((), dtype=torch.int64, device=gl.device)
-    stop = torch.sum(labels < 0) < 10                            # ref :239
-    for rnd in range(cfg.max_ransac_rounds):
-        if bool(stop):
-            break
+                         state.is_ground, state.alive, None, cam, cfg,
+                         grid_shape, draws=draws[:nt].reshape(C, -1))
+    carry = (out.labels, state.alive, state.is_ground, state.ever_created)
+    n_new = torch.zeros((), dtype=torch.int64, device=dev)
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+    for rnd in range(R):
+        labels, alive, is_ground, ever = carry
+        do = ~done & (torch.sum(labels < 0) >= 10)               # ref :239
         ground_round = ~ever                                     # ref :315
         rout = ransac_round(f, labels < 0, state.prev_depth, ground_round,
-                            threefry.fold_in(key, 100 + rnd), cam, cfg,
-                            grid_shape)
-        labels, alive, is_ground, ever, done, made = _new_clusters(
-            rout, labels, alive, is_ground, ever, ground_round, cfg)
-        n_new = n_new + made
-        stop = done | (torch.sum(labels < 0) < 10)
+                            None, cam, cfg, grid_shape,
+                            draws=round_draws[rnd])
+        *nxt, stop, made = _new_clusters(rout, labels, alive, is_ground,
+                                         ever, ground_round, cfg)
+        carry = tuple(torch.where(do, a, b) for a, b in zip(nxt, carry))
+        n_new = n_new + torch.where(do, made, 0)
+        done = ~do | stop
+    labels, _, is_ground, ever = carry
     # alive <- labels actually present (ref: mask0_ rebuild :747)
-    cnt = _counts(torch.where(labels >= 0, labels, C), C + 1)
-    new_state = FusedState(labels=labels, is_ground=is_ground,
-                           alive=cnt[:C] > 0, ever_created=ever,
-                           prev_gray=gl, prev_depth=f.depth)
-    return new_state, _pack(labels, 0.0, f.flow_p95, n_points,
-                            torch.sum(labels >= 0), n_new, cnt[:C],
-                            is_ground, out.cluster_ok, out.cluster_T)
+    cnt = _counts(torch.where(labels >= 0, labels, C), C + 1)[:C]
+    res = FusedOut(
+        labels=torch.where(skip, state.labels, labels), skipped=skip,
+        flow_p95=f.flow_p95, n_points=torch.sum(f.pts_valid),
+        n_tracked=torch.where(skip, -1, torch.sum(labels >= 0)),
+        n_new=torch.where(skip, 0, n_new),
+        cluster_T=torch.where(skip, 0.0, out.cluster_T),
+        cluster_ok=out.cluster_ok & ~skip,
+        sizes=torch.where(skip, 0, cnt),
+        is_ground=torch.where(skip, state.is_ground, is_ground))
+    new_state = FusedState(
+        labels=res.labels, is_ground=res.is_ground,
+        alive=torch.where(skip, state.alive, cnt > 0),
+        ever_created=torch.where(skip, state.ever_created, ever),
+        prev_gray=torch.where(skip, state.prev_gray, gl),
+        prev_depth=torch.where(skip, state.prev_depth, f.depth))
+    return new_state, _pack(res)
 
 
 def _as_image(x, device: torch.device) -> torch.Tensor:
@@ -583,20 +641,33 @@ def _as_image(x, device: torch.device) -> torch.Tensor:
 class FusedDenseTracker:
     """The production tracker over fused_step: one packed row a frame,
     read back `queue_depth` frames after its dispatch (process returns
-    None while the queue fills; flush returns the rest)."""
+    None while the queue fills; flush returns the rest).
+
+    graphs=True (the default) on a CUDA device: the step runs on a
+    static state (FusedState's tensors at fixed addresses, written in
+    place) and is captured once, at the first frame after the seed, as a
+    CUDA graph (utils/cuda_graphs.StepGraphs), then replayed; a frame
+    is two image copies and one upload of frame_draws' row into static
+    buffers, one replay, and the row copied to pinned host memory
+    without waiting. The fold waits for that copy alone (`waits`
+    counts): the one host synchronisation a frame. A capture failure
+    raises. graphs=False, and the CPU, run the same step eagerly."""
 
     def __init__(self, cam: CameraConfig, cfg: Optional[DenseConfig] = None,
-                 queue_depth: int = 2, device="cuda"):
+                 queue_depth: int = 2, device="cuda", graphs: bool = True):
         self.cam = cam
         self.cfg = cfg or DenseConfig()
         self.device = _check_device(device)
         _, _, self._grid_shape = _sample_grid(
             cam.height, cam.width, self.cfg.sample_stride,
             self.cfg.max_points)
+        self.graphed = graphs and self.device.type == "cuda"
+        self.graphs: Optional[StepGraphs] = None
         self._state: Optional[FusedState] = None
         self._queue = []
         self._queue_depth = queue_depth
         self.frame_idx = 0
+        self.waits = 0
 
     def _seed(self, gl, gr) -> FusedState:
         cfg, dev = self.cfg, self.device
@@ -611,8 +682,56 @@ class FusedDenseTracker:
             ever_created=torch.zeros((), dtype=torch.bool, device=dev),
             prev_gray=gl, prev_depth=f0.depth)
 
+    def _static_step(self, S: FusedState) -> torch.Tensor:
+        """fused_step on the static buffers, its state written back into
+        S; returns the packed row."""
+        new, packed = fused_step(S, self._gl, self._gr, self._draws,
+                                 self.cam, self.cfg, self._grid_shape)
+        for dst, src in zip(S, new):
+            dst.copy_(src)
+        return packed
+
+    def _replay(self, gl, gr, draws: np.ndarray) -> torch.Tensor:
+        if self.graphs is None:
+            # the static state: copies the steps write in place (the seed
+            # holds the caller's first image)
+            self._state = FusedState(*(t.clone() for t in self._state))
+            self._gl = torch.empty_like(gl)
+            self._gr = torch.empty_like(gr)
+            self._draws = torch.empty(draws.shape, dtype=torch.float32,
+                                      device=self.device)
+        self._gl.copy_(gl)
+        self._gr.copy_(gr)
+        self._draws.copy_(torch.from_numpy(draws).pin_memory(),
+                          non_blocking=True)
+        if self.graphs is None:
+            g = StepGraphs(self.device)
+            g.warm_up(self._static_step,
+                      FusedState(*(t.clone() for t in self._state)))
+            self._packed = g.capture("step", self._static_step, self._state)
+            self.graphs = g
+        self.graphs.replay("step")
+        return self._packed
+
+    def _post(self, packed: torch.Tensor) -> None:
+        """Queue the frame's row: on a card a copy to pinned host memory
+        that nothing waits for yet, and its event."""
+        if not packed.is_cuda:
+            self._queue.append((packed, None))
+            return
+        host = torch.empty(packed.shape, dtype=packed.dtype,
+                           pin_memory=True)
+        host.copy_(packed, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        self._queue.append((host, done))
+
     def _fold(self) -> dict:
-        v = self._queue.pop(0).cpu().numpy()          # one readback a frame
+        row, done = self._queue.pop(0)
+        if done is not None:
+            done.synchronize()                # one readback a frame
+            self.waits += 1
+        v = row.numpy()
         P, C = self.cfg.max_points, self.cfg.max_clusters
         s = P
         scalars = v[s:s + 5]
@@ -637,10 +756,14 @@ class FusedDenseTracker:
             if self._state is None:
                 self._state = self._seed(gl, gr)
                 return None
-            self._state, packed = fused_step(
-                self._state, gl, gr, threefry.prng_key(self.frame_idx),
-                self.cam, self.cfg, self._grid_shape)
-            self._queue.append(packed)
+            draws = frame_draws(threefry.prng_key(self.frame_idx), self.cfg)
+            if self.graphed:
+                packed = self._replay(gl, gr, draws)
+            else:
+                self._state, packed = fused_step(
+                    self._state, gl, gr, upload(draws, self.device),
+                    self.cam, self.cfg, self._grid_shape)
+            self._post(packed)
             if len(self._queue) > self._queue_depth:
                 return self._fold()
             return None
@@ -650,6 +773,11 @@ class FusedDenseTracker:
         while self._queue:
             outs.append(self._fold())
         return outs
+
+    def graph_stats(self) -> Optional[dict]:
+        """Captures, capture seconds, pool bytes; None where nothing was
+        captured."""
+        return None if self.graphs is None else self.graphs.stats()
 
 
 class DenseTracker:

@@ -78,6 +78,16 @@ def library() -> ctypes.CDLL:
     return _bind(ctypes.CDLL(str(so)))
 
 
+def available() -> bool:
+    """Whether the loader library builds and loads here (library() raises
+    where it cannot)."""
+    try:
+        library()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
 class PrefetchLoader:
     """Iterates (left, right) float32 stereo pairs decoded on the native
     loader's background thread, `ring` frames ahead. A frame that fails

@@ -85,6 +85,17 @@ def detect_fused_cuda(image: torch.Tensor, thr_hi: Optional[float],
     return detect_levels_cuda([image], thr_hi, thr_lo, border)[0]
 
 
+def detect_fused(image: torch.Tensor, thr_hi: Optional[float],
+                 thr_lo: float, border: int) -> torch.Tensor:
+    """The kernel's entry under the JAX package's name: detect, which
+    requires border >= 5 here as there (the kernel masks its halo by the
+    border); dispatches on the image's device."""
+    if border < 5:
+        raise ValueError(f"border {border}: the fused FAST kernel needs "
+                         "border >= 5")
+    return detect(image, thr_hi, thr_lo, border)
+
+
 def detect(image: torch.Tensor, thr_hi: Optional[float], thr_lo: float,
            border: int) -> torch.Tensor:
     """fast.detect_dual(image, thr_hi, thr_lo, border), or fast.detect

@@ -105,7 +105,8 @@ def optimize_pose(T_init, Xw, z_norm, sigma2, weight_mask,
             behind * torch.sum(w_valid * (~good).float())
 
     T = T_init
-    lam = torch.tensor(cfg.lm_lambda0, dtype=torch.float32, device=Xw.device)
+    lam = torch.full((), cfg.lm_lambda0, dtype=torch.float32,
+                     device=Xw.device)
     cost = cost_at(T)
     for _ in range(cfg.num_iterations):
         r, Xc, good = _residuals(T, Xw, z_norm, inv_sigma, stereo)

@@ -21,14 +21,19 @@ Pipeline, src/pipeline.cpp:95-141), under the JAX package's names:
   _closure_is_dup, _dispatch_close, _consume_scores, _try_relocalize,
   _refresh_kf_mirrors and _close_tier.
 
-The JAX package jits each program; here each is eager PyTorch on the
-engine's device. The chunked engine (pipeline/scan_engine.py) owns the
-map and the per-frame step when it drives this class for its loop phases
-(own_map=False): it sets `map` and the mirrors, and no second map is
-allocated. The pose-graph tiers are kept; the JAX package's compiles of
-them ahead of time (warmup_loop_programs and its background thread) are
-not ported: they exist for XLA compile time. Checkpointing is
-pipeline/checkpoint.py.
+The JAX package jits each program. Here the per-frame programs, _build
+and _track (or _track_direct), run on static buffers (_StaticTrack)
+and, on a card, as two CUDA graphs captured at the first tracking frame
+and replayed every frame after (graphs=True, the default); graphs=False
+runs them eagerly, bit-equal. The keyframe branch and the loop programs
+are eager PyTorch on the engine's device (the JAX package runs them as
+separate jitted calls). The chunked engine (pipeline/scan_engine.py)
+owns the map and the per-frame step when it drives this class for its
+loop phases (own_map=False): it sets `map` and the mirrors, and no
+second map is allocated. The pose-graph tiers are kept; the JAX
+package's compiles of them ahead of time (warmup_loop_programs and its
+background thread) are not ported: they exist for XLA compile time.
+Checkpointing is pipeline/checkpoint.py.
 """
 
 from __future__ import annotations
@@ -62,6 +67,7 @@ from slam_toolkit_tpu_torch.mapping.map_state import (MapState,
                                                       empty_map,
                                                       gather_local_landmarks,
                                                       insert_keyframe)
+from slam_toolkit_tpu_torch.utils.cuda_graphs import StepGraphs
 
 MAX_CLOSED_LOOPS = 16
 # keyframe rows per chunk that _bow_register processes at once (the rest
@@ -120,18 +126,110 @@ def _stack_scores(rows: List[det_mod.LoopScores]) -> det_mod.LoopScores:
     return det_mod.LoopScores(*(torch.stack(f) for f in zip(*rows)))
 
 
+class _StaticTrack:
+    """SlamEngine.process's per-frame programs on static buffers: _build
+    on the left image, then _track (or, for tracker.method "direct",
+    _track_direct) on the frame it built, the landmark snapshot, the
+    pose, velocity and latest keyframe pose (and the photometric
+    anchor). A frame copies the image in (the one upload) and the pose
+    state, the snapshot and anchor only when the engine holds new ones
+    (a keyframe, a checkpoint restore); a relocalization's re-track
+    copies its pose and velocity in and runs the tracking program again.
+
+    On a CUDA device the two programs are captured once as CUDA graphs
+    (utils/cuda_graphs.StepGraphs), at the first frame after the
+    bootstrap keyframe, and replayed; their outputs are the graphs' and
+    every replay writes them anew. On the CPU the same programs run
+    eagerly on the same buffers. A capture failure raises."""
+
+    def __init__(self, eng: "SlamEngine", img: torch.Tensor):
+        self.direct = eng.cfg.tracker.method == "direct"
+        dev = eng.device
+        self.img = torch.empty(img.shape, dtype=torch.float32, device=dev)
+        self.Xw, self.desc, _, self.valid = (torch.empty_like(t)
+                                             for t in eng._lm)
+        self.T_prev, self.velocity, self.kf_T = (
+            torch.empty((4, 4), dtype=torch.float32, device=dev)
+            for _ in range(3))
+        if self.direct:
+            self.kf_img = torch.empty_like(self.img)
+            self.kf_ab = torch.empty((2,), dtype=torch.float32, device=dev)
+        self._lm_src = self._anchor_src = None
+        self.graphs: Optional[StepGraphs] = None
+
+    def _load(self, eng: "SlamEngine") -> None:
+        self.T_prev.copy_(eng.T_cw)
+        self.velocity.copy_(eng.velocity)
+        self.kf_T.copy_(eng._latest_kf_T_dev)
+        if eng._lm is not self._lm_src:
+            for dst, src in zip((self.Xw, self.desc, self.valid),
+                                (eng._lm[0], eng._lm[1], eng._lm[3])):
+                dst.copy_(src)
+            self._lm_src = eng._lm
+        if self.direct:
+            if eng._kf_img is not self._anchor_src:
+                self.kf_img.copy_(eng._kf_img)
+                self._anchor_src = eng._kf_img
+            self.kf_ab.copy_(eng._kf_ab)
+
+    def _track(self, eng: "SlamEngine", frame: FrameState) -> tuple:
+        if self.direct:
+            return eng._track_direct(frame, self.img, self.Xw, self.desc,
+                                     self.valid, self.T_prev, self.velocity,
+                                     self.kf_T, self.kf_img, self.kf_ab)
+        return eng._track(frame, self.Xw, self.desc, self.valid, self.T_prev,
+                          self.velocity, self.kf_T)
+
+    def _capture(self, eng: "SlamEngine") -> None:
+        g = StepGraphs(self.img.device)
+        g.warm_up(lambda: self._track(eng, eng._build(self.img)))
+        self.frame = g.capture("build", eng._build, self.img)
+        self.tracked = g.capture("track", self._track, eng, self.frame)
+        self.graphs = g
+
+    def step(self, eng: "SlamEngine", left) -> tuple:
+        """(the left image on the device, the frame, _track's outputs)
+        for one frame; the image and the outputs are overwritten by the
+        next step."""
+        self.img.copy_(torch.as_tensor(left))
+        self._load(eng)
+        if self.img.is_cuda and self.graphs is None:
+            self._capture(eng)
+        if self.graphs is None:
+            self.frame = eng._build(self.img)
+            self.tracked = self._track(eng, self.frame)
+        else:
+            self.graphs.replay("build")
+            self.graphs.replay("track")
+        return self.img, self.frame, self.tracked
+
+    def retrack(self, eng: "SlamEngine", T_prev, velocity) -> tuple:
+        """The tracking program again on the last frame from another pose
+        and velocity (a relocalization): _track's outputs."""
+        self.T_prev.copy_(T_prev)
+        self.velocity.copy_(velocity)
+        if self.graphs is None:
+            self.tracked = self._track(eng, self.frame)
+        else:
+            self.graphs.replay("track")
+        return self.tracked
+
+
 class SlamEngine:
     """Stereo visual odometry / SLAM over a fixed-capacity device map.
 
     `vocab` (a loop.vocab.Vocabulary, on any device) enables loop
     detection, closing and relocalization; it is moved to `device`.
     Entry points run on `device` (default the card, which must exist).
+    graphs=True (the default) runs process's per-frame programs on
+    static buffers, as CUDA graphs on a card (_StaticTrack); graphs=False
+    runs them eagerly, with the same results bit for bit.
     own_map=False is the chunked engine's host: no map is allocated, and
     the caller sets `map` and the mirrors before any program runs."""
 
     def __init__(self, cfg: Optional[SlamConfig] = None,
                  cam: Optional[StereoCamera] = None, vocab=None,
-                 device="cuda", own_map: bool = True):
+                 device="cuda", own_map: bool = True, graphs: bool = True):
         self.cfg = cfg or SlamConfig()
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -153,7 +251,9 @@ class SlamEngine:
         # src/loopcloser.cpp:195-208)
         self._traj_anchor: List[tuple] = []
         self.frame_stats: List[dict] = []
-        self.loop_events: List[dict] = []
+        self._loop_events: List[dict] = []
+        self.graphs = graphs
+        self._static: Optional[_StaticTrack] = None
         # the photometric anchor ("direct" and "hybrid")
         self._kf_img: Optional[torch.Tensor] = None
         self._kf_ab = torch.zeros((2,), dtype=torch.float32,
@@ -192,6 +292,23 @@ class SlamEngine:
             self._closed_pairs: list = []
             # post-closure detection cooldown (ORB-SLAM2 mLastLoopKFid+10)
             self._last_closure_nkf = -(10 ** 9)
+
+    @property
+    def loop_events(self) -> List[dict]:
+        """Closure events (frame, kf_slot, cand, inliers, fid_cand, n_near,
+        scale, T_meas, T_cand_pre) and relocalizations (frame, reloc_to,
+        inliers): plain lists, JSON-serialisable."""
+        return self._loop_events
+
+    @loop_events.setter
+    def loop_events(self, v) -> None:        # checkpoint restore
+        self._loop_events = list(v)
+
+    def graph_stats(self) -> Optional[dict]:
+        """Captures, capture seconds, pool bytes and set-up launches of
+        process's CUDA graphs; None where nothing was captured."""
+        return None if self._static is None or self._static.graphs is None \
+            else self._static.graphs.stats()
 
     # ----- device programs ----------------------------------------------
     def _build(self, img: torch.Tensor) -> FrameState:
@@ -378,42 +495,55 @@ class SlamEngine:
     def process(self, left, right) -> np.ndarray:
         """Track one stereo pair (numpy or tensor images); returns the
         estimated T_cw (4, 4). A frame that is no keyframe costs one image
-        upload, one _track and one packed readback; stereo, insertion,
-        BA, the loop step and the snapshot refresh run at keyframes. The
-        work runs in full float32 (TF32 off, the caller's flags restored
-        on return)."""
+        upload, _build and _track (two CUDA graph replays on a card, see
+        _StaticTrack) and one packed readback; stereo, insertion, BA, the
+        loop step and the snapshot refresh run at keyframes. The work
+        runs in full float32 (TF32 off, the caller's flags restored on
+        return)."""
         self._t_frame0 = time.perf_counter()
-        img_l = self._upload(left)
-        frame = self._build(img_l)
-
+        direct = self.cfg.tracker.method == "direct"
         if self.n_keyframes == 0:
-            self._make_keyframe(frame, img_l, self._upload(right), self.T_cw,
-                                ids=None, kpts=None, inliers=None,
-                                run_ba=False)
+            img_l = self._upload(left)
+            self._make_keyframe(self._build(img_l), img_l,
+                                self._upload(right), self.T_cw, ids=None,
+                                kpts=None, inliers=None, run_ba=False)
             eye = np.eye(4, dtype=np.float32)
             self._finish_frame(eye, eye, 0, True)
             return self.T_cw.cpu().numpy()
 
         Xw, desc, ids, valid = self._lm
-        if self.cfg.tracker.method == "direct":
-            res, T_new, vel_new, packed = self._track_direct(
-                frame, img_l, Xw, desc, valid, self.T_cw, self.velocity,
-                self._latest_kf_T_dev, self._kf_img, self._kf_ab)
-            self._kf_ab = packed[35:37]
+        if self.graphs:
+            if self._static is None:
+                self._static = _StaticTrack(self, torch.as_tensor(left))
+            img_l, frame, (res, T_new, vel_new, packed) = \
+                self._static.step(self, left)
         else:
-            res, T_new, vel_new, packed = self._track(
-                frame, Xw, desc, valid, self.T_cw, self.velocity,
-                self._latest_kf_T_dev)
+            img_l = self._upload(left)
+            frame = self._build(img_l)
+            if direct:
+                res, T_new, vel_new, packed = self._track_direct(
+                    frame, img_l, Xw, desc, valid, self.T_cw, self.velocity,
+                    self._latest_kf_T_dev, self._kf_img, self._kf_ab)
+            else:
+                res, T_new, vel_new, packed = self._track(
+                    frame, Xw, desc, valid, self.T_cw, self.velocity,
+                    self._latest_kf_T_dev)
+        if direct:
+            self._kf_ab = packed[35:37]
         packed_np = packed.cpu().numpy()             # the one readback
         if not packed_np[32] > 0.5 and self.vocab is not None:
             # relocalization (absent from the reference, which always
             # trusts constant velocity, ref src/pipeline.cpp:154-166)
             reloc = self._try_relocalize(frame)
             if reloc is not None:
-                res, T_new, vel_new, packed = self._track(
-                    frame, Xw, desc, valid, reloc,
-                    torch.eye(4, dtype=torch.float32, device=self.device),
-                    self._latest_kf_T_dev)
+                eye = torch.eye(4, dtype=torch.float32, device=self.device)
+                if self.graphs and not direct:
+                    res, T_new, vel_new, packed = self._static.retrack(
+                        self, reloc, eye)
+                else:
+                    res, T_new, vel_new, packed = self._track(
+                        frame, Xw, desc, valid, reloc, eye,
+                        self._latest_kf_T_dev)
                 packed_np = packed.cpu().numpy()
         tracked_ok = packed_np[32] > 0.5
         needs_kf = packed_np[33] > 0.5
@@ -484,9 +614,10 @@ class SlamEngine:
                                    f"(nothing redundant to cull)")
         frame = self._stereo(frame, img_l, img_r)
         if self.cfg.tracker.method in ("direct", "hybrid"):
-            # the new keyframe becomes the photometric anchor; its (a, b)
+            # the new keyframe becomes the photometric anchor (a copy:
+            # process's static image buffer is overwritten); its (a, b)
             # are whatever tracking last estimated (bootstrap: 0, 0)
-            self._kf_img = img_l
+            self._kf_img = img_l.clone()
         if ids is None:
             # bootstrap: nothing was tracked, so the tracked-inlier
             # quality would be 0 and close_loop's de-weighting would dump
@@ -576,9 +707,9 @@ class SlamEngine:
             ok, n = (int(v) for v in torch.stack(
                 [rel.ok.long(), rel.n_inliers.long()]).cpu())
             if ok:
-                self.loop_events.append({"frame": self.frame_id,
-                                         "reloc_to": int(cand),
-                                         "inliers": n})
+                self._loop_events.append({"frame": self.frame_id,
+                                          "reloc_to": int(cand),
+                                          "inliers": n})
                 return rel.T_cw
         return None
 
@@ -658,7 +789,7 @@ class SlamEngine:
         self._last_closure_nkf = self.n_keyframes
         self._closed_pairs.append((fid, fid_cand, n_new))
         self.consistency.reset()
-        self.loop_events.append({
+        self._loop_events.append({
             "frame": fid, "kf_slot": slot, "cand": cand, "inliers": n_new,
             "fid_cand": fid_cand, "n_near": int(vals[19]),
             "scale": round(float(vals[18]), 5),

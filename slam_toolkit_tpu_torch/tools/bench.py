@@ -73,14 +73,17 @@ frames 10, n/2 and n-2 against cluster_scene_gt the disparity p95 <= 0.3
 px with <= 0.5% over 3 px and the flow EPE p95 <= 2.0 px with <= 6% over
 3 px. Then one blocked dense_frame, the ms of each stage on the card
 (each between two synchronises, median of 3), and on 5 frames each of
-a second run the host syncs a frame (CUDA's sync debug mode) and the
-card's kernels a frame and busy share (one torch.profiler pass).
+a second run the host syncs a frame (CUDA's sync debug mode), the
+tracker's waits for its packed row a frame (an event wait, which the
+debug mode does not see), and the card's kernels a frame and busy share
+(one torch.profiler pass).
 
-The chunked engines run graphed (scan_engine.make_chunk_fn: CUDA graphs
-of the step on a static carry, captured in the first warm-up chunk);
-BENCH_GRAPHS=0 runs the same bench with the eager step (the same rows
-bit for bit), for the comparison. Every record but the cluster's says
-which in `graphs`.
+The engines run graphed (scan_engine.make_chunk_fn: CUDA graphs of the
+step on a static carry, captured in the first warm-up chunk; the
+cluster tracker's fused step as one CUDA graph, captured at its first
+frame after the seed); BENCH_GRAPHS=0 runs the same bench with the
+eager step (the same rows bit for bit), for the comparison. Every
+record says which in `graphs`.
 
 Frames are rendered once (data/synthetic; in parallel processes) and
 cached as .npy files named by track, seed, frames, step and size, in
@@ -714,15 +717,17 @@ def cluster_stage_ms(scene, cfg, device, t: int = 4, reps: int = 3) -> dict:
     return out
 
 
-def cluster_counts(scene, cfg, device, start: int = 5, n: int = 5) -> dict:
-    """Host syncs a frame and, where the profiler sees the card, kernels a
-    frame and the card's busy share, of the fused tracker on frames
-    start .. start + n - 1 (syncs) and the n after them (profiler) of a
-    fresh run."""
+def cluster_counts(scene, cfg, device, start: int = 5, n: int = 5,
+                   graphs: bool = True) -> dict:
+    """Host syncs and the tracker's row waits a frame and, where the
+    profiler sees the card, kernels a frame and the card's busy share, of
+    the fused tracker on frames start .. start + n - 1 (syncs, waits) and
+    the n after them (profiler) of a fresh run."""
     from slam_toolkit_tpu_torch.cluster.tracker import FusedDenseTracker
     from slam_toolkit_tpu_torch.utils.timing import (count_syncs,
                                                      device_activity)
-    tr = FusedDenseTracker(scene.cam, cfg, queue_depth=2, device=device)
+    tr = FusedDenseTracker(scene.cam, cfg, queue_depth=2, device=device,
+                           graphs=graphs)
     staged = [tuple(torch.from_numpy(a).to(device) for a in fr)
               for fr in scene.frames[:start + 2 * n]]
 
@@ -731,8 +736,10 @@ def cluster_counts(scene, cfg, device, start: int = 5, n: int = 5) -> dict:
             tr.process(gl, gr)
 
     run(staged[:start])
+    waits = tr.waits
     _, syncs = count_syncs(run, staged[start:start + n])
-    out = {"syncs_per_frame": syncs / n}
+    out = {"syncs_per_frame": syncs / n,
+           "waits_per_frame": (tr.waits - waits) / n}
     if device.type == "cuda":
         _, act = device_activity(run, staged[start + n:start + 2 * n])
         out["kernels_per_frame"] = None if act["kernels"] is None else \
@@ -742,11 +749,13 @@ def cluster_counts(scene, cfg, device, start: int = 5, n: int = 5) -> dict:
     return out
 
 
-def cluster_record(n_frames: int = 60, device="cuda") -> dict:
+def cluster_record(n_frames: int = 60, device="cuda",
+                   graphs: bool = True) -> dict:
     """bench.py main_cluster's run and JSON record (its keys less
-    vs_baseline, plus the card, its power limit, tf32, the stage times,
-    syncs and kernels a frame and the card's busy share). The gates are
-    in the record's "gates" entry; main() exits 1 when one fails."""
+    vs_baseline, plus the card, its power limit, tf32, graphs, the stage
+    times, syncs, row waits and kernels a frame, the card's busy share
+    and the graph's captures). The gates are in the record's "gates"
+    entry; main() exits 1 when one fails."""
     from slam_toolkit_tpu_torch.cluster.tracker import (DenseConfig,
                                                         FusedDenseTracker,
                                                         dense_frame)
@@ -765,7 +774,8 @@ def cluster_record(n_frames: int = 60, device="cuda") -> dict:
     staged = [tuple(torch.from_numpy(a).to(device) for a in fr)
               for fr in scene.frames]
     _sync(device)
-    tr = FusedDenseTracker(scene.cam, cfg, queue_depth=2, device=device)
+    tr = FusedDenseTracker(scene.cam, cfg, queue_depth=2, device=device,
+                           graphs=graphs)
     outs = []
     t0 = time.perf_counter()
     for i, (gl, gr) in enumerate(staged):
@@ -795,7 +805,7 @@ def cluster_record(n_frames: int = 60, device="cuda") -> dict:
         _sync(device)
         dense_ms = 1000.0 * (time.perf_counter() - t0)
     stages = cluster_stage_ms(scene, cfg, device)
-    counts = cluster_counts(scene, cfg, device)
+    counts = cluster_counts(scene, cfg, device, graphs=graphs)
     _log(f"cluster quality {q}; blocked dense_frame {dense_ms:.1f} ms; "
          f"stages {stages}; {counts}")
     gates = {"movers": persist and distinct,
@@ -809,7 +819,9 @@ def cluster_record(n_frames: int = 60, device="cuda") -> dict:
         "flow_gt3px_frac": round(q["flow_gt3px_frac"], 5),
         "dense_frame_ms": round(dense_ms, 1),
         "backend": f"torch-{device.type}", "card": card,
-        "power_limit": power, "tf32": False, "frames": n,
+        "power_limit": power, "tf32": False, "graphs": tr.graphed,
+        "captures": (tr.graph_stats() or {}).get("captures", 0),
+        "frames": n,
         "live_frames": live, "clusters_alive": alive,
         "mover_ids": [v[0] if v else None for v in ids.values()],
         "stage_ms": {k: round(v, 2) for k, v in stages.items()},
@@ -936,7 +948,8 @@ def main() -> int:
     cfg = SlamConfig()
     graphs = os.environ.get("BENCH_GRAPHS", "1") != "0"
     if os.environ.get("BENCH_CLUSTER"):
-        out = cluster_record(int(os.environ.get("BENCH_FRAMES", "60")))
+        out = cluster_record(int(os.environ.get("BENCH_FRAMES", "60")),
+                             graphs=graphs)
         print(json.dumps(out))
         if not all(out["gates"].values()):
             _log(f"FAIL: cluster gates {out['gates']}")

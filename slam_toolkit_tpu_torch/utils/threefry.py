@@ -114,11 +114,28 @@ def split(key, num: int = 2):
     return [(int(x), int(y)) for x, y in zip(a, b)]
 
 
-def choice_p_rows(keys, p: torch.Tensor, shape) -> torch.Tensor:
+def uniform_rows(keys, shape) -> np.ndarray:
+    """uniform(k, shape) for each key of `keys`, flattened, in one hash
+    over every key: (len(keys), prod(shape)) float32."""
+    n = int(np.prod(shape))
+    k = np.asarray(keys, np.int64).reshape(-1, 2, 1)
+    b1, b2 = threefry2x32(k[:, 0], k[:, 1], np.zeros((1, n), np.int64),
+                          np.arange(n, dtype=np.int64)[None])
+    bits = ((b1 ^ b2).astype(np.uint32) >> np.uint32(9)) \
+        | np.uint32(0x3F800000)
+    return np.maximum(np.float32(0.0), bits.view(np.float32)
+                      - np.float32(1.0))
+
+
+def choice_p_rows(keys, p: torch.Tensor, shape, u=None) -> torch.Tensor:
     """choice_p for each row of p (R, n) under its own key of `keys`
     (jax.vmap of jax.random.choice over keys and p): (R, *shape) int64
-    indices on p's device."""
+    indices on p's device. `u`, where given, holds the keys' uniforms
+    drawn ahead (uniform_rows, (R, prod(shape)) on p's device), and
+    `keys` is not read: the draw then uploads nothing."""
     cum = xla_cumsum_rows(p)
-    u = upload(np.stack([uniform(k, shape) for k in keys]), p.device)
-    r = cum[:, -1:] * (1.0 - u.reshape(len(keys), -1))
-    return torch.searchsorted(cum, r).reshape(len(keys), *shape)
+    if u is None:
+        u = upload(uniform_rows(keys, shape), p.device)
+    R = p.shape[0]
+    r = cum[:, -1:] * (1.0 - u.reshape(R, -1))
+    return torch.searchsorted(cum, r).reshape(R, *shape)

@@ -839,6 +839,87 @@ def test_graphed_chunks_match_eager(dev, method):
     assert g_eng._chunk.graph_stats()["captures"] == 2
 
 
+@pytest.mark.parametrize("method", ["indirect", "hybrid", "direct"])
+def test_graphed_process_matches_eager(dev, method):
+    """SlamEngine.process replaying its two CUDA graphs (_build, then
+    _track or _track_direct) against the eager programs (graphs=False) on
+    the card, tiny config, 17 frames past a small keyframe ring that
+    culls: every pose, flag, inlier count and map field bit-equal, the
+    kernels' launch counts (from the replays) equal, two captures for the
+    engine's life."""
+    import dataclasses
+
+    from slam_toolkit_tpu_torch.config import SlamConfig
+    from slam_toolkit_tpu_torch.pipeline.engine import SlamEngine
+    from slam_toolkit_tpu_torch.utils import cuda_lib
+    cfg = SlamConfig.tiny()
+    cfg = dataclasses.replace(
+        cfg, tracker=dataclasses.replace(cfg.tracker, method=method),
+        map=dataclasses.replace(cfg.map, max_keyframes=9),
+        keyframe=dataclasses.replace(cfg.keyframe, decay_ratio=0.95))
+    imgs = _tiny_images(17)
+    out = {}
+    for graphs in (False, True):
+        before = {c: c.launches for c in cuda_lib.launch_counts()}
+        eng = SlamEngine(cfg, device=dev, graphs=graphs)
+        for left, right in imgs:
+            eng.process(left, right)
+        torch.cuda.synchronize()
+        launched = {c.symbol: c.launches - before.get(c, 0)
+                    for c in cuda_lib.launch_counts()
+                    if isinstance(c, cuda_lib.CudaKernel)}
+        out[graphs] = (eng, launched)
+    (e, e_l), (g, g_l) = out[False], out[True]
+    np.testing.assert_array_equal(np.stack(g.trajectory),
+                                  np.stack(e.trajectory))
+    assert [(s["kf"], s["inliers"]) for s in g.frame_stats] == \
+        [(s["kf"], s["inliers"]) for s in e.frame_stats]
+    assert int(e.map.kf_valid.sum()) < e.n_keyframes      # culled
+    for f in e.map._fields:
+        assert torch.equal(getattr(g.map, f), getattr(e.map, f)), f
+    assert g_l == e_l and g_l["slam_gather_blocks"] > 0
+    if method != "direct":
+        assert g_l["slam_topk2_match"] > 0 and g_l["slam_pose_lm"] > 0
+    assert g.graph_stats()["captures"] == 2 and e.graph_stats() is None
+
+
+def test_graphed_fused_tracker_matches_eager(dev):
+    """FusedDenseTracker replaying its CUDA graph against the eager step
+    (graphs=False) on the card, on tests/test_dense_tracker.py's tiny
+    scene over 10 frames with frame 4's pair given twice (a skipped
+    frame): every row's labels, flags, counts, sizes and motions
+    bit-equal, one capture, one row wait a frame and no host sync the
+    sync debug mode sees."""
+    from slam_toolkit_tpu_torch.cluster.tracker import (DenseConfig,
+                                                        FusedDenseTracker)
+    from slam_toolkit_tpu_torch.utils.timing import count_syncs
+    from torch_cluster_scene import make_scene, tracker_args
+    cam, kw = tracker_args()
+    cfg = DenseConfig(**kw)
+    frames = [make_scene(t) for t in (0, 1, 2, 3, 4, 4, 5, 6, 7, 8)]
+    outs, syncs = {}, {}
+    for graphs in (False, True):
+        tr = FusedDenseTracker(cam, cfg, device=dev, graphs=graphs)
+        for left, right in frames[:3]:
+            tr.process(left, right)
+
+        def run(rest, tr=tr):
+            return [tr.process(left, right) for left, right in rest]
+        mid, syncs[graphs] = count_syncs(run, frames[3:])
+        o = [x for x in mid if x is not None] + tr.flush()
+        outs[graphs] = (tr, o)
+    (e, eo), (g, go) = outs[False], outs[True]
+    assert len(go) == len(eo) == len(frames) - 1
+    assert any(x["skipped"] for x in go) and any(
+        x["n_new_clusters"] for x in go)
+    for a, b in zip(go, eo):
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k])
+    assert g.graph_stats()["captures"] == 1 and e.graph_stats() is None
+    assert g.waits == e.waits == len(frames) - 1
+    assert syncs[True] == 0, syncs
+
+
 @pytest.mark.parametrize("thread", [False, True])
 def test_graphed_pipelined_engine_cuda(dev, thread):
     """The pipelined schedule on the card, graphed, tiny config, 17

@@ -1,8 +1,9 @@
 """The public functions the port gained by name, against the JAX package on
 the CPU: frame.backproject, camera.normalized_project and
 bilinear_sample (with tests/test_camera.py's cases), MapState.capacity,
-sepconv.correlate_w / correlate_h, and BENCH_TINY for the port's
-BENCH_DP."""
+sepconv.correlate_w / correlate_h, BENCH_TINY for the port's
+BENCH_DP, fast_kernel.detect_fused, native_loader.available,
+cluster/tracker.FusedOut and SlamEngine.loop_events."""
 
 import numpy as np
 import jax
@@ -155,3 +156,84 @@ def test_bench_tiny_runs_dp_at_the_tiny_config(monkeypatch, capsys):
     monkeypatch.delenv("BENCH_TINY")
     bench.main()
     assert seen[-1] == SlamConfig()
+
+
+@pytest.mark.parametrize("border", [16, 5])
+@pytest.mark.parametrize("dual", [True, False])
+def test_detect_fused_matches_jax(border, dual):
+    """fast_kernel.detect_fused under its JAX name: JAX's interpret-mode
+    Pallas kernel bit for bit on the CPU, and the same refusal of a
+    border below the kernel's halo."""
+    from slam_toolkit_tpu.ops import fast_kernel as j_fk
+    from slam_toolkit_tpu_torch.ops import fast_kernel as t_fk
+    rng = np.random.default_rng(border + 2 * int(dual))
+    img = rng.uniform(40, 60, (48, 97)).astype(np.float32)
+    for _ in range(50):
+        y, x = rng.integers(0, 45), rng.integers(0, 94)
+        img[y:y + 3, x:x + 3] += rng.uniform(30, 180)
+    img = np.round(np.clip(img, 0, 255)).astype(np.float32)
+    thr_hi = 20.0 if dual else None
+    want = np.asarray(j_fk.detect_fused(jnp.asarray(img), thr_hi, 7.0,
+                                        border, interpret=True))
+    got = t_fk.detect_fused(torch.from_numpy(img), thr_hi, 7.0, border)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want > 0).sum() > 10
+    with pytest.raises(ValueError, match="border >= 5"):
+        t_fk.detect_fused(torch.from_numpy(img), thr_hi, 7.0, 4)
+
+
+def test_native_loader_available(tmp_path, monkeypatch):
+    """native_loader.available under its JAX name: True where the library
+    builds (as here, with g++ and libpng's headers; JAX's answer agrees),
+    False where its source does not compile."""
+    from slam_toolkit_tpu.data import native_loader as j_native
+    from slam_toolkit_tpu_torch.data import native_loader
+    assert native_loader.available() is True
+    assert j_native.available() is True
+    bad = tmp_path / "loader.cpp"
+    bad.write_text("this is not C++\n")
+    monkeypatch.setattr(native_loader, "SOURCE", bad)
+    monkeypatch.setattr(native_loader, "BUILD_DIR", tmp_path / "_build")
+    native_loader.library.cache_clear()
+    try:
+        assert native_loader.available() is False
+    finally:
+        native_loader.library.cache_clear()
+
+
+def test_fused_out_fields_match_jax():
+    """cluster/tracker.FusedOut under its JAX name: the same fields in the
+    same order, and the packed row's layout follows them (labels, five
+    scalars, sizes, is_ground, cluster_ok, cluster_T)."""
+    from slam_toolkit_tpu.cluster import tracker as j_trk
+    from slam_toolkit_tpu_torch.cluster import tracker as t_trk
+    assert t_trk.FusedOut._fields == j_trk.FusedOut._fields
+    P, C = 7, 3
+    out = t_trk.FusedOut(
+        labels=torch.arange(P, dtype=torch.int32),
+        skipped=torch.tensor(False), flow_p95=torch.tensor(21.5),
+        n_points=torch.tensor(6), n_tracked=torch.tensor(5),
+        n_new=torch.tensor(2), cluster_T=torch.eye(4).repeat(C, 1, 1),
+        cluster_ok=torch.tensor([True, False, True]),
+        sizes=torch.tensor([3, 0, 2]),
+        is_ground=torch.tensor([False, True, False]))
+    v = t_trk._pack(out).numpy()
+    np.testing.assert_array_equal(v[:P], np.arange(P))
+    np.testing.assert_array_equal(v[P:P + 5], [0.0, 21.5, 6, 5, 2])
+    np.testing.assert_array_equal(v[P + 5:P + 5 + 3 * C],
+                                  [3, 0, 2, 0, 1, 0, 1, 0, 1])
+    np.testing.assert_array_equal(v[P + 5 + 3 * C:].reshape(C, 4, 4),
+                                  np.tile(np.eye(4), (C, 1, 1)))
+
+
+def test_engine_loop_events_is_a_property():
+    """SlamEngine.loop_events is a property with a setter on both
+    packages' per-frame engines (the checkpoint restore sets it)."""
+    from slam_toolkit_tpu.pipeline.engine import SlamEngine as JaxEngine
+    from slam_toolkit_tpu_torch.pipeline.engine import SlamEngine
+    for cls in (JaxEngine, SlamEngine):
+        prop = cls.__dict__["loop_events"]
+        assert isinstance(prop, property) and prop.fset is not None
+    eng = SlamEngine(SlamConfig.tiny(), device="cpu")
+    eng.loop_events = iter([{"frame": 1, "reloc_to": 0, "inliers": 30}])
+    assert eng.loop_events == [{"frame": 1, "reloc_to": 0, "inliers": 30}]
