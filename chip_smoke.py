@@ -106,16 +106,27 @@ Phases (any failure raises and the script exits non-zero):
    at frame 160, then its first 32 frames again; rendered in parallel
    processes and cached under the temporary directory), its vocabulary
    (k=10, L=3, trained on every 8th frame, through the DBoW2 text file),
-   ChunkedSlamEngine(vocab=...) in chunks of 16. Counts reset just before
-   the run and read just after; the inputs that the closer's call sites
-   (relative pose, mappoint merge, relocalization) hand to the top-2
-   matcher are kept on the card (the first call of each; the track has
-   no lost streak, so after the run the revisit of the first closure's
-   candidate frame is relocalized against it to capture that call too).
-   Gates: at least one closure and one replay, every pose finite, the
-   top-2 kernel exact against its plain version on every captured input
-   (M, N and r printed, its device time beside phase 2's), the kernels
-   of the main path launched; the pose-graph tier, ATE and seam printed.
+   ChunkedSlamEngine(vocab=...) in chunks of 16, twice: the loop
+   programs replayed as CUDA graphs (the kernel table's `launches_loop`),
+   then eagerly (the host's `graphs` off; the chunk graphed in both).
+   Counts reset just before each run and read just after, by kernel and
+   by loop program (ProgramCounts); each fold's stage split, host and
+   device ms (utils/timing.StreamStages); the loop graphs' captures,
+   capture seconds, pools and capturing threads. In the eager run the
+   inputs that the closer's call sites (relative pose, mappoint merge,
+   relocalization) hand to the top-2 matcher are kept on the card (the
+   first call of each; the track has no lost streak, so after the run
+   the revisit of the first closure's candidate frame is relocalized
+   against it to capture that call too, and through the graphed
+   relocalization program). Gates: at least one closure and one replay,
+   every pose finite, closures, events, ATE and seam exactly equal in
+   both runs, launches equal by kernel and by loop program, 6 graphs
+   captured on the main thread, the graphed relocalization and seam-BA
+   programs bit-equal to their eager calls (one top-2 and one local-BA
+   launch), the top-2 kernel exact against its plain version on every
+   captured input (M, N and r printed, its device time beside phase
+   2's), the kernels of the main path launched; the pose-graph tier,
+   ATE and seam printed.
    Local BA is held on the first closure's seam window (mapping/
    ba_adapter select_seam_window, every pose fixed) from the run's final
    map: T exact (all fixed), points anchored outside the window
@@ -254,12 +265,17 @@ Phases (any failure raises and the script exits non-zero):
    (cuda_lib.counting) and must add up to every kernel's count. Gates:
    a closure and a replay, every pose finite, the kernels of the loop
    path launched, the closer's relative pose measured on the worker
-   with the top-2 kernel, every such call on the worker's stream
-   (torch.cuda.current_stream inside the job), the top-2 exact against
-   its plain version on the inputs the first such call handed it, and
-   no exception or work left on the worker. Frames/s, ATE, seam,
-   closures, the frames run when each landed and replays are printed
-   beside phase 10's inline run. (b) The same run with its last 2
+   with the top-2 kernel (from its graph's replays), every such call on
+   the worker's stream (torch.cuda.current_stream inside the job), 12
+   loop graphs captured on the main thread, and no exception or work
+   left on the worker. Frames/s, ATE, seam, closures, the frames run
+   when each landed, replays and the stage split are printed beside
+   phase 10's inline run. Then the same in lockstep (the worker's jobs
+   drained after each chunk, each measurement waited for) with the loop
+   graphs and with the eager loop programs: closures, events, ATE, seam
+   and launches exactly equal, the stage split of each, and the top-2
+   exact against its plain version on the inputs the eager run's first
+   relative pose on the worker handed it. (b) The same run with its last 2
    chunks under torch.profiler: each stream's busy time and the share
    of the wall in which another stream's work overlapped the graphs'.
    The same frames at depth 2 with the loop phases inline right after
@@ -1168,12 +1184,146 @@ def _ba_float64(p):
                      and t.is_floating_point() else t for t in p))
 
 
-def phase10(cfg, kernels: dict, rows: list, label: str) -> dict:
-    """Loop closing at full width; returns the launch counts."""
+class ProgramCounts:
+    """While installed on a chunked engine's loop host: every call of a
+    loop program's entry (the host's JAX names) counts the kernel
+    launches its thread made inside it (a graph's replay adds its
+    capture's launches, an eager call launches them), by program."""
+
+    NAMES = ("_bow_register", "_bow_register_only", "_covis", "_relpose",
+             "_reloc", "_close", "_seam_ba")
+
+    def __init__(self, eng):
+        from slam_toolkit_tpu_torch.utils import cuda_lib
+        self.h = eng._host
+        self.launches = {n: {} for n in self.NAMES}
+        self.calls = {n: 0 for n in self.NAMES}
+        for n in self.NAMES:
+            orig = getattr(self.h, n)
+
+            def call(*a, _n=n, _orig=orig, **k):
+                with cuda_lib.counting() as d:
+                    out = _orig(*a, **k)
+                got = self.launches[_n]
+                for c, v in d.items():
+                    key = getattr(c, "symbol", type(c).__name__)
+                    got[key] = got.get(key, 0) + v
+                self.calls[_n] += 1
+                return out
+            setattr(self.h, n, call)
+
+    def close(self):
+        for n in self.NAMES:
+            delattr(self.h, n)
+
+    def of(self, symbol: str) -> dict:
+        """Launches of kernel `symbol` by program (programs that made
+        none left out)."""
+        return {n[1:]: d[symbol] for n, d in self.launches.items()
+                if d.get(symbol)}
+
+
+def print_stages(tag: str, label: str, what: str, st: dict,
+                 folds: int) -> None:
+    """A StreamStages summary: per stage its count, host ms and device ms
+    (the stage's stream between its events), in all and per fold."""
+    parts = []
+    for name, r in st.items():
+        dev = "not measured" if r["device_ms"] is None else \
+            f"{r['device_ms']:.3f}"
+        parts.append(f"{name} x{r['n']}: host {1000 * r['host_s']:.3f} ms, "
+                     f"device {dev} ms")
+    host = sum(r["host_s"] for r in st.values())
+    print(f"[{tag}] {label} {what}: stage split over {folds} folds "
+          f"(total host {1000 * host:.1f} ms, "
+          f"{1000 * host / max(folds, 1):.2f} ms a fold): "
+          + "; ".join(parts))
+
+
+def graph_stats_line(st) -> str:
+    if st is None:
+        return "no loop graphs"
+    pool = "not named" if st["pool_bytes"] is None else \
+        f"{st['pool_bytes'] / 2 ** 20:.1f} MiB"
+    return (f"{st['captures']} loop graphs captured in "
+            f"{st['capture_s']:.3f} s on {st['capture_threads']}, pools "
+            f"{pool}, runs {st['runs']}")
+
+
+def loop_run(cfg, frames, chunk: int, vocab, kernels: dict,
+             loop_graphs: bool, capture: bool = False) -> dict:
+    """Phase 10's engine over the loop frames: the chunk graphed, the loop
+    programs replayed as CUDA graphs or (loop_graphs False, the host's
+    `graphs` off) run eagerly; every kernel's count set to 0 just before
+    and read just after, the launches by loop program, the fold's stage
+    split, and with `capture` the closer's top-2 inputs (LoopCapture: the
+    eager programs call the closer)."""
+    from slam_toolkit_tpu_torch.pipeline.scan_engine import ChunkedSlamEngine
+    from slam_toolkit_tpu_torch.utils.timing import StreamStages
+    eng = ChunkedSlamEngine(cfg, vocab=vocab, chunk_size=chunk,
+                            device="cuda")
+    eng._host.graphs = loop_graphs
+    eng._host.stages = StreamStages()
+    progs = ProgramCounts(eng)
+    cap = LoopCapture() if capture else None
+    for k in kernels.values():
+        k.launches = 0
+    chunk_s = []
+    try:
+        for i in range(0, len(frames), chunk):
+            t0 = time.perf_counter()
+            eng.process_chunk(frames[i:i + chunk])
+            torch.cuda.synchronize()
+            chunk_s.append(time.perf_counter() - t0)
+        eng.flush()
+        torch.cuda.synchronize()
+    finally:
+        progs.close()
+        if cap is not None:
+            cap.close()
+    return {"engine": eng, "chunk_s": chunk_s,
+            "launches": {n: k.launches for n, k in kernels.items()},
+            "programs": progs, "cap": cap,
+            "stages": eng._host.stages.summary(),
+            "graphs": eng._host.loop_graph_stats()}
+
+
+def loop_outcome(eng, gt, lap: int, revisit: int, n: int) -> dict:
+    """What a loop run gives: its events, replays, ATE and seam."""
     from slam_toolkit_tpu_torch.evaluation.traj import ate_rmse
+    from slam_toolkit_tpu_torch.tools import bench
+    traj = finite_trajectory(eng, n, "loop path")
+    c = bench._centers(traj)
+    return {"events": eng.loop_events, "replays": eng.n_replays,
+            "ate": ate_rmse(traj, gt, align=True),
+            "seam": float(np.mean(np.linalg.norm(
+                c[lap:lap + revisit] - c[:revisit], axis=1)))}
+
+
+def same_outcome(a: dict, b: dict, what: str) -> None:
+    """Two loop runs' events (closures and relocalizations, every field),
+    replays, ATE and seam exactly equal."""
+    for k in ("events", "replays", "ate", "seam"):
+        if a[k] != b[k]:
+            raise AssertionError(f"{what}: {k} differ: {a[k]} against "
+                                 f"{b[k]}")
+
+
+def phase10(cfg, kernels: dict, rows: list, label: str) -> dict:
+    """Loop closing at full width, the loop programs replayed as CUDA
+    graphs, then once more eagerly (the chunk graphed in both): the same
+    closures, events, ATE and seam, the same launches by kernel and by
+    loop program; the stage split of both. Returns the graphed run's
+    launch counts and engine."""
+    from slam_toolkit_tpu_torch.mapping.ba_adapter import seam_ba_step
+    from slam_toolkit_tpu_torch.mapping.map_state import MapState
+    from slam_toolkit_tpu_torch.ops import ba_kernel
     from slam_toolkit_tpu_torch.ops import match_kernel as mk
     from slam_toolkit_tpu_torch.tools import bench
+    from slam_toolkit_tpu_torch.utils import cuda_lib
+    from slam_toolkit_tpu_torch.utils.timing import StreamStages
     chunk = 16
+    t_phase = time.perf_counter()
     t0 = time.perf_counter()
     frames, gt = bench.stage_loop_frames(cfg, LOOP_FRAMES, chunk)
     t1 = time.perf_counter()
@@ -1183,61 +1333,96 @@ def phase10(cfg, kernels: dict, rows: list, label: str) -> dict:
     print(f"[phase10] frames ready in {t1 - t0:.1f} s, vocabulary "
           f"({vocab.num_words} words) in {time.perf_counter() - t1:.1f} s; "
           f"lap {lap}, revisit {revisit}")
-    for k in kernels.values():
-        k.launches = 0
-    cap = LoopCapture()
-    try:
-        eng, chunk_s = run_engine(cfg, frames, chunk, "cuda", vocab=vocab)
-    finally:
-        cap.close()
-    launches = {n: k.launches for n, k in kernels.items()}
-    traj = finite_trajectory(eng, LOOP_FRAMES, "loop path")
-    ate = ate_rmse(traj, gt, align=True)
-    c = bench._centers(traj)
-    seam = float(np.mean(np.linalg.norm(c[lap:lap + revisit] - c[:revisit],
-                                        axis=1)))
+    runs = {g: loop_run(cfg, frames, chunk, vocab, kernels, g,
+                        capture=not g) for g in (True, False)}
+    g_run, e_run = runs[True], runs[False]
+    eng = g_run["engine"]
+    out = {g: loop_outcome(r["engine"], gt, lap, revisit, LOOP_FRAMES)
+           for g, r in runs.items()}
+    launches = g_run["launches"]
     closures = [e for e in eng.loop_events if "cand" in e]
     relocs = [e for e in eng.loop_events if "reloc_to" in e]
-    print(f"[phase10] {label} {LOOP_FRAMES} frames: frames/s "
-          f"{LOOP_FRAMES / sum(chunk_s):.2f} (chunk seconds "
-          f"{[round(x, 3) for x in chunk_s]}), ATE {ate:.4f} m, seam "
-          f"{seam:.4f} m, keyframes {eng.n_keyframes}, closures "
-          f"{len(closures)}, replays {eng.n_replays}, relocalizations "
-          f"{len(relocs)}, pose-graph tiers {eng._host.close_tiers}")
+    folds = len(g_run["chunk_s"])
+    for g, r in runs.items():
+        what = "loop graphs" if g else "loop programs eager"
+        print(f"[phase10] {label} {what}, {LOOP_FRAMES} frames: frames/s "
+              f"{LOOP_FRAMES / sum(r['chunk_s']):.2f} (chunk seconds "
+              f"{[round(x, 3) for x in r['chunk_s']]}), ATE "
+              f"{out[g]['ate']:.4f} m, seam {out[g]['seam']:.4f} m, "
+              f"keyframes {r['engine'].n_keyframes}, closures "
+              f"{len(closures)}, replays {r['engine'].n_replays}, "
+              f"relocalizations {len(relocs)}, pose-graph tiers "
+              f"{r['engine']._host.close_tiers}")
+        print(f"[phase10] {label} {what}: launches {r['launches']}; top-2 "
+              f"by loop program {r['programs'].of('slam_topk2_match')}, "
+              f"local BA {r['programs'].of('slam_local_ba')}; calls "
+              f"{r['programs'].calls}")
+        print_stages("phase10", label, what, r["stages"], folds)
+    print(f"[phase10] {label} {graph_stats_line(g_run['graphs'])}")
     for e in closures:
         t_err, r_err, _ = bench.loop_edge_error(e, gt)
         print(f"[phase10] {label} closure frame {e['frame']} -> "
               f"{e['fid_cand']} (slots {e['kf_slot']} -> {e['cand']}): "
               f"{e['inliers']} inliers, {e['n_near']} near, loop-edge "
               f"error {t_err:.3f} m / {r_err:.2f} deg")
-    print(f"[phase10] {label} launches {launches}, top-2 launches from the "
-          f"closer's call sites {cap.launches}")
     if not closures or eng.n_replays < 1:
         raise AssertionError(f"no closure landed: {len(closures)} closures, "
                              f"{eng.n_replays} replays")
+    same_outcome(out[True], out[False], "phase 10, loop graphs against "
+                 "the eager loop programs")
+    if launches != e_run["launches"]:
+        raise AssertionError(f"launches differ: graphed {launches}, eager "
+                             f"{e_run['launches']}")
+    if g_run["programs"].launches != e_run["programs"].launches:
+        raise AssertionError(
+            f"launches by loop program differ: graphed "
+            f"{g_run['programs'].launches}, eager "
+            f"{e_run['programs'].launches}")
+    st = g_run["graphs"]
+    if st["captures"] != 6 or st["capture_threads"] != ["MainThread"]:
+        raise AssertionError(f"loop graphs: {st}")
     missing = [n for n, v in launches.items() if v == 0 and n != "fast_nms"]
     if missing:
         raise AssertionError(f"kernels not launched on the loop path: "
                              f"{missing}")
-    if cap.launches["relative_pose"] == 0 or \
-            "relative_pose" not in cap.args:
-        raise AssertionError("the relative pose launched no top-2 kernel")
+    closer = sum(g_run["programs"].of("slam_topk2_match").get(n, 0)
+                 for n in ("relpose", "reloc", "close"))
+    if not g_run["programs"].of("slam_topk2_match").get("relpose"):
+        raise AssertionError("the graphed relative pose launched no top-2 "
+                             "kernel")
+    cap = e_run["cap"]
+    if "relative_pose" not in cap.args:
+        raise AssertionError("the eager relative pose launched no top-2 "
+                             "kernel")
+    print(f"[phase10] {label} the same closures, events, ATE and seam, "
+          f"launches by kernel and by loop program, graphed and eager")
     # relocalization fires only after a lost streak, which this track
     # has not: re-track the revisit of the closure's candidate frame
-    # against it, through the same capture
+    # against it, eagerly through the capture, and through the graphed
+    # relocalization program
+    h = eng._host
     reloc = LoopCapture()
     try:
         e = closures[0]
         img = torch.from_numpy(np.array(frames[lap + e["fid_cand"], 0])).to(
             eng.device, torch.float32)
-        fr = eng._host._build(img)
+        fr = h._build(img)
         rel = reloc.closer.relocalize_frame(eng.map, fr.feats, fr.norm_xy,
                                             e["cand"], eng.cam, cfg)
     finally:
         reloc.close()
+    with cuda_lib.counting() as d:
+        rel_g = h._reloc(eng.map, fr.feats, fr.norm_xy, e["cand"])
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(rel_g, rel)) or \
+            d.get(mk.KERNEL, 0) != reloc.launches["relocalize_frame"]:
+        raise AssertionError("the graphed relocalization parts from the "
+                             "eager one")
     print(f"[phase10] {label} relocalization of frame {lap + e['fid_cand']} "
           f"against slot {e['cand']}: {int(rel.n_inliers)} inliers, ok "
-          f"{bool(rel.ok)}, top-2 launches {reloc.launches}")
+          f"{bool(rel.ok)}, top-2 launches {reloc.launches}; the graphed "
+          f"relocalization program bit-equal, {d.get(mk.KERNEL, 0)} top-2 "
+          f"launch")
     cap.args.update(reloc.args)
     synthetic_ms = next(r["ms"] for r in rows if r["name"] == "topk2_match")
     for site, args in cap.args.items():
@@ -1251,10 +1436,36 @@ def phase10(cfg, kernels: dict, rows: list, label: str) -> dict:
               f"phase 2's case; bound {b['bound_ms']:.6f} ms "
               f"({b['bound_by']})")
     check_seam_ba(eng, closures[0], label)
-    return {"launches": launches, "closer": sum(cap.launches.values()),
-            "frames": frames, "engine": eng, "closure": closures[0],
-            "gt": gt, "vocab": vocab, "chunk_s": chunk_s, "ate": ate,
-            "seam": seam}
+    # the graphed seam BA program on the final map against seam_ba_step
+    # on a copy; the map is put back after
+    m = eng.map
+    saved = MapState(*(t.clone() for t in m))
+    ref = MapState(*(t.clone() for t in m))
+    seam_st = StreamStages()
+    with cuda_lib.counting() as d_e, seam_st.stage("eager", eng.device):
+        seam_ba_step(ref, e["kf_slot"], e["cand"], eng.cam, cfg)
+    with cuda_lib.counting() as d_g, seam_st.stage("graphed", eng.device):
+        h._seam_ba(m, e["kf_slot"], e["cand"])
+    torch.cuda.synchronize()
+    seam_t = seam_st.summary()
+    moved = float((m.mp_invd - saved.mp_invd).abs().max())
+    if not all(torch.equal(a, b) for a, b in zip(m, ref)) or d_e != d_g:
+        raise AssertionError("the graphed seam BA parts from seam_ba_step")
+    for dst, src in zip(m, saved):
+        dst.copy_(src)
+    print(f"[phase10] {label} the graphed seam BA program on closure "
+          f"{e['kf_slot']}->{e['cand']}: map bit-equal to seam_ba_step's, "
+          f"local-BA launches {d_g.get(ba_kernel.KERNEL, 0)} (eager "
+          f"{d_e.get(ba_kernel.KERNEL, 0)}), largest inverse-depth change "
+          f"{moved:.3g}; seam BA stage: "
+          + "; ".join(f"{k} host {1000 * v['host_s']:.3f} ms, device "
+                      f"{v['device_ms']} ms" for k, v in seam_t.items()))
+    print(f"[phase10] {label} phase seconds "
+          f"{time.perf_counter() - t_phase:.1f}")
+    return {"launches": launches, "closer": closer, "frames": frames,
+            "engine": eng, "closure": closures[0], "gt": gt, "vocab": vocab,
+            "chunk_s": g_run["chunk_s"], "ate": out[True]["ate"],
+            "seam": out[True]["seam"], "eager_chunk_s": e_run["chunk_s"]}
 
 
 # ---------------------------------------------------------------- phase 11
@@ -2693,29 +2904,56 @@ def gil_ticks(seconds: float = None, until=None) -> float:
     return t, out
 
 
+def lockstep_run(eng, frames, chunk: int) -> None:
+    """`eng` over `frames` with its mapping worker in lockstep: after each
+    chunk the worker's jobs finish and the closures they decide land
+    (drain) before the next chunk, and each relative pose is waited for
+    where it is measured (so its event has completed when a job asks),
+    so that the schedule depends on no timing."""
+    measure = eng._measure
+
+    def waited(*args):
+        out = measure(*args)
+        torch.cuda.current_stream(eng.device).synchronize()
+        return out
+    eng._measure = waited
+    for i in range(0, len(frames), chunk):
+        eng.process_chunk(frames[i:i + chunk])
+        eng._worker.drain()
+    eng.flush()
+    torch.cuda.synchronize()
+
+
 def phase16(cfg, frames48, loop: dict, kernels: dict, label: str) -> dict:
     """The chunked engine's pipelined schedule at full width: phase 10's
     loop frames and vocabulary, graphed, at queue_depth=2 with the
-    mapping worker (loop_thread=True); then the open engine at depths 0
-    and 2 on phase 3's frames. Returns the launch counts."""
-    from slam_toolkit_tpu_torch.evaluation.traj import ate_rmse
+    mapping worker (loop_thread=True), its loop programs replayed as CUDA
+    graphs; then in lockstep with the loop graphs and with the loop
+    programs eager (the host's `graphs` off), which must agree exactly;
+    then the open engine at depths 0 and 2 on phase 3's frames. Returns
+    the launch counts."""
     from slam_toolkit_tpu_torch.ops import match_kernel as mk
     from slam_toolkit_tpu_torch.pipeline.scan_engine import \
         ChunkedSlamEngine
     from slam_toolkit_tpu_torch.tools import bench
     from slam_toolkit_tpu_torch.utils import cuda_lib
+    from slam_toolkit_tpu_torch.utils.timing import StreamStages
     t_phase = time.perf_counter()
     chunk = 16
     frames, gt, vocab = loop["frames"], loop["gt"], loop["vocab"]
     lap, revisit, _, _ = bench.loop_geometry(LOOP_FRAMES, chunk)
 
-    def pipelined():
-        return ChunkedSlamEngine(cfg, vocab=vocab, chunk_size=chunk,
-                                 device="cuda", queue_depth=2,
-                                 loop_thread=True)
+    def pipelined(loop_graphs: bool = True):
+        e = ChunkedSlamEngine(cfg, vocab=vocab, chunk_size=chunk,
+                              device="cuda", queue_depth=2,
+                              loop_thread=True)
+        e._host.graphs = loop_graphs
+        return e
 
-    # (a) the timed run: counts from 0 just before, read just after
+    # (a) the timed run, loop graphs: counts from 0 just before, read
+    # just after
     eng = pipelined()
+    eng._host.stages = StreamStages()
     spy = WorkerCounts(eng)
     flags = timed_flags(eng)
     for k in kernels.values():
@@ -2726,27 +2964,66 @@ def phase16(cfg, frames48, loop: dict, kernels: dict, label: str) -> dict:
     finally:
         spy.close()
     launches = {n: k.launches for n, k in kernels.items()}
-    traj = finite_trajectory(eng, LOOP_FRAMES, "pipelined loop path")
-    ate = ate_rmse(traj, gt, align=True)
-    c = bench._centers(traj)
-    seam = float(np.mean(np.linalg.norm(c[lap:lap + revisit] - c[:revisit],
-                                        axis=1)))
+    out = loop_outcome(eng, gt, lap, revisit, LOOP_FRAMES)
+    ate, seam = out["ate"], out["seam"]
     closures = [e for e in eng.loop_events if "cand" in e]
     fps = LOOP_FRAMES / sum(chunk_s)
-    fps_all = LOOP_FRAMES / (sum(chunk_s) + flush_s)
-    print(f"[phase16] {label} queue depth 2 + mapping worker, "
+    print(f"[phase16] {label} queue depth 2 + mapping worker, loop graphs, "
           f"{LOOP_FRAMES} frames: frames/s {fps:.2f} over the chunks, "
-          f"{fps_all:.2f} with the flush (chunk seconds "
-          f"{[round(x, 3) for x in chunk_s]}, flush {flush_s:.3f} s), ATE "
-          f"{ate:.4f} m, seam {seam:.4f} m, keyframes {eng.n_keyframes}, "
-          f"closures {len(closures)} (frames "
+          f"{LOOP_FRAMES / (sum(chunk_s) + flush_s):.2f} with the flush "
+          f"(chunk seconds {[round(x, 3) for x in chunk_s]}, flush "
+          f"{flush_s:.3f} s), ATE {ate:.4f} m, seam {seam:.4f} m, keyframes "
+          f"{eng.n_keyframes}, closures {len(closures)} (frames "
           f"{[(e['frame'], e['fid_cand']) for e in closures]}, landed with "
           f"{eng.closures_landed} frames run), replays {eng.n_replays}")
+    print_stages("phase16", label, "free-running, loop graphs",
+                 eng._host.stages.summary(), len(chunk_s))
+    print(f"[phase16] {label} {graph_stats_line(eng._host.loop_graph_stats())}")
     print(f"[phase16] {label} phase 10's inline run on the same frames: "
           f"frames/s {LOOP_FRAMES / sum(loop['chunk_s']):.2f} over the "
           f"chunks, ATE {loop['ate']:.4f} m, seam {loop['seam']:.4f} m, "
           f"closures {len([e for e in loop['engine'].loop_events if 'cand' in e])}"
           f", replays {loop['engine'].n_replays}")
+    # the loop graphs against the eager loop programs, both in lockstep:
+    # no timing left in the schedule, so they must agree exactly; the
+    # eager run's worker hands its first relative pose's top-2 inputs
+    # over (a replayed graph calls no Python)
+    lock = {}
+    for loop_graphs in (True, False):
+        e = pipelined(loop_graphs)
+        e._host.stages = StreamStages()
+        sp = None if loop_graphs else WorkerCounts(e)
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        try:
+            lockstep_run(e, frames, chunk)
+        finally:
+            if sp is not None:
+                sp.close()
+        wall = time.perf_counter() - t0
+        lock[loop_graphs] = (loop_outcome(e, gt, lap, revisit, LOOP_FRAMES),
+                             {n: k.launches for n, k in kernels.items()}, sp)
+        print_stages("phase16", label, f"lockstep ({wall:.2f} s), "
+                     + ("loop graphs" if loop_graphs else
+                        "loop programs eager"),
+                     e._host.stages.summary(), len(range(0, len(frames),
+                                                         chunk)))
+        if e._worker.error is not None or e._closure_pend or \
+                e._loop_stash or e._worker.outstanding:
+            raise AssertionError("the worker left an exception or work "
+                                 "behind")
+    same_outcome(lock[True][0], lock[False][0], "phase 16 lockstep, loop "
+                 "graphs against the eager loop programs")
+    if lock[True][1] != lock[False][1]:
+        raise AssertionError(f"phase 16 lockstep launches differ: "
+                             f"{lock[True][1]} against {lock[False][1]}")
+    lc = [x for x in lock[True][0]["events"] if "cand" in x]
+    print(f"[phase16] {label} lockstep (the worker's jobs done before each "
+          f"next chunk), loop graphs and eager loop programs: the same "
+          f"closures {[(x['frame'], x['fid_cand']) for x in lc]}, events, "
+          f"ATE {lock[True][0]['ate']:.4f} m and seam "
+          f"{lock[True][0]['seam']:.4f} m, launches {lock[True][1]}")
     # the queue alone, without the thread, right after: which of the two
     # moves the chunk's wall
     eng_q = ChunkedSlamEngine(cfg, vocab=vocab, chunk_size=chunk,
@@ -2769,9 +3046,9 @@ def phase16(cfg, frames48, loop: dict, kernels: dict, label: str) -> dict:
           f"jobs { {getattr(k, 'symbol', '?'): n for k, n in spy.job_launches.items()} }"
           f"; the closer's relative pose: {len(on_worker)} calls on the "
           f"worker ({sum(s for s, _ in on_worker)} on its stream, "
-          f"{worker_top2} top-2 launches), {len(on_main)} on the main "
-          f"thread at the flush ({sum(n for _, n in on_main)} top-2 "
-          f"launches)")
+          f"{worker_top2} top-2 launches from their graphs' replays), "
+          f"{len(on_main)} on the main thread at the flush "
+          f"({sum(n for _, n in on_main)} top-2 launches)")
     if not closures or eng.n_replays < 1:
         raise AssertionError(f"pipelined: {len(closures)} closures, "
                              f"{eng.n_replays} replays")
@@ -2785,6 +3062,9 @@ def phase16(cfg, frames48, loop: dict, kernels: dict, label: str) -> dict:
     if not all(s for s, _ in on_worker):
         raise AssertionError("a relative pose on the worker ran on "
                              "another stream than the worker's")
+    st = eng._host.loop_graph_stats()
+    if st["captures"] != 12 or st["capture_threads"] != ["MainThread"]:
+        raise AssertionError(f"loop graphs under the worker: {st}")
     for name, k in kernels.items():
         made = main_counts.get(k, 0) + spy.job_launches.get(k, 0)
         if launches[name] != made:
@@ -2798,7 +3078,7 @@ def phase16(cfg, frames48, loop: dict, kernels: dict, label: str) -> dict:
     if eng._worker.error is not None or eng._closure_pend or \
             eng._loop_stash or eng._worker.outstanding:
         raise AssertionError("the worker left an exception or work behind")
-    *t, r = spy.args
+    *t, r = lock[False][2].args
     topk2_exact(t, r, "the mapping worker's relative pose")
     b, _ = topk2_bound(t, r)
     print(f"[phase16] {label} top-2 from the worker's relative pose "

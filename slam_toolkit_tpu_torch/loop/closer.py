@@ -41,8 +41,10 @@ from slam_toolkit_tpu_torch.geometry import se3, sim3
 from slam_toolkit_tpu_torch.geometry.camera import StereoCamera
 from slam_toolkit_tpu_torch.loop.detector import insertion_rank
 from slam_toolkit_tpu_torch.mapping.map_state import (MapState, _top_slots,
+                                                      at,
                                                       covisibility_counts,
                                                       mappoint_positions_at,
+                                                      row,
                                                       unique_prioritized)
 from slam_toolkit_tpu_torch.ops import hamming
 from slam_toolkit_tpu_torch.ops.extractor import FrameFeatures
@@ -65,18 +67,28 @@ class RelPoseResult(NamedTuple):
 
 
 def _kf_features(m: MapState, slot) -> FrameFeatures:
-    """A FrameFeatures view of a stored keyframe row."""
+    """A FrameFeatures view of a stored keyframe row (slot a host int or a
+    0-dim tensor on the map's device)."""
     k = m.kf_xy.shape[1]
     dev = m.kf_xy.device
     zeros = torch.zeros((k,), dtype=torch.float32, device=dev)
     return FrameFeatures(
-        xy=m.kf_xy[slot], response=zeros,
+        xy=at(m.kf_xy, slot), response=zeros,
         octave=torch.zeros((k,), dtype=torch.int32, device=dev),
-        angle=zeros, sigma2=m.kf_sigma2[slot],
-        desc=m.kf_desc[slot].reshape(-1, 8), valid=m.kf_kpt_valid[slot])
+        angle=zeros, sigma2=at(m.kf_sigma2, slot),
+        desc=at(m.kf_desc, slot).reshape(-1, 8),
+        valid=at(m.kf_kpt_valid, slot))
 
 
-def _candidate_group_landmarks(m: MapState, cur_slot: int, cand_slot: int,
+def _slot(s, device) -> torch.Tensor:
+    """A keyframe slot as a 0-dim int64 tensor on `device` (a host int is
+    filled in, not uploaded)."""
+    if torch.is_tensor(s):
+        return s.reshape(()).long()
+    return torch.full((), int(s), dtype=torch.int64, device=device)
+
+
+def _candidate_group_landmarks(m: MapState, cur_slot, cand_slot,
                                cfg: SlamConfig):
     """Landmarks of the candidate and its top covisible neighbours at
     least min_kf_gap insertions older than the current keyframe,
@@ -94,13 +106,13 @@ def _candidate_group_landmarks(m: MapState, cur_slot: int, cand_slot: int,
     F = m.kf_valid.shape[0]
     K = m.kf_obs.shape[1]
     nb = cfg.loop.relpose_neighbor_kfs
-    ids = m.kf_obs[cand_slot]
+    ids = at(m.kf_obs, cand_slot)
     if nb > 0:
         cov = covisibility_counts(m, cand_slot)
         rank = insertion_rank(m)
         slots = torch.arange(F, device=cov.device)
         ok_nb = m.kf_valid & (slots != cand_slot) & \
-            (rank <= rank[cur_slot] - cfg.loop.min_kf_gap)
+            (rank <= at(rank, cur_slot) - cfg.loop.min_kf_gap)
         cov = torch.where(ok_nb, cov, torch.zeros_like(cov))
         cov_top, nbs = _top_slots(cov, nb)
         ids_n = m.kf_obs[nbs].reshape(-1)
@@ -114,17 +126,18 @@ def _candidate_group_landmarks(m: MapState, cur_slot: int, cand_slot: int,
     valid = ok & m.mp_valid[safe]
     if not cfg.loop.relpose_stereo_aug:
         return Xw, desc, valid
-    norm_c = m.kf_norm[cand_slot]                          # (K, 2)
-    disp_n = norm_c[:, 0] - m.kf_right_x_norm[cand_slot]
+    norm_c = at(m.kf_norm, cand_slot)                      # (K, 2)
+    disp_n = norm_c[:, 0] - at(m.kf_right_x_norm, cand_slot)
     baseline = cfg.camera.baseline
     z_c = baseline / torch.clamp(disp_n, min=1e-6)
-    aug_ok = (m.kf_kpt_valid[cand_slot] & m.kf_has_stereo[cand_slot]
+    aug_ok = (at(m.kf_kpt_valid, cand_slot) & at(m.kf_has_stereo, cand_slot)
               & (disp_n > 1e-6) & (z_c > 0.5)
               & (z_c < 2.0 * cfg.loop.relpose_depth_baselines * baseline))
     ray = torch.cat([norm_c, torch.ones_like(z_c)[:, None]], dim=-1)
-    Xw_aug = se3.transform(se3.inv(m.kf_T_cw[cand_slot]), ray * z_c[:, None])
+    Xw_aug = se3.transform(se3.inv(at(m.kf_T_cw, cand_slot)),
+                           ray * z_c[:, None])
     return (torch.cat([Xw, Xw_aug]),
-            torch.cat([desc, m.kf_desc[cand_slot].reshape(-1, 8)]),
+            torch.cat([desc, at(m.kf_desc, cand_slot).reshape(-1, 8)]),
             torch.cat([valid, aug_ok]))
 
 
@@ -202,7 +215,7 @@ def _ransac_consensus(T_pred: torch.Tensor, Xw: torch.Tensor,
     err = torch.linalg.vector_norm(Xc[..., :2] / zs[..., None]
                                    - z_norm[None], dim=-1)
     inl = good & (err < inlier_norm) & ok[None]
-    return inl[torch.argmax(torch.sum(inl, dim=-1))]
+    return row(inl, torch.argmax(torch.sum(inl, dim=-1)))
 
 
 def _decoupled_rt_refine(T0, Xw, z_norm, inv_sig, use, near, stereo,
@@ -256,7 +269,7 @@ def _decoupled_rt_refine(T0, Xw, z_norm, inv_sig, use, near, stereo,
     return T
 
 
-def _loop_scale(m: MapState, cur_slot: int, kpt, inlier, d_cand,
+def _loop_scale(m: MapState, cur_slot, kpt, inlier, d_cand,
                 cfg: SlamConfig) -> torch.Tensor:
     """Current/candidate map scale: the masked median of matched depth
     ratios, clamped to 1 +- max_scale_drift; 1 with fewer than
@@ -264,11 +277,11 @@ def _loop_scale(m: MapState, cur_slot: int, kpt, inlier, d_cand,
     one = torch.ones((), dtype=torch.float32, device=inlier.device)
     if cfg.loop.pose_graph_group != "sim3":
         return one
-    ids_cur = m.kf_obs[cur_slot][kpt.long()]
+    ids_cur = at(m.kf_obs, cur_slot)[kpt.long()]
     safe_cur = torch.where(ids_cur >= 0, ids_cur,
                            torch.zeros_like(ids_cur)).long()
     pair_ok = inlier & (ids_cur >= 0) & m.mp_valid[safe_cur]
-    d_cur = se3.transform(m.kf_T_cw[cur_slot],
+    d_cur = se3.transform(at(m.kf_T_cw, cur_slot),
                           mappoint_positions_at(m, safe_cur))[..., 2]
     pair_ok = pair_ok & (d_cur > 1e-3) & (d_cand > 1e-3)
     ratio = d_cur / torch.clamp(d_cand, min=1e-3)
@@ -276,20 +289,25 @@ def _loop_scale(m: MapState, cur_slot: int, kpt, inlier, d_cand,
     r_sorted = torch.sort(torch.where(pair_ok, ratio,
                                       torch.full_like(ratio, float("inf")))
                           ).values
-    med = r_sorted[torch.clamp(n_pairs - 1, min=0) // 2]
+    med = row(r_sorted, torch.clamp(n_pairs - 1, min=0) // 2)
     c = cfg.loop.max_scale_drift
     med = torch.clamp(med, 1.0 / (1.0 + c), 1.0 + c)
     return torch.where(n_pairs >= cfg.loop.min_scale_pairs, med, one)
 
 
-def relative_pose(m: MapState, cur_slot: int, cand_slot: int,
+def relative_pose(m: MapState, cur_slot, cand_slot,
                   cam: StereoCamera, cfg: SlamConfig) -> RelPoseResult:
     """Track the current keyframe against the candidate group's landmarks
-    (ref src/loopcloser.cpp:51-100, prediction = the candidate's pose)."""
-    cur_slot, cand_slot = int(cur_slot), int(cand_slot)
+    (ref src/loopcloser.cpp:51-100, prediction = the candidate's pose).
+    The slots are host ints or 0-dim tensors on the map's device; either
+    way they are read on the device (rows gathered with index_select, the
+    RANSAC key hashed there), so the function reads nothing back and a
+    CUDA graph can hold it."""
+    dev = m.kf_valid.device
+    cur_slot, cand_slot = _slot(cur_slot, dev), _slot(cand_slot, dev)
     Xw, desc, valid = _candidate_group_landmarks(m, cur_slot, cand_slot, cfg)
     feats = _kf_features(m, cur_slot)
-    T_pred = m.kf_T_cw[cand_slot]
+    T_pred = row(m.kf_T_cw, cand_slot)
     F = m.kf_valid.shape[0]
     key = threefry.fold_in(threefry.prng_key(7), cur_slot * F + cand_slot)
     fx = cam.left.fx
@@ -297,8 +315,8 @@ def relative_pose(m: MapState, cur_slot: int, cand_slot: int,
 
     def solve(kpt, ok, salt: int, T_seed):
         kl = kpt.long()
-        z_norm = m.kf_norm[cur_slot][kl]
-        sigma2 = m.kf_sigma2[cur_slot][kl] / (fx * fx)
+        z_norm = row(m.kf_norm, cur_slot)[kl]
+        sigma2 = row(m.kf_sigma2, cur_slot)[kl] / (fx * fx)
         consensus = _ransac_consensus(
             T_seed, Xw, z_norm, ok, cfg.tracker.reprojection_px / fx,
             threefry.fold_in(key, salt))
@@ -307,8 +325,8 @@ def relative_pose(m: MapState, cur_slot: int, cand_slot: int,
         use_near = use_c & near
         use = torch.where(torch.sum(use_near) >= cfg.loop.relpose_near_min,
                           use_near, use_c)
-        stereo = (m.kf_right_x_norm[cur_slot][kl],
-                  m.kf_has_stereo[cur_slot][kl].float(), cam.baseline)
+        stereo = (row(m.kf_right_x_norm, cur_slot)[kl],
+                  row(m.kf_has_stereo, cur_slot)[kl].float(), cam.baseline)
         T_est = pose_lm.optimize_pose(T_seed, Xw, z_norm, sigma2, use,
                                       cfg.tracker, stereo=stereo).T_cw
         if cfg.loop.relpose_rt_rounds > 0:
@@ -318,7 +336,7 @@ def relative_pose(m: MapState, cur_slot: int, cand_slot: int,
                 use_c, near, stereo, cfg.tracker.huber_delta,
                 cfg.loop.relpose_rt_rounds)
         inlier, depth = pose_lm.reprojection_inliers(
-            cam.left, T_est, Xw, m.kf_xy[cur_slot][kl], use,
+            cam.left, T_est, Xw, row(m.kf_xy, cur_slot)[kl], use,
             cfg.tracker.reprojection_px)
         return (T_est, torch.sum(inlier),
                 _loop_scale(m, cur_slot, kpt, inlier, depth, cfg),
@@ -366,15 +384,17 @@ def relative_pose(m: MapState, cur_slot: int, cand_slot: int,
 
 
 def relocalize_frame(m: MapState, frame_feats: FrameFeatures,
-                     frame_norm: torch.Tensor, cand_slot: int,
+                     frame_norm: torch.Tensor, cand_slot,
                      cam: StereoCamera, cfg: SlamConfig) -> RelPoseResult:
     """Re-track a lost frame against one keyframe's landmarks, matched at
-    twice the projection radius; accepted at reloc_min_matches."""
-    ids = m.kf_obs[cand_slot]
+    twice the projection radius; accepted at reloc_min_matches. The slot
+    is a host int or a 0-dim tensor on the map's device (nothing is read
+    back)."""
+    ids = at(m.kf_obs, cand_slot)
     safe = torch.where(ids >= 0, ids, torch.zeros_like(ids)).long()
     valid = (ids >= 0) & m.mp_valid[safe]
     Xw = mappoint_positions_at(m, safe)
-    T_pred = m.kf_T_cw[cand_slot]
+    T_pred = at(m.kf_T_cw, cand_slot)
     match = projection_match(Xw, m.mp_desc[safe], valid, frame_feats, T_pred,
                              cam, cfg.matcher,
                              2.0 * cfg.matcher.projection_radius)

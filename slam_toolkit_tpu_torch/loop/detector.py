@@ -16,9 +16,10 @@ import numpy as np
 import torch
 
 from slam_toolkit_tpu_torch.config import LoopConfig
-from slam_toolkit_tpu_torch.loop.vocab import bow_score
-from slam_toolkit_tpu_torch.mapping.map_state import (MapState,
-                                                      covisibility_counts)
+from slam_toolkit_tpu_torch.loop.vocab import TopWBow, bow_score
+from slam_toolkit_tpu_torch.mapping.map_state import (MapState, at,
+                                                      covisibility_counts,
+                                                      covisibility_rows)
 
 
 class LoopScores(NamedTuple):
@@ -39,24 +40,58 @@ def insertion_rank(m: MapState) -> torch.Tensor:
 
 def score_query(m: MapState, bow_db, bow_query, kf_slot,
                 cfg: LoopConfig) -> LoopScores:
-    """Score one keyframe's BoW against the whole database."""
+    """Score one keyframe's BoW against the whole database (kf_slot a
+    host int or a 0-dim tensor on the map's device)."""
     F = m.kf_valid.shape[0]
     slots = torch.arange(F, device=m.kf_valid.device)
     scores = bow_score(bow_query, bow_db)
     valid = m.kf_valid & (slots != kf_slot)
     scores = torch.where(valid, scores, torch.full_like(scores, -1.0))
     covis = covisibility_counts(m, kf_slot)
+    return _detect(m, scores, covis, valid, at(insertion_rank(m), kf_slot),
+                   cfg)
+
+
+def _detect(m: MapState, scores, covis, valid, rank_q,
+            cfg: LoopConfig) -> LoopScores:
+    """minScore from the best covisible neighbour, and the candidates:
+    valid, not covisible, min_kf_gap insertions older than the query
+    (rank_q, its insertion rank), scoring at least minScore. A leading
+    axis of queries on scores, covis, valid and rank_q."""
     neighbor = valid & (covis >= cfg.min_covisibility)
-    best_neighbor = torch.max(torch.where(neighbor, scores,
-                                          torch.zeros_like(scores)))
+    best_neighbor = torch.amax(torch.where(neighbor, scores,
+                                           torch.zeros_like(scores)), dim=-1)
     min_score = torch.clamp(cfg.min_score_ratio * best_neighbor,
                             min=cfg.min_score_floor)
     rank = insertion_rank(m)
-    old_enough = rank <= rank[kf_slot] - cfg.min_kf_gap
+    old_enough = rank <= rank_q[..., None] - cfg.min_kf_gap
     candidates = (valid & ~neighbor & old_enough &
-                  (scores >= torch.clamp(min_score, min=1e-6)))
+                  (scores >= torch.clamp(min_score, min=1e-6)[..., None]))
     return LoopScores(scores=scores, covis=covis, min_score=min_score,
                       candidates=candidates)
+
+
+def score_queries(m: MapState, bow_db, queries, kf_slots: torch.Tensor,
+                  cfg: LoopConfig) -> LoopScores:
+    """score_query for K keyframes at once: queries (K, W) dense rows or
+    a TopWBow of (K, w) rows, kf_slots (K,) on the map's device; each
+    field gains a leading K. The dense scores are one (K, F) reduction,
+    the covisibility rows a pass over kf_obs each (covisibility_rows)."""
+    F = m.kf_valid.shape[0]
+    K = kf_slots.shape[0]
+    slots = torch.arange(F, device=m.kf_valid.device)
+    if isinstance(bow_db, TopWBow):
+        scores = torch.stack([bow_score(TopWBow(queries.words[k],
+                                                queries.weights[k]), bow_db)
+                              for k in range(K)])
+    else:
+        scores = 1.0 - 0.5 * torch.sum(
+            torch.abs(bow_db[None] - queries[:, None]), dim=-1)
+    valid = m.kf_valid[None] & (slots[None] != kf_slots[:, None])
+    scores = torch.where(valid, scores, torch.full_like(scores, -1.0))
+    covis = covisibility_rows(m, kf_slots, torch.ones_like(valid[:, 0]))
+    rank_q = insertion_rank(m).index_select(0, kf_slots.long())
+    return _detect(m, scores, covis, valid, rank_q, cfg)
 
 
 def acc_score_retrieval(scores: np.ndarray, cand_slots: np.ndarray,

@@ -10,7 +10,7 @@ on tensors:
 - ``descriptor_words``: the greedy tree descent, L gather + argmin-over-k
   steps over every descriptor of a frame at once;
 - dense BoW: (num_words,) L1-normalized TF-IDF rows scored by the DBoW2
-  L1 similarity 1 - 0.5 |q - d|_1;
+  L1 similarity 1 - 0.5 |q - d|_1; bow_rows takes R frames at once;
 - top-w sparse BoW (ORBvoc-scale vocabularies): per-frame rows of the w
   heaviest (word, weight) entries sorted by word id. ``topw_l1_score``
   is a sorted intersection (torch.searchsorted of the query's w words in
@@ -20,7 +20,10 @@ on tensors:
   the matched words.
 
 Descriptor words are int32 here (uint32 in the JAX package, the same
-bits); ``Vocabulary`` holds tensors on one device (``to_device``).
+bits); ``Vocabulary`` holds tensors on one device (``to_device``). The
+database is written functionally (``db_set``, as in the JAX package) or
+in place in a buffer with a dump row (``db_write_``), which a CUDA graph
+can hold.
 """
 
 from __future__ import annotations
@@ -371,19 +374,24 @@ def bow_topw(voc: Vocabulary, desc: torch.Tensor, valid: torch.Tensor,
     the full vector before truncation; all work in K-space (K = #
     descriptors): a sorted-run histogram and a stable top-w (lax.top_k's
     index order on ties)."""
-    K = desc.shape[0]
-    words = descriptor_words(voc, desc, valid)
+    return _topw_of_words(voc, descriptor_words(voc, desc, valid), top_w)
+
+
+def _topw_of_words(voc: Vocabulary, words: torch.Tensor,
+                   top_w: int) -> TopWBow:
+    """bow_topw from a frame's (K,) word ids (-1 for invalid slots)."""
+    K = words.shape[0]
     w = voc.num_words
     safe = torch.where(words >= 0, words, torch.full_like(words, w))
     sw = torch.sort(safe).values                     # runs of equal words
     head = torch.ones_like(sw, dtype=torch.bool)
     head[1:] = sw[1:] != sw[:-1]
     run = torch.cumsum(head.long(), 0) - 1           # (K,) run index
-    counts = torch.zeros((K,), dtype=torch.int64, device=desc.device) \
+    counts = torch.zeros((K,), dtype=torch.int64, device=words.device) \
         .scatter_add_(0, run, (sw < w).long()).float()
     # representative word per run: every writer of a run writes the same
     rep = torch.full((K,), w, dtype=torch.int64,
-                     device=desc.device).scatter_(0, run, sw)
+                     device=words.device).scatter_(0, run, sw)
     idf = torch.cat([voc.weights, voc.weights.new_zeros(1)])[rep]
     vec = counts * idf
     vec = vec / torch.clamp(torch.sum(vec), min=1e-12)
@@ -439,10 +447,40 @@ def make_bow_db(voc: Vocabulary, capacity: int, sparse: bool, top_w: int):
 
 def bow_query(voc: Vocabulary, desc: torch.Tensor, valid: torch.Tensor,
               sparse: bool, top_w: int):
-    """One frame's BoW in the database's representation."""
+    """One frame's BoW in the database's representation; desc (R, K, 8)
+    and valid (R, K) give R rows at once (bow_rows)."""
+    if desc.dim() == 3:
+        return bow_rows(voc, desc, valid, sparse, top_w)
     if not sparse:
         return bow_vector(voc, desc, valid)
     return bow_topw(voc, desc, valid, top_w)
+
+
+def bow_rows(voc: Vocabulary, desc: torch.Tensor, valid: torch.Tensor,
+             sparse: bool, top_w: int):
+    """The BoW of R frames (desc (R, K, 8), valid (R, K)): one tree
+    descent over all R * K descriptors (each descriptor's word is its
+    own), then dense (R, num_words) rows from one integer histogram with
+    the rows offset (a scatter-add: torch.bincount on a card reads its
+    size back), each L1-normalized, or R top-w rows (TopWBow of (R,
+    w))."""
+    R, K = valid.shape
+    words = descriptor_words(voc, desc.reshape(R * K, 8),
+                             valid.reshape(-1)).reshape(R, K)
+    w = voc.num_words
+    if sparse:
+        rows = [_topw_of_words(voc, words[r], top_w) for r in range(R)]
+        return TopWBow(torch.stack([q.words for q in rows]),
+                       torch.stack([q.weights for q in rows]))
+    safe = torch.where(words >= 0, words, torch.full_like(words, w))
+    base = torch.arange(R, device=desc.device)[:, None] * (w + 1)
+    idx = (safe + base).reshape(-1)
+    hist = torch.zeros((R * (w + 1),), dtype=torch.int64,
+                       device=desc.device).scatter_add_(
+        0, idx, torch.ones_like(idx))
+    vec = hist.reshape(R, w + 1)[:, :w].float() * voc.weights
+    return vec / torch.clamp(torch.sum(torch.abs(vec), dim=1, keepdim=True),
+                             min=1e-12)
 
 
 def bow_score(query, db) -> torch.Tensor:
@@ -465,8 +503,36 @@ def _set_rows(rows: torch.Tensor, slot, new: torch.Tensor) -> torch.Tensor:
 
 
 def db_set(db, slot, query):
-    """Write one frame's BoW at `slot` (or a batch at (B,) slots)."""
+    """Write one frame's BoW at `slot` (or a batch at (B,) slots); a new
+    database (the JAX package's functional update)."""
     if isinstance(db, TopWBow):
         return TopWBow(words=_set_rows(db.words, slot, query.words),
                        weights=_set_rows(db.weights, slot, query.weights))
     return _set_rows(db, slot, query)
+
+
+def make_bow_db_buffer(voc: Vocabulary, capacity: int, sparse: bool,
+                       top_w: int):
+    """An empty database with one dump row past the end (capacity + 1
+    rows), for db_write_; db_rows gives the capacity rows the scoring
+    reads."""
+    return make_bow_db(voc, capacity + 1, sparse, top_w)
+
+
+def db_rows(buf):
+    """The database rows of a make_bow_db_buffer buffer (a view)."""
+    if isinstance(buf, TopWBow):
+        return TopWBow(buf.words[:-1], buf.weights[:-1])
+    return buf[:-1]
+
+
+def db_write_(buf, slots: torch.Tensor, query) -> None:
+    """Write R frames' BoW rows (query: R dense rows or a TopWBow of R
+    rows) at the (R,) device slots in place; a slot >= capacity writes
+    the dump row, which nothing reads. No tensor is allocated for the
+    database, so a CUDA graph can hold the write."""
+    parts = zip(buf, query) if isinstance(buf, TopWBow) else ((buf, query),)
+    for dst, src in parts:
+        last = dst.shape[0] - 1
+        dst.index_copy_(0, torch.clamp(slots.long(), max=last),
+                        src.to(dst.dtype))

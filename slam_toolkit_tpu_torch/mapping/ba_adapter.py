@@ -77,13 +77,17 @@ def select_points(m: MapState, window: torch.Tensor, P: int):
 def select_seam_window(m: MapState, cur, cand, W: int
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Both-sides window around a just-closed seam: the current and the
-    candidate keyframe forced in, then the keyframes most covisible with
-    either (ties in index order, as lax.top_k)."""
+    candidate keyframe (host ints or 0-dim tensors on the map's device)
+    forced in, then the keyframes most covisible with either (ties in
+    index order, as lax.top_k)."""
     score = torch.maximum(covisibility_counts(m, cur),
                           covisibility_counts(m, cand)).float()
     score = torch.where(m.kf_valid, score, torch.full_like(score, -1.0))
-    score[int(cur)] = 1e9
-    score[int(cand)] = 1e9 - 1.0
+    for slot, v in ((cur, 1e9), (cand, 1e9 - 1.0)):
+        idx = slot.reshape(1).long() if torch.is_tensor(slot) else \
+            torch.full((1,), int(slot), dtype=torch.int64,
+                       device=score.device)
+        score.index_fill_(0, idx, v)
     vals, slots = _top_slots(score, W)
     return slots.int(), (vals > 0) & m.kf_valid[slots]
 

@@ -193,6 +193,11 @@ def row(t: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     return t.index_select(0, i.reshape(1))[0]
 
 
+def at(t: torch.Tensor, i) -> torch.Tensor:
+    """t[i] for a host int or a 0-dim index tensor (row)."""
+    return row(t, i) if torch.is_tensor(i) else t[int(i)]
+
+
 def insert_keyframe(m: MapState, frame: FrameState, T_cw: torch.Tensor,
                     frame_id, mp_ids: torch.Tensor,
                     mp_kpt: torch.Tensor, mp_tracked: torch.Tensor,
@@ -320,16 +325,30 @@ def unique_prioritized(ids: torch.Tensor, num_out: int,
 
 
 def covisibility_counts(m: MapState, kf_slot) -> torch.Tensor:
-    """(F,) int32 number of mappoints keyframe `kf_slot` shares with each
-    keyframe: the query's observed ids marked in an (M,) mask (one value
-    written per index), gathered at every keyframe's observation row."""
+    """(F,) int32 number of mappoints keyframe `kf_slot` (a host int or a
+    0-dim tensor on the map's device) shares with each keyframe: the
+    query's observed ids marked in an (M,) mask (one value written per
+    index), gathered at every keyframe's observation row: one pass over
+    kf_obs."""
     M = m.mp_valid.shape[0]
-    q = m.kf_obs[kf_slot].long()
+    q = at(m.kf_obs, kf_slot).long()
     member = torch.zeros((M + 1,), dtype=torch.bool, device=q.device)
-    member[torch.where(q >= 0, q, torch.full_like(q, M))] = True
+    member.index_fill_(0, torch.where(q >= 0, q, torch.full_like(q, M)),
+                       True)
     obs = m.kf_obs.long()
     hit = (obs >= 0) & member[:M][torch.clamp(obs, min=0)]
     return torch.sum(hit, dim=1).int()
+
+
+def covisibility_rows(m: MapState, slots: torch.Tensor,
+                      valid: torch.Tensor) -> torch.Tensor:
+    """(R, F) int32 covisibility rows of the (R,) device slots, a pass over
+    kf_obs each; a row `valid` leaves out is zero (its slot is not
+    read)."""
+    safe = torch.where(valid, slots, torch.zeros_like(slots))
+    rows = torch.stack([covisibility_counts(m, safe[r])
+                        for r in range(safe.shape[0])])
+    return torch.where(valid[:, None], rows, torch.zeros_like(rows))
 
 
 def camera_frustum(cam_cfg, margin: float = 1.25):

@@ -25,9 +25,13 @@ The JAX package jits each program. Here the per-frame programs, _build
 and _track (or _track_direct), run on static buffers (_StaticTrack)
 and, on a card, as two CUDA graphs captured at the first tracking frame
 and replayed every frame after (graphs=True, the default); graphs=False
-runs them eagerly, bit-equal. The keyframe branch and the loop programs
-are eager PyTorch on the engine's device (the JAX package runs them as
-separate jitted calls). The chunked engine (pipeline/scan_engine.py)
+runs them eagerly, bit-equal. The loop programs (the BoW register and
+score, covisibility, relative pose, relocalization and seam BA) run the
+same way, a set of static buffers and graphs for each map they read
+(_LoopPrograms); _kf_row is folded into them, and _close stays eager.
+The keyframe branch is eager PyTorch on the engine's device (the JAX
+package runs it as separate jitted calls). The chunked engine
+(pipeline/scan_engine.py)
 owns the map and the per-frame step when it drives this class for its
 loop phases (own_map=False): it sets `map` and the mirrors, and no
 second map is allocated. The pose-graph tiers are kept; the JAX
@@ -41,7 +45,8 @@ from __future__ import annotations
 import contextlib
 import threading
 import time
-from typing import List, Optional
+import weakref
+from typing import Callable, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -64,15 +69,24 @@ from slam_toolkit_tpu_torch.mapping.culling import (cull_most_redundant,
 from slam_toolkit_tpu_torch.mapping.map_state import (MapState,
                                                       camera_frustum,
                                                       covisibility_counts,
+                                                      covisibility_rows,
                                                       empty_map,
                                                       gather_local_landmarks,
                                                       insert_keyframe)
+from slam_toolkit_tpu_torch.ops.extractor import FrameFeatures
 from slam_toolkit_tpu_torch.utils.cuda_graphs import StepGraphs
+from slam_toolkit_tpu_torch.utils.device import upload
 
 MAX_CLOSED_LOOPS = 16
 # keyframe rows per chunk that _bow_register processes at once (the rest
 # go through _bow_register_only)
 BOW_ROWS = 4
+# covisibility rows one run of the covisibility program computes; n
+# candidate slots take ceil(n / COVIS_ROWS) runs
+COVIS_ROWS = 8
+# the packed chunk row's width and its slot and keyframe-flag columns
+# (pipeline/scan_engine.PACK_WIDTH)
+_PACK_WIDTH, _PACK_SLOT, _PACK_KF = 36, 32, 34
 # compact pose-graph problem sizes (close_loop's `tier`)
 _PG_TIERS = (32, 64, 128, 256, 512, 1024)
 
@@ -215,6 +229,209 @@ class _StaticTrack:
         return self.tracked
 
 
+def _tree_map(fn, x):
+    """fn over every tensor of a nest of (named) tuples; None stays."""
+    if x is None:
+        return None
+    if torch.is_tensor(x):
+        return fn(x)
+    vals = [_tree_map(fn, v) for v in x]
+    return type(x)(*vals) if hasattr(x, "_fields") else type(x)(vals)
+
+
+def _tree_copy(dst, src) -> None:
+    """Copy every tensor of `src` into the same place of `dst`."""
+    if dst is None:
+        return
+    if torch.is_tensor(dst):
+        dst.copy_(src)
+        return
+    for d, s_ in zip(dst, src):
+        _tree_copy(d, s_)
+
+
+def _copy_in(buf, value) -> None:
+    """A program input into its static buffer: a host int is filled in, a
+    host array uploaded without waiting, a tensor (or a nest of them)
+    copied on the current stream."""
+    if isinstance(value, (int, np.integer)):
+        buf.fill_(int(value))
+    elif isinstance(value, np.ndarray):
+        buf.copy_(upload(value, buf.device))
+    else:
+        _tree_copy(buf, value)
+
+
+class _LoopProgram(NamedTuple):
+    name: str
+    fn: Callable          # fn(engine, map, *inputs)
+    inputs: tuple         # static input buffers
+    gname: str            # its graph's name in _LoopPrograms.graphs
+    mutates_map: bool     # warm it up on a throwaway copy of the map
+
+
+class _LoopPrograms:
+    """SlamEngine's loop programs, the ones the JAX engine jits, on static
+    buffers: for each program and each map it reads, the inputs are
+    copied into static buffers and the program runs on them, its outputs
+    landing in static buffers that the next run overwrites. On a card each
+    (program, map) pair is a CUDA graph, captured once, with a memory pool
+    of its own (they replay in any order), and replayed; on the CPU the
+    same code runs eagerly on the same buffers. A graph records fixed
+    addresses, so a map is known by its tensors' addresses, and the
+    engines keep those in place: the chunked engine reads its static
+    carry's map and, under its mapping worker, two published copies, and
+    copies every change into them.
+
+    The programs (JAX names in brackets):
+    - register [_bow_register_only, and _loop_step's one row]: the BoW of
+      BOW_ROWS keyframe rows of a map, one descent over all their
+      descriptors, written into the database in place (rows left out go
+      to the dump row) and scored against it at once (score_queries);
+    - register_packed [_bow_register]: register on the first BOW_ROWS
+      keyframe rows of a chunk's packed rows, picked by a stable sort on
+      the device (lax.top_k's order), rows_capacity rows at most;
+    - covis [_covis]: COVIS_ROWS covisibility rows of device slots, a
+      valid mask for the padding;
+    - relpose [_relpose]: the closer's relative pose and its packed (20,)
+      row, the slot pair and the RANSAC key on the device;
+    - reloc [_reloc]: relocalize_frame of a frame's features against a
+      device slot;
+    - seam [_seam_ba]: seam BA over the window of a device slot pair, the
+      map updated in place.
+    [_kf_row] is folded into its callers: each program gathers a slot's
+    rows on the device (map_state.row), the host steps index with host
+    ints. _close stays eager (SlamEngine._close).
+
+    Outputs a caller keeps past the next run are copied out (relpose,
+    reloc, register: a measurement pending across folds, scores waiting
+    for their fold). A capture runs only on the thread that made the
+    engine and, once `frozen` is set, not at all: the chunked engine
+    captures every graph before its mapping worker's first job (a capture
+    in global mode fails while another thread uses the card) and then
+    freezes; a missing graph then raises. Nothing falls back to eager."""
+
+    NAMES = ("register", "register_packed", "covis", "relpose", "reloc",
+             "seam")
+
+    def __init__(self, eng: "SlamEngine"):
+        # a weak reference: the engine holds this object, and a cycle would
+        # leave the engine (and its graphs) to the cyclic collector
+        self._eng = weakref.ref(eng)
+        self.device = eng.device
+        self.cuda = self.device.type == "cuda"
+        self.graphs = StepGraphs(self.device, shared_pool=False) \
+            if self.cuda else None
+        self.rows_capacity = BOW_ROWS     # register_packed's chunk rows
+        self.frozen = False
+        self.owner = threading.current_thread()
+        self._progs: dict = {}            # (name, map key) -> _LoopProgram
+        self._out: dict = {}              # graph name -> static outputs
+        self.runs: dict = {n: 0 for n in self.NAMES}
+
+    @staticmethod
+    def _key(m: MapState) -> tuple:
+        return tuple(t.data_ptr() for t in m)
+
+    def _inputs(self, name: str, m: MapState) -> tuple:
+        dev = self.device
+
+        def i64(*shape):
+            return torch.zeros(shape, dtype=torch.int64, device=dev)
+
+        def flag(n):
+            return torch.zeros((n,), dtype=torch.bool, device=dev)
+        if name == "register":
+            return i64(BOW_ROWS), flag(BOW_ROWS)
+        if name == "register_packed":
+            return (torch.zeros((self.rows_capacity, _PACK_WIDTH),
+                                dtype=torch.float32, device=dev),)
+        if name == "covis":
+            return i64(COVIS_ROWS), flag(COVIS_ROWS)
+        if name == "reloc":
+            k = m.kf_xy.shape[1]
+
+            def f32(*shape):
+                return torch.zeros(shape, dtype=torch.float32, device=dev)
+            feats = FrameFeatures(
+                xy=f32(k, 2), response=f32(k),
+                octave=torch.zeros((k,), dtype=torch.int32, device=dev),
+                angle=f32(k), sigma2=f32(k),
+                desc=torch.zeros((k, 8), dtype=torch.int32, device=dev),
+                valid=flag(k))
+            return feats, f32(k, 2), i64()
+        return i64(), i64()                       # relpose, seam
+
+    def program(self, name: str, m: MapState) -> _LoopProgram:
+        key = (name, self._key(m))
+        prog = self._progs.get(key)
+        if prog is None:
+            fns = {"register": SlamEngine._register_static,
+                   "register_packed": SlamEngine._register_packed_static,
+                   "covis": lambda eng, m, s, v: covisibility_rows(m, s, v),
+                   "relpose": SlamEngine._relpose_program,
+                   "reloc": SlamEngine._reloc_program,
+                   "seam": SlamEngine._seam_program}
+            inputs = self._inputs(name, m)
+            prog = _LoopProgram(name, fns[name], (m,) + inputs,
+                                f"{name}#{len(self._progs)}", name == "seam")
+            self._progs[key] = prog
+        return prog
+
+    def _capture(self, prog: _LoopProgram) -> None:
+        if self.frozen or threading.current_thread() is not self.owner:
+            raise RuntimeError(
+                f"loop program {prog.name!r} has no CUDA graph for this map "
+                f"and may not be captured here (graphs are captured on the "
+                f"thread that made the engine, before any mapping job)")
+        g, eng = self.graphs, self._eng()
+        if prog.mutates_map:
+            warm = (MapState(*(t.clone() for t in prog.inputs[0])),) + \
+                prog.inputs[1:]
+            g.warm_up(prog.fn, eng, *warm)
+        else:
+            g.warm_up(prog.fn, eng, *prog.inputs)
+        self._out[prog.gname] = g.capture(prog.gname, prog.fn, eng,
+                                          *prog.inputs)
+
+    def prepare(self, maps, names=None) -> None:
+        """Capture (on a card) every program of `names` (default all) for
+        each map in `maps`, now, on this thread."""
+        for m in maps:
+            for name in names or self.NAMES:
+                prog = self.program(name, m)
+                if self.cuda and prog.gname not in self.graphs:
+                    self._capture(prog)
+
+    def run(self, name: str, m: MapState, *values, copy_out: bool = False):
+        """The program on map `m` with these inputs: its outputs, static
+        buffers the next run overwrites (copies with copy_out)."""
+        prog = self.program(name, m)
+        for buf, v in zip(prog.inputs[1:], values):
+            _copy_in(buf, v)
+        if self.cuda:
+            if prog.gname not in self.graphs:
+                self._capture(prog)
+            self.graphs.replay(prog.gname)
+            out = self._out[prog.gname]
+        else:
+            res = prog.fn(self._eng(), *prog.inputs)
+            out = self._out.get(prog.gname)
+            if out is None:
+                out = self._out[prog.gname] = _tree_map(torch.clone, res)
+            else:
+                _tree_copy(out, res)
+        self.runs[name] += 1
+        return _tree_map(torch.clone, out) if copy_out else out
+
+    def stats(self) -> Optional[dict]:
+        """The graphs' captures, capture seconds, pool bytes and capturing
+        threads, and the runs by program (None off a card)."""
+        if self.graphs is None:
+            return None
+        return dict(self.graphs.stats(), runs=dict(self.runs))
+
+
 class SlamEngine:
     """Stereo visual odometry / SLAM over a fixed-capacity device map.
 
@@ -222,10 +439,17 @@ class SlamEngine:
     detection, closing and relocalization; it is moved to `device`.
     Entry points run on `device` (default the card, which must exist).
     graphs=True (the default) runs process's per-frame programs on
-    static buffers, as CUDA graphs on a card (_StaticTrack); graphs=False
-    runs them eagerly, with the same results bit for bit.
+    static buffers, as CUDA graphs on a card (_StaticTrack), and the loop
+    programs the same way (_LoopPrograms: register, covisibility,
+    relative pose, relocalization, seam BA); graphs=False runs both
+    eagerly, with the same results bit for bit. The `graphs` attribute
+    is read at each loop program's call, so setting it to False turns
+    the loop graphs alone off.
     own_map=False is the chunked engine's host: no map is allocated, and
-    the caller sets `map` and the mirrors before any program runs."""
+    the caller sets `map` and the mirrors before any program runs.
+    `stages`, a utils.timing.StreamStages, times the loop's stages
+    (register, scores readback, covis, detect, relpose, relpose
+    readback, close, seam BA, snapshot, reloc) while set."""
 
     def __init__(self, cfg: Optional[SlamConfig] = None,
                  cam: Optional[StereoCamera] = None, vocab=None,
@@ -254,6 +478,7 @@ class SlamEngine:
         self._loop_events: List[dict] = []
         self.graphs = graphs
         self._static: Optional[_StaticTrack] = None
+        self.stages = None              # a StreamStages while timed
         # the photometric anchor ("direct" and "hybrid")
         self._kf_img: Optional[torch.Tensor] = None
         self._kf_ab = torch.zeros((2,), dtype=torch.float32,
@@ -274,8 +499,10 @@ class SlamEngine:
             loop = self.cfg.loop
             f = self.cfg.map.max_keyframes
             self._bow_sparse = vocab_mod.use_sparse(self.vocab, loop)
-            self.bow_db = vocab_mod.make_bow_db(
+            # the database in place, with a dump row (bow_db is its view)
+            self._db_buf = vocab_mod.make_bow_db_buffer(
                 self.vocab, f, self._bow_sparse, loop.bow_top_words)
+            self._loop = _LoopPrograms(self)
             self.consistency = det_mod.ConsistencyTracker(
                 loop.consistency_threshold)
             z = torch.zeros(MAX_CLOSED_LOOPS, dtype=torch.int32,
@@ -300,6 +527,22 @@ class SlamEngine:
         inliers): plain lists, JSON-serialisable."""
         return self._loop_events
 
+    @property
+    def bow_db(self):
+        """The keyframe BoW database: (F, num_words) rows, or a TopWBow of
+        (F, w) rows; a view of a buffer written in place. Assigning a
+        database copies it into that buffer."""
+        return vocab_mod.db_rows(self._db_buf)
+
+    @bow_db.setter
+    def bow_db(self, db) -> None:
+        cur = self.bow_db
+        pairs = zip(cur, db) if isinstance(cur, vocab_mod.TopWBow) else \
+            ((cur, db),)
+        for dst, src in pairs:
+            if src.data_ptr() != dst.data_ptr():
+                dst.copy_(src)
+
     @loop_events.setter
     def loop_events(self, v) -> None:        # checkpoint restore
         self._loop_events = list(v)
@@ -309,6 +552,18 @@ class SlamEngine:
         process's CUDA graphs; None where nothing was captured."""
         return None if self._static is None or self._static.graphs is None \
             else self._static.graphs.stats()
+
+    def loop_graph_stats(self) -> Optional[dict]:
+        """The loop programs' graphs: captures, capture seconds, pool
+        bytes, set-up launches, the capturing threads and the runs by
+        program; None without a vocabulary or off a card."""
+        return None if self.vocab is None else self._loop.stats()
+
+    def _stage(self, name: str):
+        """A block timed as loop stage `name` while `stages` is set."""
+        if self.stages is None:
+            return contextlib.nullcontext()
+        return self.stages.stage(name, self.device)
 
     # ----- device programs ----------------------------------------------
     def _build(self, img: torch.Tensor) -> FrameState:
@@ -398,13 +653,54 @@ class SlamEngine:
                                    self.cfg.loop.bow_top_words)
 
     def _loop_score(self, m, bow_db, query, slot) -> det_mod.LoopScores:
+        """One query's scores (the register program scores its rows at
+        once, det_mod.score_queries)."""
         return det_mod.score_query(m, bow_db, query, slot, self.cfg.loop)
 
-    def _covis(self, m: MapState, slots) -> torch.Tensor:
-        """(len(slots), F) covisibility rows, one per candidate slot."""
-        return torch.stack([covisibility_counts(m, int(s)) for s in slots])
+    # the loop programs' bodies: the eager path calls them with host ints
+    # and fresh tensors, _LoopPrograms with its static buffers
+    def _register_core(self, m: MapState, slots, valid, write):
+        """The BoW of keyframe rows `slots` (K,) of m, one descent over all
+        their descriptors; write(safe slots, queries) registers them (a
+        slot `valid` leaves out is F, the dump row) and returns the
+        database they are then all scored against (score_queries)."""
+        F = m.kf_valid.shape[0]
+        sl = slots.long()
+        desc = m.kf_desc.index_select(0, sl).reshape(sl.shape[0], -1, 8)
+        qs = self._bow(desc, m.kf_kpt_valid.index_select(0, sl))
+        safe = torch.where(valid, sl, torch.full_like(sl, F))
+        return det_mod.score_queries(m, write(safe, qs), qs, sl,
+                                     self.cfg.loop)
 
-    def _relpose(self, m: MapState, cur: int, cand: int):
+    def _register_static(self, m: MapState, slots, valid):
+        """_register_core writing the database in place (no new database
+        is allocated, so a CUDA graph can hold it)."""
+        def write(safe, qs):
+            vocab_mod.db_write_(self._db_buf, safe, qs)
+            return self.bow_db
+        return self._register_core(m, slots, valid, write)
+
+    @staticmethod
+    def _pick_rows(packed: torch.Tensor):
+        """The slots of a chunk's first BOW_ROWS keyframe rows (C, 36) and
+        which are keyframes: a priority that ranks keyframe rows by
+        position, stably sorted (lax.top_k's order on ties), so row i is
+        the chunk's i-th keyframe; non-keyframe rows fill the rest."""
+        slots = packed[:, _PACK_SLOT].long()
+        slot_valid = packed[:, _PACK_KF] > 0.5
+        C = packed.shape[0]
+        prio = torch.where(slot_valid,
+                           C - torch.arange(C, device=packed.device),
+                           torch.zeros(C, dtype=torch.int64,
+                                       device=packed.device))
+        vals, rows = torch.sort(prio, descending=True, stable=True)
+        K = min(BOW_ROWS, C)
+        return slots[rows[:K]], vals[:K] > 0
+
+    def _register_packed_static(self, m: MapState, packed):
+        return self._register_static(m, *self._pick_rows(packed))
+
+    def _relpose_program(self, m: MapState, cur, cand):
         """(RelPoseResult, packed (20,) [T(16), n_inliers, ok, scale,
         n_near]): one device->host read for the host's consumers."""
         rel = closer_mod.relative_pose(m, cur, cand, self.cam, self.cfg)
@@ -413,9 +709,56 @@ class SlamEngine:
             rel.n_near.float()])])
         return rel, packed
 
-    def _reloc(self, m: MapState, feats, norm, cand: int):
+    def _reloc_program(self, m: MapState, feats, norm, cand):
         return closer_mod.relocalize_frame(m, feats, norm, cand, self.cam,
                                            self.cfg)
+
+    def _seam_program(self, m: MapState, cur, cand) -> None:
+        seam_ba_step(m, cur, cand, self.cam, self.cfg)
+
+    # the loop programs the host steps call (the JAX names)
+    def _covis(self, m: MapState, slots) -> torch.Tensor:
+        """(len(slots), F) covisibility rows, one per candidate slot (host
+        ints): COVIS_ROWS a run of the covisibility program, padded."""
+        slots = np.asarray(slots, np.int64).reshape(-1)
+        with self._stage("covis"):
+            if not self.graphs:
+                return torch.stack([covisibility_counts(m, int(s))
+                                    for s in slots])
+            out = []
+            for j in range(0, len(slots), COVIS_ROWS):
+                batch = slots[j:j + COVIS_ROWS]
+                pad = np.zeros(COVIS_ROWS, np.int64)
+                pad[:len(batch)] = batch
+                rows = self._loop.run("covis", m, pad,
+                                      np.arange(COVIS_ROWS) < len(batch))
+                out.append(rows[:len(batch)].clone())
+            return torch.cat(out)
+
+    def _relpose(self, m: MapState, cur, cand):
+        """(RelPoseResult, packed (20,)) of keyframe cur against cand; with
+        graphs, copies the program's outputs own (a measurement waits
+        across folds while later ones run)."""
+        with self._stage("relpose"):
+            if not self.graphs:
+                return self._relpose_program(m, int(cur), int(cand))
+            return self._loop.run("relpose", m, cur, cand, copy_out=True)
+
+    def _reloc(self, m: MapState, feats, norm, cand):
+        with self._stage("reloc"):
+            if not self.graphs:
+                return self._reloc_program(m, feats, norm, int(cand))
+            return self._loop.run("reloc", m, feats, norm, cand,
+                                  copy_out=True)
+
+    def _seam_ba(self, m: MapState, cur, cand) -> MapState:
+        """Seam BA on m in place; returns m."""
+        with self._stage("seam BA"):
+            if not self.graphs:
+                seam_ba_step(m, int(cur), int(cand), self.cam, self.cfg)
+            else:
+                self._loop.run("seam", m, cur, cand)
+        return m
 
     def _close(self, m, cur: int, cand: int, T_loop, ci, cj, cT, cv, cw,
                k: int, scale, q, tier: int):
@@ -423,7 +766,13 @@ class SlamEngine:
         relative pose's inlier count over 2 min_matches, clipped; the
         ring records the edge relative to the pre-correction candidate
         (SE3), or post-correction at unit scale (Sim3: close_loop has
-        rescaled the anchored depths, so the map is metric again)."""
+        rescaled the anchored depths, so the map is metric again).
+
+        Eager on purpose, with graphs too: it runs once a closure; the
+        pose graph is solved at one of six sizes (_PG_TIERS), so a graph
+        would be needed a tier, whose capture costs more than the one
+        closure saves; and optim/pose_graph.SegmentSum reads its width
+        back to the host, which a graph cannot hold."""
         cfg = self.cfg
         w = torch.clamp(q / (2.0 * cfg.loop.min_matches),
                         cfg.loop.loop_edge_min_weight, 1.0)
@@ -440,52 +789,51 @@ class SlamEngine:
         ci[k], cj[k], cT[k], cv[k], cw[k] = cand, cur, loop_T, True, w
         return m, ci, cj, cT, cv, cw
 
-    def _bow_queries(self, m: MapState, slots: torch.Tensor):
-        return [self._bow(m.kf_desc[s].reshape(-1, 8), m.kf_kpt_valid[s])
-                for s in slots.long()]
-
-    def _register_and_score(self, m, bow_db, slots, valid):
-        F = m.kf_valid.shape[0]
-        qs = self._bow_queries(m, slots)
-        safe = torch.where(valid, slots.long(), torch.full_like(
-            slots.long(), F))
-        if self._bow_sparse:
-            batch = vocab_mod.TopWBow(torch.stack([q.words for q in qs]),
-                                      torch.stack([q.weights for q in qs]))
-        else:
-            batch = torch.stack(qs)
-        db = vocab_mod.db_set(bow_db, safe, batch)
-        sc = _stack_scores([self._loop_score(m, db, q, s)
-                            for q, s in zip(qs, slots.long())])
-        return db, sc
+    def _register(self, m: MapState, slots, valid):
+        """Register and score keyframe rows (BOW_ROWS slots and their mask,
+        host arrays or device tensors): the register program, replayed
+        with graphs, else its body run eagerly."""
+        with self._stage("register"):
+            if self.graphs:
+                return self._loop.run("register", m, slots, valid,
+                                      copy_out=True)
+            if isinstance(slots, np.ndarray):
+                slots, valid = (upload(a, self.device) for a in (slots, valid))
+            return self._register_static(m, slots, valid)
 
     def _bow_register(self, m: MapState, bow_db, packed: torch.Tensor):
         """BoW of a chunk's first BOW_ROWS keyframe rows, registered in the
         database and scored against it, from the chunk's (C, 36) packed
-        rows on the device. Rows are picked by a priority that ranks
-        keyframe rows by position (a stable sort: lax.top_k's order on
-        ties), so score row i is the chunk's i-th keyframe; non-keyframe
-        rows fill the rest and are neither registered nor used."""
-        slots = packed[:, 32].int()
-        slot_valid = packed[:, 34] > 0.5
+        rows on the device (_pick_rows over the rows padded with
+        non-keyframe rows to at least BOW_ROWS, so that every path scores
+        BOW_ROWS rows): (the database, the scores, row i the chunk's i-th
+        keyframe). With graphs a chunk has at most
+        _LoopPrograms.rows_capacity rows (the chunked engine's
+        chunk_size)."""
         C = packed.shape[0]
-        prio = torch.where(slot_valid,
-                           C - torch.arange(C, device=packed.device),
-                           torch.zeros(C, dtype=torch.int64,
-                                       device=packed.device))
-        vals, rows = torch.sort(prio, descending=True, stable=True)
-        K = min(BOW_ROWS, C)
-        return self._register_and_score(m, bow_db, slots[rows[:K]],
-                                         vals[:K] > 0)
+        if not self.graphs:
+            if C < BOW_ROWS:
+                packed = torch.cat([packed, packed.new_zeros(
+                    (BOW_ROWS - C, packed.shape[1]))])
+            with self._stage("register"):
+                return self.bow_db, self._register_packed_static(m, packed)
+        cap = self._loop.rows_capacity
+        if C > cap:
+            raise ValueError(f"a chunk of {C} rows: the graphed BoW "
+                             f"register takes at most {cap} (chunk_size)")
+        with self._stage("register"):
+            buf = self._loop.program("register_packed", m).inputs[1]
+            buf.zero_()
+            buf[:C].copy_(packed)
+            sc = self._loop.run("register_packed", m, copy_out=True)
+        return self.bow_db, sc
 
     def _bow_register_only(self, m: MapState, bow_db, slots, valid):
         """Register and score keyframe rows beyond a chunk's first
-        BOW_ROWS: an unregistered dense row is all zero and scores 0.5
-        against every normalized query, a standing false candidate."""
-        return self._register_and_score(m, bow_db, slots, valid)
-
-    def _seam_ba(self, m: MapState, cur: int, cand: int) -> MapState:
-        return seam_ba_step(m, cur, cand, self.cam, self.cfg)
+        BOW_ROWS (host arrays or device tensors of BOW_ROWS): an
+        unregistered dense row is all zero and scores 0.5 against every
+        normalized query, a standing false candidate."""
+        return self.bow_db, self._register(m, slots, valid)
 
     # ----- per-frame driver ---------------------------------------------
     def _upload(self, img) -> torch.Tensor:
@@ -635,7 +983,7 @@ class SlamEngine:
                                       self._lm[3], quality)
         self.n_keyframes += 1
         if self.vocab is not None:
-            self._loop_step(frame, int(slot))
+            self._loop_step(slot)
         if run_ba and self.n_keyframes >= 3:
             self.map = self._ba(self.map)
         self._refresh_kf_mirrors()
@@ -667,19 +1015,25 @@ class SlamEngine:
         return self.map.kf_T_cw.cpu().numpy()[valid]
 
     # ----- loop closing -------------------------------------------------
-    def _loop_step(self, frame: FrameState, slot: int) -> None:
-        """The new keyframe's BoW row registered, then its detection."""
-        q = self._bow(frame.feats.desc, frame.feats.valid)
-        self.bow_db = vocab_mod.db_set(self.bow_db, slot, q)
-        self._loop_kf_detect(slot, q)
+    def _loop_step(self, slot: torch.Tensor) -> None:
+        """The new keyframe's BoW row (slot, a 0-dim device tensor: the row
+        insert just wrote) registered and scored, as the register program's
+        one row, then its detection."""
+        sl = slot.reshape(1).long()
+        slots = torch.cat([sl, sl.new_zeros(BOW_ROWS - 1)])
+        valid = torch.arange(BOW_ROWS, device=self.device) == 0
+        sc = self._register(self.map, slots, valid)
+        self._loop_kf_detect(int(slot), sc)
 
-    def _loop_kf_detect(self, slot: int, q) -> None:
-        """Detection, consistency and closure for one new keyframe."""
+    def _loop_kf_detect(self, slot: int, sc: det_mod.LoopScores) -> None:
+        """Detection, consistency and closure for one new keyframe from
+        its scores (row 0 of sc)."""
         if self.n_keyframes < 3:
             return
-        sc = self._loop_score(self.map, self.bow_db, q, slot)
-        self._consume_scores(slot, sc.candidates.cpu().numpy(),
-                             sc.scores.cpu().numpy())
+        with self._stage("scores readback"):
+            cand, scores = (t.cpu().numpy() for t in (sc.candidates[0],
+                                                     sc.scores[0]))
+        self._consume_scores(slot, cand, scores)
 
     # ----- loop host steps ----------------------------------------------
 
@@ -733,20 +1087,22 @@ class SlamEngine:
         else:
             covis_rows = self._covis(self.map if m is None else m,
                                      raw_slots).cpu().numpy()
-        cand_slots, _ = det_mod.acc_score_retrieval(
-            scores, raw_slots, covis_rows, loop.acc_score_ratio,
-            loop.acc_group_size)
-        if len(cand_slots) == 0:
-            self.consistency.update([])
-            return []
-        row_of = {int(c): i for i, c in enumerate(raw_slots)}
-        groups = []
-        for cs in cand_slots:
-            cov = covis_rows[row_of[int(cs)]]
-            grp = set(np.flatnonzero(cov >= loop.min_covisibility).tolist())
-            grp.add(int(cs))
-            groups.append(grp)
-        accepted = self.consistency.update(groups)
+        with self._stage("detect"):
+            cand_slots, _ = det_mod.acc_score_retrieval(
+                scores, raw_slots, covis_rows, loop.acc_score_ratio,
+                loop.acc_group_size)
+            if len(cand_slots) == 0:
+                self.consistency.update([])
+                return []
+            row_of = {int(c): i for i, c in enumerate(raw_slots)}
+            groups = []
+            for cs in cand_slots:
+                cov = covis_rows[row_of[int(cs)]]
+                grp = set(np.flatnonzero(
+                    cov >= loop.min_covisibility).tolist())
+                grp.add(int(cs))
+                groups.append(grp)
+            accepted = self.consistency.update(groups)
         if not accepted:
             return []
         accepted.sort(key=lambda ci: -scores[cand_slots[ci]])
@@ -776,11 +1132,17 @@ class SlamEngine:
             corr_m = float(np.linalg.norm(
                 T_pre[:3, :3].T @ T_pre[:3, 3]
                 - T_meas[:3, :3].T @ T_meas[:3, 3]))
-        (self.map, self.closed_i, self.closed_j, self.closed_T,
-         self.closed_valid, self.closed_w) = self._close(
-            self.map, slot, cand, rel.T_cw, self.closed_i, self.closed_j,
-            self.closed_T, self.closed_valid, self.closed_w, k, rel.scale,
-            rel.n_inliers.float(), tier)
+        with self._stage("close"):
+            (m, self.closed_i, self.closed_j, self.closed_T,
+             self.closed_valid, self.closed_w) = self._close(
+                self.map, slot, cand, rel.T_cw, self.closed_i,
+                self.closed_j, self.closed_T, self.closed_valid,
+                self.closed_w, k, rel.scale, rel.n_inliers.float(), tier)
+            # into the map's own tensors: the loop programs' graphs read
+            # them at their addresses
+            for dst, src in zip(self.map, m):
+                if src.data_ptr() != dst.data_ptr():
+                    dst.copy_(src)
         if self.cfg.loop.seam_ba and \
                 corr_m >= self.cfg.loop.seam_ba_min_corr_m:
             self.map = self._seam_ba(self.map, slot, cand)
@@ -805,7 +1167,8 @@ class SlamEngine:
         for cand in self._detect_accept(slot, cand_mask, scores, covis_of,
                                         fid):
             rel, pk = self._relpose(self.map, slot, cand)
-            vals = pk.cpu().numpy()
+            with self._stage("relpose readback"):
+                vals = pk.cpu().numpy()
             if not vals[17] > 0.5:
                 continue
             fid_cand = int(self.map.kf_frame_id[cand])

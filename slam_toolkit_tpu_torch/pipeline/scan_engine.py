@@ -37,9 +37,9 @@ head through the latest keyframe, (3) consumes the detections stashed
 two folds earlier (accScore groups, consistency) and measures the
 accepted candidates' relative poses, and (4) stashes this chunk's
 detections with their covisibility rows. A pending measurement is
-consumed once it is a fold old and its result has landed (an event
-recorded after it has completed), or at 4 folds; on the CPU every
-result has landed, so the ages alone decide. Phases (2)-(4) run inline
+consumed once it is a fold old and, under the mapping worker, its result
+has landed (an event recorded after it has completed), or at 4 folds;
+inline, and on the CPU, the ages alone decide. Phases (2)-(4) run inline
 by default, or with loop_thread (SLAM_LOOP_THREAD) as jobs on a mapping
 thread with a CUDA stream of its own (_MappingWorker), beside the next
 chunk's replays; a closure it decides lands at the next chunk boundary.
@@ -779,15 +779,22 @@ class _MappingWorker:
             self.outstanding += 1
         self.jobs.put((kind, args))
 
+    def allocate(self, m: MapState) -> List[MapState]:
+        """Main thread: both published buffers, made once as copies of `m`
+        (the loop graphs that jobs replay are captured on them, so they
+        exist and hold a valid map before the first job)."""
+        if self.bufs[0] is None:
+            self.bufs = [MapState(*(t.clone() for t in m)) for _ in range(2)]
+        return list(self.bufs)
+
     def publish(self, m: MapState) -> None:
         """Main thread: copy the live map into the buffer no job holds."""
+        self.allocate(m)
         with self.lock:
             if self.held is not None:
                 j = 1 - self.held
             else:
                 j = 0 if self.newest is None else 1 - self.newest
-            if self.bufs[j] is None:
-                self.bufs[j] = MapState(*(torch.empty_like(t) for t in m))
             if self.done[j] is not None:
                 torch.cuda.current_stream(self.device).wait_event(
                     self.done[j])
@@ -897,8 +904,16 @@ class ChunkedSlamEngine:
     relocalization. Chunks run through make_chunk_fn: with graphs=True
     (the default) the step on a static carry, replayed as two CUDA
     graphs on a CUDA device, captured at the first chunk and never
-    again; graphs=False runs make_frame_body eagerly (the same rows bit
-    for bit), for comparisons.
+    again, and the loop programs on static buffers
+    (pipeline/engine._LoopPrograms), replayed as CUDA graphs captured
+    right after the first chunk, before any mapping job: for the static
+    carry's map and, with the mapping worker, its two published copies.
+    Every change the host makes to the carry (a cull, a closure, a
+    relocalization) is copied into the static carry, so those maps keep
+    their addresses. A chunk then has at most chunk_size frames (the
+    bootstrap frame aside). graphs=False runs make_frame_body and the
+    loop programs eagerly (the same rows, events and map bit for bit),
+    for comparisons.
 
     The schedule, under the JAX package's two knobs (None reads the
     environment variable of the same name):
@@ -967,7 +982,8 @@ class ChunkedSlamEngine:
         self._worker: Optional[_MappingWorker] = None
         if vocab is not None:
             self._host = SlamEngine(self.cfg, self.cam, vocab, self.device,
-                                    own_map=False)
+                                    own_map=False, graphs=graphs)
+            self._host._loop.rows_capacity = max(chunk_size, BOW_ROWS)
             self._loop_stash: List[dict] = []     # detections awaiting age 2
             self._closure_pend: List[dict] = []   # measurements awaiting age 1
             # keyframe frame ids by slot, from the folded rows
@@ -987,8 +1003,8 @@ class ChunkedSlamEngine:
 
     def warmup(self) -> None:
         """Nothing to compile ahead: the kernels build at first use, and
-        the CUDA graphs are captured in the first chunk (they need its
-        carry and images)."""
+        the CUDA graphs (the chunk's, then the loop programs') are
+        captured in the first chunk (they need its carry and images)."""
 
     # ---- bootstrap: the JAX host engine's first-frame keyframe --------
     def _bootstrap(self, left: torch.Tensor, right: torch.Tensor,
@@ -1098,6 +1114,7 @@ class ChunkedSlamEngine:
         if latest is not None:        # the frames in flight made no room
             self.carry = self._with_snapshot(self.carry._replace(m=m),
                                              latest)
+            self._settle()
 
     def _fold_down_to(self, depth: int) -> List[np.ndarray]:
         """Fold the oldest chunks until `depth` are in flight; their rows
@@ -1143,12 +1160,39 @@ class ChunkedSlamEngine:
         sc = None
         if self._host is not None:
             h = self._host
+            self._prepare_loop_graphs()
             with self._bow_guard():
                 h.bow_db, sc = h._bow_register(self.carry.m, h.bow_db, packed)
         if self._worker is not None:
             self._worker.publish(self.carry.m)
         self._pending.append({"packed": packed, "t0": t0, "n": len(imgs),
                               "sc": sc, "last_img": imgs[-1]})
+
+    def _prepare_loop_graphs(self) -> None:
+        """Once, on the main thread, before any mapping job: the loop
+        programs for the static carry's map (all of them) and the published
+        copies (those a job runs), captured as CUDA graphs on a card; then
+        no capture is allowed (_LoopPrograms.frozen)."""
+        h = self._host
+        if not h.graphs or h._loop.frozen or \
+                not isinstance(self._chunk, _StaticChunk):
+            return
+        h._loop.prepare([self.carry.m])
+        if self._worker is not None:
+            h._loop.prepare(self._worker.allocate(self.carry.m),
+                            ("register", "covis", "relpose"))
+        h._loop.frozen = True
+
+    def _settle(self) -> None:
+        """Hold the static carry: a carry the host rebuilt is copied into
+        its buffers (load_carry), so the map keeps the addresses the loop
+        graphs read. Nothing to do before the first chunk or without the
+        static step."""
+        ch = self._chunk
+        if isinstance(ch, _StaticChunk) and ch.static is not None and \
+                self.carry is not ch.static:
+            load_carry(ch.static, self.carry)
+            self.carry = ch.static
 
     def _fold_one(self) -> np.ndarray:
         """Fold the oldest chunk in flight: its one readback of packed
@@ -1243,6 +1287,7 @@ class ChunkedSlamEngine:
                 DirectState(T_cw=c.latest_T, a=c.kf_ab[0], b=c.kf_ab[1]),
                 c.kf_img, self.cam.left, c.lm_Xw, c.lm_valid, 1.0))
         self.carry = c
+        self._settle()
 
     def _loop_fold(self, packed_np: np.ndarray, p: dict) -> None:
         """The fold's loop work (JAX _fold_one with a vocabulary): host
@@ -1281,13 +1326,16 @@ class ChunkedSlamEngine:
             self._loop_phase1(p["sc"], packed_np, base_fid)
 
     def _submit(self, kind: str, args: tuple) -> None:
-        """Queue a job for the mapping worker. The CUDA graphs are
-        captured in the first chunk, before any job: a capture (global
-        mode) fails if another thread touches the card meanwhile."""
+        """Queue a job for the mapping worker. The CUDA graphs (the
+        chunk's and the loop programs') are captured in the first chunk,
+        before any job: a capture (global mode) fails if another thread
+        touches the card meanwhile."""
         if self.device.type == "cuda" and isinstance(
-                self._chunk, _StaticChunk) and self._chunk.graphs is None:
-            raise RuntimeError("a mapping job before the chunk's CUDA "
-                               "graphs were captured")
+                self._chunk, _StaticChunk) and (
+                    self._chunk.graphs is None or
+                    (self._host.graphs and not self._host._loop.frozen)):
+            raise RuntimeError("a mapping job before the chunk's and the "
+                               "loop programs' CUDA graphs were captured")
         self._worker.submit(kind, args)
 
     def _try_chunked_reloc(self, last_img) -> None:
@@ -1321,8 +1369,9 @@ class ChunkedSlamEngine:
             return
         m = self._read_map()
         n_cap = min(len(kf_rows), BOW_ROWS)
-        cand_np = sc.candidates[:n_cap].cpu().numpy()
-        scores_np = sc.scores[:n_cap].cpu().numpy()
+        with h._stage("scores readback"):
+            cand_np = sc.candidates[:n_cap].cpu().numpy()
+            scores_np = sc.scores[:n_cap].cpu().numpy()
         if len(kf_rows) > BOW_ROWS:
             extra = packed_np[kf_rows[BOW_ROWS:], 32].astype(np.int64)
             ex_c, ex_s = [cand_np], [scores_np]
@@ -1332,11 +1381,11 @@ class ChunkedSlamEngine:
                 pad[:len(batch)] = batch
                 vmask = np.arange(BOW_ROWS) < len(batch)
                 with self._bow_guard():
-                    h.bow_db, sc2 = h._bow_register_only(
-                        m, h.bow_db, torch.from_numpy(pad).to(self.device),
-                        torch.from_numpy(vmask).to(self.device))
-                ex_c.append(sc2.candidates[:len(batch)].cpu().numpy())
-                ex_s.append(sc2.scores[:len(batch)].cpu().numpy())
+                    h.bow_db, sc2 = h._bow_register_only(m, h.bow_db, pad,
+                                                         vmask)
+                with h._stage("scores readback"):
+                    ex_c.append(sc2.candidates[:len(batch)].cpu().numpy())
+                    ex_s.append(sc2.scores[:len(batch)].cpu().numpy())
             cand_np = np.concatenate(ex_c, axis=0)
             scores_np = np.concatenate(ex_s, axis=0)
         slots = packed_np[kf_rows, 32].astype(np.int64)
@@ -1412,9 +1461,13 @@ class ChunkedSlamEngine:
         hits are born a fold old): past the cooldown, the first candidate
         that measured ok and is no duplicate closes (_land_closure); the
         stashed covisibility rows are then re-read on the corrected map.
-        A result "has landed" when the event recorded after its packed
-        row has completed (the JAX engine's is_ready); on the CPU it
-        always has, so there the ages alone decide."""
+        Under the mapping worker a result "has landed" when the event
+        recorded after its packed row has completed (the JAX engine's
+        is_ready). Inline the ages alone decide, as on the CPU (where
+        every result has landed): the fold reads a result back once it
+        is a fold old, whatever the device's progress, so that the
+        inline schedule depends on no timing (a replayed graph returns
+        before its work is done, an eager program after most of it)."""
         h = self._host
         remaining = []
         while self._closure_pend:
@@ -1422,8 +1475,10 @@ class ChunkedSlamEngine:
             if ready_only:
                 age = pc.get("age", 1 if pc["ready"] else 0)
                 pc["age"] = age + 1
-                landed = age >= 4 or (age >= 1 and all(
-                    ev is None or ev.query() for _, (_, _, ev) in pc["rels"]))
+                landed = age >= 4 or (age >= 1 and (
+                    self._worker is None or all(
+                        ev is None or ev.query()
+                        for _, (_, _, ev) in pc["rels"])))
                 if not landed:
                     remaining.append(pc)
                     continue
@@ -1431,7 +1486,8 @@ class ChunkedSlamEngine:
                     < self.cfg.loop.closure_cooldown_kfs:
                 continue
             for cand, (rel, pk, _) in pc["rels"]:
-                vals = pk.cpu().numpy()
+                with h._stage("relpose readback"):
+                    vals = pk.cpu().numpy()
                 if not vals[17] > 0.5:
                     continue
                 fid_cand = int(self._kf_fid_host[cand])
@@ -1481,12 +1537,14 @@ class ChunkedSlamEngine:
         h._n_kf_valid_host = int(h.map.kf_valid.sum())
         latest_T_old = self.carry.latest_T
         h._dispatch_close(slot, cand, rel, fid, fid_cand, vals)
-        lm, latest_T, counts = h._snapshot(h.map)
-        self._rebuild_carry(
-            m=h.map, lm_Xw=lm[0], lm_desc=lm[1], lm_ids=lm[2],
-            lm_valid=lm[3], latest_slot=counts[0], latest_T=latest_T,
-            T_cw=se3.compose(se3.compose(self.carry.T_cw,
-                                         se3.inv(latest_T_old)), latest_T))
+        with h._stage("snapshot"):
+            lm, latest_T, counts = h._snapshot(h.map)
+            self._rebuild_carry(
+                m=h.map, lm_Xw=lm[0], lm_desc=lm[1], lm_ids=lm[2],
+                lm_valid=lm[3], latest_slot=counts[0], latest_T=latest_T,
+                T_cw=se3.compose(se3.compose(self.carry.T_cw,
+                                             se3.inv(latest_T_old)),
+                                 latest_T))
         self.n_replays += 1
         self.closures_landed.append(self._n_dispatched)
         if w is not None:

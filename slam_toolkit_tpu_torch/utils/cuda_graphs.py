@@ -17,13 +17,20 @@ capture, takes it back, and adds it on every replay of that graph. The
 warm-up's launches are set-up, as the kernels' build is: they are taken
 back too and kept in `setup_launches`.
 
+Graphs on one pool must replay in the order they were captured (a
+later graph's outputs may sit in an earlier one's scratch memory), as
+the chunk's two graphs do. Programs replayed in any order (the loop
+programs) take a pool each (shared_pool=False).
+
 A failed capture or replay raises; nothing falls back to eager launches.
 """
 
 from __future__ import annotations
 
+import gc
+import threading
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -32,16 +39,20 @@ from slam_toolkit_tpu_torch.utils import cuda_lib
 
 class StepGraphs:
     """Named CUDA graphs on one device, captured once on one shared memory
-    pool and replayed by name. `captures` and `capture_s` (warm-up
-    included) say what capturing cost."""
+    pool (or, with shared_pool=False, a pool each) and replayed by name.
+    `captures` and `capture_s` (warm-up included) say what capturing
+    cost; `capture_threads` names the threads that captured."""
 
-    def __init__(self, device):
+    def __init__(self, device, shared_pool: bool = True):
         self.device = torch.device(device)
+        self.shared_pool = shared_pool
         self.pool = None
+        self._pools: List = []
         self._graphs: Dict[str, tuple] = {}
         self.captures = 0
         self.capture_s = 0.0
         self.setup_launches: Dict[str, int] = {}
+        self.capture_threads: set = set()
 
     def warm_up(self, fn: Callable, *args) -> None:
         """fn(*args) once on a side stream, waited for; its launches are
@@ -66,16 +77,33 @@ class StepGraphs:
         if name in self._graphs:
             raise RuntimeError(f"graph {name!r} is captured already")
         t0 = time.perf_counter()
+        self.capture_threads.add(threading.current_thread().name)
         graph = torch.cuda.CUDAGraph()
-        with cuda_lib.counts_apart() as delta:
-            with torch.cuda.graph(graph, pool=self.pool):
-                out = fn(*args)
-        if self.pool is None:
-            self.pool = graph.pool()
+        # no garbage collection inside the capture: a collected object
+        # holding a CUDA graph destroys it, which a capturing stream
+        # refuses (and the capture is lost)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with cuda_lib.counts_apart() as delta:
+                with torch.cuda.graph(graph, pool=self.pool):
+                    out = fn(*args)
+        finally:
+            if collecting:
+                gc.enable()
+        if self.shared_pool:
+            if self.pool is None:
+                self.pool = graph.pool()
+                self._pools.append(self.pool)
+        else:
+            self._pools.append(graph.pool())
         self._graphs[name] = (graph, dict(delta))
         self.captures += 1
         self.capture_s += time.perf_counter() - t0
         return out
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._graphs
 
     def replay(self, name: str) -> None:
         graph, delta = self._graphs[name]
@@ -84,18 +112,19 @@ class StepGraphs:
             c.add(n)
 
     def pool_bytes(self) -> Optional[int]:
-        """Bytes the caching allocator holds in the graphs' shared pool, or
-        None where its snapshot names no pool."""
-        if self.pool is None:
+        """Bytes the caching allocator holds in the graphs' pools, or None
+        where its snapshot names no pool."""
+        if not self._pools:
             return 0
         segs = torch.cuda.memory_snapshot()
         if not any("segment_pool_id" in s for s in segs):
             return None
-        pool = tuple(self.pool)
+        pools = {tuple(p) for p in self._pools}
         return sum(s["total_size"] for s in segs
-                   if tuple(s.get("segment_pool_id", ())) == pool)
+                   if tuple(s.get("segment_pool_id", ())) in pools)
 
     def stats(self) -> dict:
         return {"captures": self.captures, "capture_s": self.capture_s,
                 "pool_bytes": self.pool_bytes(),
-                "setup_launches": dict(self.setup_launches)}
+                "setup_launches": dict(self.setup_launches),
+                "capture_threads": sorted(self.capture_threads)}

@@ -10,6 +10,12 @@ random bits, float32 uniforms in [0, 1), and the weighted choice as a
 left searchsorted of (1 - u) * total in the float32 cumulative sum,
 summed in XLA's order (rows of 16 summed in sequence, their totals
 prefix-summed the same way, recursively).
+
+A key is a pair of host ints, or a pair of 0-dim int64 tensors on a
+device (fold_in with a device count): then the hash, the uniforms and
+the choice run on that device in the same int64 arithmetic, with no
+host read, so that a CUDA graph can hold the draw (the loop closer's
+relative pose takes its slot pair on the device).
 """
 
 from __future__ import annotations
@@ -30,7 +36,13 @@ def _rotl(x, d: int):
 def threefry2x32(k1: int, k2: int, x1: np.ndarray, x2: np.ndarray):
     """Threefry-2x32 of the count pairs (x1, x2) under key (k1, k2):
     two uint32 arrays as int64 arrays."""
-    x = [np.asarray(x1, np.int64) & _M32, np.asarray(x2, np.int64) & _M32]
+    return _hash(k1, k2, np.asarray(x1, np.int64), np.asarray(x2, np.int64))
+
+
+def _hash(k1, k2, x1, x2):
+    """threefry2x32's rounds on int64 numpy arrays or tensors (keys ints
+    or 0-dim int64 tensors): the same operators on both."""
+    x = [x1 & _M32, x2 & _M32]
     ks = [k1 & _M32, k2 & _M32, (k1 ^ k2 ^ 0x1BD11BDA) & _M32]
     x[0] = (x[0] + ks[0]) & _M32
     x[1] = (x[1] + ks[1]) & _M32
@@ -48,8 +60,20 @@ def prng_key(seed: int):
     return (0, int(seed) & _M32)
 
 
-def fold_in(key, data: int):
-    """jax.random.fold_in: the hash of the count pair (0, data)."""
+def _on_device(key) -> bool:
+    return torch.is_tensor(key[0])
+
+
+def fold_in(key, data):
+    """jax.random.fold_in: the hash of the count pair (0, data). With a
+    device key or a 0-dim int tensor `data`, a device key (two 0-dim
+    int64 tensors)."""
+    if _on_device(key) or torch.is_tensor(data):
+        dev = (key[0] if _on_device(key) else data).device
+        d = data.reshape(1).long() if torch.is_tensor(data) else \
+            torch.full((1,), int(data), dtype=torch.int64, device=dev)
+        a, b = _hash(key[0], key[1], torch.zeros_like(d), d)
+        return (a[0], b[0])
     a, b = threefry2x32(key[0], key[1], np.array([0]), np.array([data]))
     return (int(a[0]), int(b[0]))
 
@@ -60,6 +84,17 @@ def random_bits(key, shape) -> np.ndarray:
     b1, b2 = threefry2x32(key[0], key[1], np.zeros(n, np.int64),
                           np.arange(n, dtype=np.int64))
     return (b1 ^ b2).astype(np.uint32).reshape(shape)
+
+
+def uniform_device(key, shape) -> torch.Tensor:
+    """uniform(key, shape) for a device key, on its device: the same
+    float32 bits. The mantissa word is below 2**31, so it passes through
+    int32 unchanged."""
+    n = int(np.prod(shape))
+    lo = torch.arange(n, dtype=torch.int64, device=key[0].device)
+    b1, b2 = _hash(key[0], key[1], torch.zeros_like(lo), lo)
+    word = (((b1 ^ b2) >> 9) | 0x3F800000).to(torch.int32)
+    return torch.clamp(word.view(torch.float32) - 1.0, min=0.0).reshape(shape)
 
 
 def uniform(key, shape) -> np.ndarray:
@@ -99,9 +134,11 @@ def xla_cumsum_rows(p: torch.Tensor, base: int = 16) -> torch.Tensor:
 
 def choice_p(key, p: torch.Tensor, shape) -> torch.Tensor:
     """jax.random.choice(key, len(p), shape, replace=True, p=p): indices
-    (int64, on p's device)."""
+    (int64, on p's device; a device key draws there, uploading
+    nothing)."""
     cum = xla_cumsum(p)
-    u = upload(uniform(key, shape), p.device)
+    u = uniform_device(key, shape) if _on_device(key) else \
+        upload(uniform(key, shape), p.device)
     r = cum[-1] * (1.0 - u)
     return torch.searchsorted(cum, r.reshape(-1)).reshape(shape)
 

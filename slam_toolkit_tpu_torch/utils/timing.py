@@ -5,13 +5,15 @@ instrumentation is one steady_clock measurement around Track() (ref
 src/pipeline.cpp:144,209-212). StageTimer ends each stage by waiting
 for the card (torch.cuda.synchronize on every device its result's
 tensors live on), so a stage's wall-clock time includes its queued
-device work; device_trace records a torch.profiler trace of a block.
+device work; device_trace records a torch.profiler trace of a block. StreamStages
+times stages on any thread and stream without synchronising them.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
 from collections import defaultdict
 from typing import Dict, List
@@ -76,6 +78,56 @@ class StageTimer:
             lines.append(f"{name:24s} {1000*tot/max(n,1):9.2f} ms/call "
                          f"x{n:5d} = {tot:7.2f} s")
         return "\n".join(lines)
+
+
+class StreamStages:
+    """Host and device time of named stages that run on any thread and
+    stream, without a synchronisation while they run: each stage records
+    the host clock and, on a card, a CUDA event on the current stream at
+    its start and end. summary() waits for the events and gives per stage
+    the count, the host seconds and the device milliseconds between each
+    pair of events (the stage's stream's time, a wait on another stream
+    included). The loop closer's fold stages read it
+    (pipeline/engine.SlamEngine.stages)."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.records: List[tuple] = []   # (name, host s, start, end)
+
+    @contextlib.contextmanager
+    def stage(self, name: str, device=None):
+        cuda = device is not None and torch.device(device).type == "cuda"
+        ev = None
+        if cuda:
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record(torch.cuda.current_stream(device))
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            host = time.perf_counter() - t0
+            if cuda:
+                ev[1].record(torch.cuda.current_stream(device))
+            with self.lock:
+                self.records.append((name, host, ev))
+
+    def summary(self) -> Dict[str, dict]:
+        """{stage: {"n", "host_s", "device_ms"}} in the order the stages
+        first ran; device_ms is None off a card."""
+        out: Dict[str, dict] = {}
+        with self.lock:
+            records = list(self.records)
+        for name, host, ev in records:
+            r = out.setdefault(name, {"n": 0, "host_s": 0.0,
+                                      "device_ms": None})
+            r["n"] += 1
+            r["host_s"] += host
+            if ev is not None:
+                ev[1].synchronize()
+                r["device_ms"] = (r["device_ms"] or 0.0) + \
+                    ev[0].elapsed_time(ev[1])
+        return out
 
 
 @contextlib.contextmanager

@@ -1363,3 +1363,148 @@ def test_graphed_option_chunks_match_eager(dev, name):
     assert g_l == e_l
     assert (e_l["slam_gather_blocks_bf16"] > 0) == (name == "O3")
     assert (e_l["slam_sad_curve"] > 0) == (name == "O2")
+
+
+def _loop_world():
+    """tests/test_loop_e2e.py's circle_setup world in the port's terms
+    (no jax): 1.5 laps of a 48-frame circle in a box room with a blind
+    window over frames 24-35, tiny config, and a vocabulary trained on
+    every 4th frame's descriptors."""
+    from slam_toolkit_tpu_torch.config import SlamConfig
+    from slam_toolkit_tpu_torch.data.synthetic import make_world, \
+        render_stereo
+    from slam_toolkit_tpu_torch.geometry import se3
+    from slam_toolkit_tpu_torch.loop import vocab as V
+    from slam_toolkit_tpu_torch.ops.extractor import extract
+    cfg = SlamConfig.tiny()
+    world = make_world(cfg, seed=5, half_width=15.0, half_length=15.0,
+                       ground_y=1.6, tex_size=1024)
+    n, radius = 48, 6.0
+    dT = se3.exp(torch.tensor([0, 0, 2 * np.pi * radius / n, 0,
+                               2 * np.pi / n, 0.0]))
+    T, gt = torch.eye(4), []
+    for _ in range(n):
+        gt.append(T.numpy().copy())
+        T = se3.normalize(dT @ T)
+    gt = gt + gt[:24]
+    frames = [render_stereo(world, T) for T in gt]
+    blind = np.random.default_rng(0)
+    for i in range(24, 36):
+        frames[i] = tuple(blind.uniform(0, 255, f.shape).astype(np.float32)
+                          for f in frames[i])
+    corpus = torch.cat([f.desc[f.valid] for f in (
+        extract(torch.from_numpy(lf), cfg.extractor)
+        for lf, _ in frames[::4])]).numpy()
+    voc = V.train(corpus, k=6, levels=3, seed=0)
+    arr = np.stack([np.stack([l, r]) for l, r in frames]).astype(np.float32)
+    return cfg, arr, voc
+
+
+@pytest.fixture(scope="module")
+def loop_runs():
+    """The chunked engine over _loop_world on the card, chunks of 8, with
+    the loop graphs and with the loop programs eager (the host's
+    `graphs` set to False; the chunk graphed in both): each run's engine
+    and the kernels' launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from slam_toolkit_tpu_torch.pipeline.scan_engine import ChunkedSlamEngine
+    from slam_toolkit_tpu_torch.utils import cuda_lib
+    cfg, arr, voc = _loop_world()
+    out = {}
+    for loop_graphs in (True, False):
+        eng = ChunkedSlamEngine(cfg, vocab=voc, chunk_size=8, device="cuda")
+        eng._host.graphs = loop_graphs
+        with cuda_lib.counting() as launched:
+            for i in range(0, len(arr), 8):
+                eng.process_chunk(arr[i:i + 8])
+            eng.flush()
+        torch.cuda.synchronize()
+        out[loop_graphs] = (eng, {c.symbol: n for c, n in launched.items()
+                                  if isinstance(c, cuda_lib.CudaKernel)})
+    return out
+
+
+def _closure_pair(eng):
+    e = next(e for e in eng.loop_events if "cand" in e)
+    return e["kf_slot"], e["cand"]
+
+
+def test_graphed_loop_engine_matches_eager(loop_runs):
+    """The chunked engine with its loop programs replayed as CUDA graphs
+    against the eager loop programs on the card: the same events (a
+    relocalization and a closure), replays, refined poses and map bit for
+    bit, the same kernel launches (from the replays), every graph
+    captured on the main thread."""
+    (g, gl), (e, el) = loop_runs[True], loop_runs[False]
+    assert {k for ev in g.loop_events for k in ("cand", "reloc_to")
+            if k in ev} == {"cand", "reloc_to"}, g.loop_events
+    assert g.loop_events == e.loop_events and g.n_replays == e.n_replays
+    np.testing.assert_array_equal(np.stack(g.trajectory_refined()),
+                                  np.stack(e.trajectory_refined()))
+    for f in g.map._fields:
+        assert torch.equal(getattr(g.map, f), getattr(e.map, f)), f
+    assert torch.equal(g._host.bow_db, e._host.bow_db)
+    assert gl == el and gl["slam_topk2_match"] > 0
+    st = g._host.loop_graph_stats()
+    assert st["captures"] == 6 and st["capture_threads"] == ["MainThread"]
+    assert st["runs"]["relpose"] > 0 and st["runs"]["reloc"] > 0
+    assert not any(e._host._loop.runs.values())
+
+
+def test_graphed_loop_programs_match_eager(loop_runs):
+    """One relative pose, one register, one covisibility batch (two
+    replays) and one seam BA, each replayed from its CUDA graph on the
+    engine's map against the eager program on the same inputs: bit-equal
+    outputs (the seam BA's map, every field) and equal launch counts."""
+    from slam_toolkit_tpu_torch.loop import vocab as V
+    from slam_toolkit_tpu_torch.mapping.ba_adapter import seam_ba_step
+    from slam_toolkit_tpu_torch.mapping.map_state import (MapState,
+                                                          covisibility_counts)
+    from slam_toolkit_tpu_torch.utils import cuda_lib
+    g, _ = loop_runs[True]
+    h, m = g._host, g.carry.m
+    cur, cand = _closure_pair(g)
+
+    def counted(fn, *a):
+        with cuda_lib.counting() as d:
+            out = fn(*a)
+        torch.cuda.synchronize()
+        return out, {c.symbol: n for c, n in d.items()}
+
+    (rel, pk), n_graph = counted(h._relpose, m, cur, cand)
+    (rel_e, pk_e), n_eager = counted(h._relpose_program, m, cur, cand)
+    assert torch.equal(pk, pk_e) and n_graph == n_eager
+    assert n_graph["slam_topk2_match"] >= 1
+    for a, b in zip(rel, rel_e):
+        assert torch.equal(a, b)
+
+    slots = torch.tensor([cur, cand, 0, 0], device="cuda")
+    valid = torch.tensor([True, True, False, False], device="cuda")
+    db0 = V.db_rows(h._db_buf).clone()
+    sc = h._loop.run("register", m, slots, valid, copy_out=True)
+    store = []
+
+    def write(safe, qs):
+        store.append(V.db_set(db0, safe, qs))
+        return store[0]
+    sc_e = h._register_core(m, slots, valid, write)
+    for a, b in zip(sc, sc_e):
+        assert torch.equal(a, b)
+    assert torch.equal(h.bow_db, store[0])
+
+    ids = np.array([cur, cand] + list(range(1, 10)))
+    rows = h._covis(m, ids)
+    want = torch.stack([covisibility_counts(m, int(s)) for s in ids])
+    assert torch.equal(rows, want)
+
+    saved = MapState(*(t.clone() for t in m))
+    ref = MapState(*(t.clone() for t in m))
+    _, n_e = counted(seam_ba_step, ref, cur, cand, g.cam, g.cfg)
+    _, n_g = counted(h._seam_ba, m, cur, cand)
+    for f in MapState._fields:
+        assert torch.equal(getattr(m, f), getattr(ref, f)), f
+    assert n_g == n_e and n_g["slam_local_ba"] == 1
+    for dst, src in zip(m, saved):
+        dst.copy_(src)

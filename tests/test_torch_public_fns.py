@@ -185,10 +185,17 @@ def test_detect_fused_matches_jax(border, dual):
 def test_native_loader_available(tmp_path, monkeypatch):
     """native_loader.available under its JAX name: True where the library
     builds (as here, with g++ and libpng's headers; JAX's answer agrees),
-    False where its source does not compile."""
+    False where its source does not compile. The JAX package's bindings
+    are pointed at the library the port built from the same source (as
+    test_torch_native_loader.py's jax_native fixture does), so its answer
+    does not hang on whether its own untracked native/libslamloader.so
+    was built before this test ran."""
     from slam_toolkit_tpu.data import native_loader as j_native
     from slam_toolkit_tpu_torch.data import native_loader
     assert native_loader.available() is True
+    monkeypatch.setattr(j_native, "_LIB_PATH",
+                        native_loader.library()._name)
+    monkeypatch.setattr(j_native, "_LIB", j_native._load_lib())
     assert j_native.available() is True
     bad = tmp_path / "loader.cpp"
     bad.write_text("this is not C++\n")
