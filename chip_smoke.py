@@ -79,7 +79,11 @@ Phases (any failure raises and the script exits non-zero):
    differs by > 0.25 m.
 6. The 48 frames again with a keyframe ring of 19 (decay_ratio 0.9,
    chunks of 8): the ring never over capacity after a chunk, >= 2 culls,
-   48 finite poses, ATE <= 0.138 m.
+   48 finite poses, ATE <= 0.138 m. The headroom culls run through the
+   engine's cull programs (captured as CUDA graphs at the first cull):
+   >= 2 runs of the cull program, a graph for each program run; then the
+   same run with the culls' programs eager (the host's `graphs` off):
+   culls, the ring after each chunk, launches, rows and map bit-equal.
 7. The 48 frames with tracker.method="hybrid": tracking ok on >= 90% of
    frames, ATE <= 0.150 m, the gather launched at 8x8 (its launches are
    counted by window shape).
@@ -121,12 +125,17 @@ Phases (any failure raises and the script exits non-zero):
    relocalization program). Gates: at least one closure and one replay,
    every pose finite, closures, events, ATE and seam exactly equal in
    both runs, launches equal by kernel and by loop program, 6 graphs
-   captured on the main thread, the graphed relocalization and seam-BA
+   plus one close graph a pose-graph tier used (captured at the
+   closure, its capture seconds and pool printed) on the main thread,
+   the loop host's 3 keyframe graphs (the culls and the closure's
+   snapshot), the graphed relocalization and seam-BA
    programs bit-equal to their eager calls (one top-2 and one local-BA
    launch), the top-2 kernel exact against its plain version on every
    captured input (M, N and r printed, its device time beside phase
    2's), the kernels of the main path launched; the pose-graph tier,
-   ATE and seam printed.
+   ATE and seam printed. The closure's close graph is replayed 5 times
+   and its body run eagerly 5 times on the same inputs and the live map
+   (put back after): the median ms of each, host clock and CUDA events.
    Local BA is held on the first closure's seam window (mapping/
    ba_adapter select_seam_window, every pose fixed) from the run's final
    map: T exact (all fixed), points anchored outside the window
@@ -136,7 +145,8 @@ Phases (any failure raises and the script exits non-zero):
    input's; how far the points moved is printed.
 11. The per-frame engine, checkpoint/resume and the KITTI runner at
    SlamConfig(), graphed (process's _build and _track captured as two
-   CUDA graphs at the first tracking frame, the default; phase 18): (a)
+   CUDA graphs at the bootstrap frame and its keyframe programs at their
+   first use, the default; phase 18): (a)
    SlamEngine(device="cuda").process over phase 3's 48 frames, counts
    reset just before and read just after: kernels 1-5 launched (local
    BA once per keyframe from the third), every pose finite, ATE <= 0.138
@@ -267,7 +277,9 @@ Phases (any failure raises and the script exits non-zero):
    path launched, the closer's relative pose measured on the worker
    with the top-2 kernel (from its graph's replays), every such call on
    the worker's stream (torch.cuda.current_stream inside the job), 12
-   loop graphs captured on the main thread, and no exception or work
+   loop graphs plus a close graph a tier used (captured on the main
+   thread in thread_local mode at the closure, the worker waiting for
+   it) captured on the main thread, and no exception or work
    left on the worker. Frames/s, ATE, seam, closures, the frames run
    when each landed, replays and the stage split are printed beside
    phase 10's inline run. Then the same in lockstep (the worker's jobs
@@ -299,16 +311,18 @@ Phases (any failure raises and the script exits non-zero):
    wait the debug mode does not see), kernels a frame and the card's
    busy share on frame 13 (torch.profiler), and the graph's capture
    seconds and pool. Phase 12 (a)'s record is the graphed 60-frame run.
-18. SlamEngine.process's tracking programs as CUDA graphs: phase 3's 48
-   frames through SlamEngine(graphs=False) and (graphs=True) in the order
-   eager, graphed, graphed, eager, counts set to 0 just before each run
-   and read just after. Every pose (as processed and refined), keyframe
-   flag, inlier count and map field must be bit-equal across the runs,
-   the launches counted from the replays equal to the eager counts, two
-   graphs captured for a graphed engine's life, ATE <= 0.138 m. Printed
-   per run: frames/s over frames 1-31, ATE, host syncs a frame over
-   32-39, kernels a frame and busy share on frame 47, the graphs' capture
-   seconds and pool.
+18. SlamEngine.process's programs as CUDA graphs (tracking: _build and
+   _track; the keyframe programs: stereo, insert, BA, snapshot): phase
+   3's 48 frames through SlamEngine(graphs=False) and (graphs=True) in
+   the order eager, graphed, graphed, eager, counts set to 0 just before
+   each run and read just after. Every pose (as processed and refined),
+   keyframe flag, inlier count and map field must be bit-equal across
+   the runs, the launches counted from the replays equal to the eager
+   counts, six graphs captured for a graphed engine's life (no cull at
+   this ring), ATE <= 0.138 m. Printed per run: frames/s over frames
+   1-31, ATE, host syncs a frame over 32-39, kernels a frame and busy
+   share on frame 47, the graphs' capture seconds and pool, and the mean
+   host ms of a tracking frame and of a keyframe frame.
 
 It imports nothing of JAX.
 """
@@ -1247,7 +1261,61 @@ def graph_stats_line(st) -> str:
         f"{st['pool_bytes'] / 2 ** 20:.1f} MiB"
     return (f"{st['captures']} loop graphs captured in "
             f"{st['capture_s']:.3f} s on {st['capture_threads']}, pools "
-            f"{pool}, runs {st['runs']}")
+            f"{pool}, runs {st['runs']}; {closes_line(st)}")
+
+
+def closes_line(st) -> str:
+    """Each close tier's graph: its capture seconds (warm-up included) and
+    pool bytes."""
+    if not st["closes"]:
+        return "no close graph"
+    return "close graphs: " + ", ".join(
+        f"{n} captured in {c['capture_s']:.3f} s, pool "
+        + ("not named" if c["pool_bytes"] is None
+           else f"{c['pool_bytes'] / 2 ** 20:.1f} MiB")
+        for n, c in sorted(st["closes"].items()))
+
+
+def expect_loop_graphs(st, n_loop: int, what: str) -> None:
+    """The loop graphs: n_loop programs plus one close graph for each
+    pose-graph tier a closure used, all captured on the main thread."""
+    if st["captures"] != n_loop + len(st["closes"]) or not st["closes"] \
+            or st["capture_threads"] != ["MainThread"]:
+        raise AssertionError(f"loop graphs {what}: {st}")
+
+
+def close_times(eng, reps: int = 5) -> dict:
+    """The close graph of the engine's closure replayed, and its body run
+    eagerly on the same static inputs, each `reps` times on the live map
+    (the map and the ring put back after): ms a close on the host clock
+    (synchronised) and on CUDA events."""
+    h = eng._host
+    prog = next(p for p in h._loop._progs.values()
+                if p.late and p.gname in h._loop.graphs)
+    m = prog.inputs[0]
+    ring = (h.closed_i, h.closed_j, h.closed_T, h.closed_valid, h.closed_w)
+    saved = [t.clone() for t in (*m, *ring)]
+    out = {}
+    for what, fn in (("graphed", lambda: h._loop.graphs.replay(prog.gname)),
+                     ("eager", lambda: prog.fn(h, m, *prog.inputs[1:]))):
+        host, dev = [], []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            host.append(1000 * (time.perf_counter() - t0))
+            dev.append(start.elapsed_time(end))
+        out[what] = {"host_ms": float(np.median(host)),
+                     "event_ms": float(np.median(dev))}
+    for dst, src in zip((*m, *ring), saved):
+        dst.copy_(src)
+    out["tier"] = prog.name
+    return out
 
 
 def loop_run(cfg, frames, chunk: int, vocab, kernels: dict,
@@ -1311,10 +1379,12 @@ def same_outcome(a: dict, b: dict, what: str) -> None:
 
 def phase10(cfg, kernels: dict, rows: list, label: str) -> dict:
     """Loop closing at full width, the loop programs replayed as CUDA
-    graphs, then once more eagerly (the chunk graphed in both): the same
+    graphs (the close through its tier's graph, captured at the closure),
+    then once more eagerly (the chunk graphed in both): the same
     closures, events, ATE and seam, the same launches by kernel and by
-    loop program; the stage split of both. Returns the graphed run's
-    launch counts and engine."""
+    loop program; the stage split of both; the close's graph replay and
+    eager body timed. Returns the graphed run's launch counts and
+    engine."""
     from slam_toolkit_tpu_torch.mapping.ba_adapter import seam_ba_step
     from slam_toolkit_tpu_torch.mapping.map_state import MapState
     from slam_toolkit_tpu_torch.ops import ba_kernel
@@ -1378,9 +1448,13 @@ def phase10(cfg, kernels: dict, rows: list, label: str) -> dict:
             f"launches by loop program differ: graphed "
             f"{g_run['programs'].launches}, eager "
             f"{e_run['programs'].launches}")
-    st = g_run["graphs"]
-    if st["captures"] != 6 or st["capture_threads"] != ["MainThread"]:
-        raise AssertionError(f"loop graphs: {st}")
+    expect_loop_graphs(g_run["graphs"], 6, "inline")
+    kf_st = eng._host.graph_stats()
+    print(f"[phase10] {label} the host's keyframe programs (culls, "
+          f"snapshot) on the static carry's map: {graph_line(kf_st)}; runs "
+          f"{eng._host._kf.runs}")
+    if kf_st["captures"] != 3:
+        raise AssertionError(f"keyframe graphs of the loop host: {kf_st}")
     missing = [n for n, v in launches.items() if v == 0 and n != "fast_nms"]
     if missing:
         raise AssertionError(f"kernels not launched on the loop path: "
@@ -1460,6 +1534,13 @@ def phase10(cfg, kernels: dict, rows: list, label: str) -> dict:
           f"{moved:.3g}; seam BA stage: "
           + "; ".join(f"{k} host {1000 * v['host_s']:.3f} ms, device "
                       f"{v['device_ms']} ms" for k, v in seam_t.items()))
+    ct = close_times(eng)
+    print(f"[phase10] {label} the closure's {ct['tier']} close, 5 runs each "
+          f"on the live map (put back after): graph replay "
+          f"{ct['graphed']['host_ms']:.3f} ms host, "
+          f"{ct['graphed']['event_ms']:.3f} ms events; the same body eager "
+          f"{ct['eager']['host_ms']:.3f} ms host, "
+          f"{ct['eager']['event_ms']:.3f} ms events (medians)")
     print(f"[phase10] {label} phase seconds "
           f"{time.perf_counter() - t_phase:.1f}")
     return {"launches": launches, "closer": closer, "frames": frames,
@@ -3004,6 +3085,10 @@ def phase16(cfg, frames48, loop: dict, kernels: dict, label: str) -> dict:
         wall = time.perf_counter() - t0
         lock[loop_graphs] = (loop_outcome(e, gt, lap, revisit, LOOP_FRAMES),
                              {n: k.launches for n, k in kernels.items()}, sp)
+        if loop_graphs:
+            st_l = e._host.loop_graph_stats()
+            expect_loop_graphs(st_l, 12, "in lockstep")
+            print(f"[phase16] {label} lockstep: {closes_line(st_l)}")
         print_stages("phase16", label, f"lockstep ({wall:.2f} s), "
                      + ("loop graphs" if loop_graphs else
                         "loop programs eager"),
@@ -3063,8 +3148,10 @@ def phase16(cfg, frames48, loop: dict, kernels: dict, label: str) -> dict:
         raise AssertionError("a relative pose on the worker ran on "
                              "another stream than the worker's")
     st = eng._host.loop_graph_stats()
-    if st["captures"] != 12 or st["capture_threads"] != ["MainThread"]:
-        raise AssertionError(f"loop graphs under the worker: {st}")
+    expect_loop_graphs(st, 12, "under the worker")
+    print(f"[phase16] {label} free-running: {closes_line(st)} (thread_local "
+          f"capture on the main thread, the worker waiting for the "
+          f"closure)")
     for name, k in kernels.items():
         made = main_counts.get(k, 0) + spy.job_launches.get(k, 0)
         if launches[name] != made:
@@ -3262,7 +3349,9 @@ def phase17(kernels: dict, label: str, cluster_rec: dict) -> None:
 def classic_run(cfg, frames, gt, graphs: bool, kernels: dict) -> dict:
     """SlamEngine.process over the frames, graphed or eager: frames/s over
     frames 1-31 (the bootstrap out), host syncs a frame over 32-39, kernels
-    a frame and busy share over the last, ATE, launches, graph stats."""
+    a frame and busy share over the last, ATE, launches, graph stats, and
+    the host ms of a tracking frame and of a keyframe frame (frames 1-31
+    and 40 to the second last, a frame's wall ending in its readback)."""
     from slam_toolkit_tpu_torch.evaluation.traj import ate_rmse
     from slam_toolkit_tpu_torch.pipeline.engine import SlamEngine
     from slam_toolkit_tpu_torch.utils.timing import (count_syncs,
@@ -3283,7 +3372,13 @@ def classic_run(cfg, frames, gt, graphs: bool, kernels: dict) -> dict:
     run(range(40, n - 1))
     _, act = device_activity(run, range(n - 1, n))
     traj = finite_trajectory(eng, n, f"per-frame engine, graphs={graphs}")
+    split = {True: [], False: []}
+    for i in list(range(1, 32)) + list(range(40, n - 1)):
+        split[eng.frame_stats[i]["kf"]].append(1000 * step_s[i])
     return {"eng": eng, "fps": 31 / sum(step_s[1:32]), "syncs": syncs / 8,
+            "track_ms": float(np.mean(split[False])), "n_track":
+            len(split[False]), "kf_ms": float(np.mean(split[True])),
+            "n_kf": len(split[True]),
             "kernels": act["kernels"] if act["kernels"] else None,
             "busy": act["busy"], "ate": ate_rmse(traj, gt, align=True),
             "launches": {k: v.launches for k, v in kernels.items()},
@@ -3291,9 +3386,13 @@ def classic_run(cfg, frames, gt, graphs: bool, kernels: dict) -> dict:
 
 
 def phase18(cfg, frames, gt, kernels: dict, label: str) -> None:
-    """SlamEngine.process's tracking programs as CUDA graphs against the
-    eager programs on phase 3's frames, in the order eager, graphed,
-    graphed, eager: trajectories, flags, inliers and maps bit-equal."""
+    """SlamEngine.process's programs as CUDA graphs (tracking and the
+    keyframe programs) against the eager programs on phase 3's frames, in
+    the order eager, graphed, graphed, eager: trajectories, flags,
+    inliers and maps bit-equal; a frame's host ms split into tracking
+    frames and keyframe frames."""
+    from slam_toolkit_tpu_torch.pipeline.engine import _LoopPrograms
+    kf_graphs = _LoopPrograms.KEYFRAME_NAMES[:4]     # no cull at this ring
     t_phase = time.perf_counter()
     runs = []
     for mode in PAIRED:
@@ -3312,9 +3411,16 @@ def phase18(cfg, frames, gt, kernels: dict, label: str) -> None:
               f"launches {r['launches']}; {time.perf_counter() - t0:.1f} s"
               + ("" if r["stats"] is None else
                  f"; {graph_line(r['stats'])}"))
-        if mode == "graphed" and r["stats"]["captures"] != 2:
+        print(f"[phase18] {label} {mode}: a tracking frame "
+              f"{r['track_ms']:.2f} ms (mean of {r['n_track']}), a keyframe "
+              f"frame {r['kf_ms']:.2f} ms (mean of {r['n_kf']}); host wall, "
+              f"frames 1-31 and 40-{len(frames) - 2}")
+        if mode == "graphed" and (r["stats"]["captures"] != 6 or not all(
+                e._kf.runs[n] for n in kf_graphs)):
             raise AssertionError(f"classic: {r['stats']['captures']} "
-                                 "graphs captured, expected 2")
+                                 f"graphs captured, expected 6 (build, "
+                                 f"track, {kf_graphs}); runs "
+                                 f"{e._kf.runs}")
     ref = runs[0]
     e0 = ref["eng"]
     for mode, r in zip(PAIRED[1:], runs[1:]):
@@ -3350,14 +3456,16 @@ def phase18(cfg, frames, gt, kernels: dict, label: str) -> None:
 
 # ---------------------------------------------------------------- phase 3
 def run_engine(cfg, frames, chunk: int, device: str, ring=None,
-               vocab=None, graphs: bool = True):
+               vocab=None, graphs: bool = True, cull_graphs: bool = True):
     """The engine over `frames` in chunks; the seconds of each chunk. With
     a list `ring`, the keyframes in the ring after each chunk go into it
     (read outside the chunk's time). graphs: the engine's (CUDA graphs of
-    the step, the default, or the eager step)."""
+    the step, the default, or the eager step); cull_graphs False runs the
+    headroom culls' programs eagerly (the host's `graphs` off)."""
     from slam_toolkit_tpu_torch.pipeline.scan_engine import ChunkedSlamEngine
     eng = ChunkedSlamEngine(cfg, vocab=vocab, chunk_size=chunk,
                             device=device, graphs=graphs)
+    eng._mapper.graphs = graphs and cull_graphs
     chunk_s = []
     for i in range(0, len(frames), chunk):
         t0 = time.perf_counter()
@@ -3410,7 +3518,7 @@ class GatherShapes:
 
 
 def drive(cfg, frames, chunk: int, kernels: dict, ring=None,
-          graphs: bool = True):
+          graphs: bool = True, cull_graphs: bool = True):
     """One path on the card: every kernel's count set to 0 just before,
     read just after; the gather's launches by window shape too."""
     for k in kernels.values():
@@ -3418,7 +3526,7 @@ def drive(cfg, frames, chunk: int, kernels: dict, ring=None,
     shapes = GatherShapes()
     try:
         eng, chunk_s = run_engine(cfg, frames, chunk, "cuda", ring,
-                                  graphs=graphs)
+                                  graphs=graphs, cull_graphs=cull_graphs)
     finally:
         shapes.close()
     return eng, chunk_s, {n: k.launches for n, k in kernels.items()}, \
@@ -3586,6 +3694,30 @@ def main() -> int:
         raise AssertionError(f"only {eng_c.n_culls} culls")
     if not ate_c <= 0.138:
         raise AssertionError(f"capacity run: ATE {ate_c:.4f} m above 0.138")
+    # the culls' programs as CUDA graphs against their eager bodies
+    cull_st = eng_c._mapper.graph_stats()
+    cull_runs = eng_c._mapper._kf.runs
+    ring_e = []
+    eng_e, _, launches_e, _ = drive(cfg_c, frames, chunk_c, kernels, ring_e,
+                                    cull_graphs=False)
+    print(f"[phase6] {label} cull programs: runs {cull_runs}, "
+          f"{graph_line(cull_st)}; eager culls: culls {eng_e.n_culls}, "
+          f"launches {launches_e}")
+    if cull_runs["cull"] < 2 or cull_st is None or \
+            cull_st["captures"] != len([n for n, v in cull_runs.items()
+                                        if v]):
+        raise AssertionError(f"culls not run through their graphs: "
+                             f"{cull_runs}, {cull_st}")
+    if eng_e.n_culls != eng_c.n_culls or ring_e != ring or \
+            launches_e != launches_c or \
+            not np.array_equal(engine_rows(eng_e), engine_rows(eng_c)):
+        raise AssertionError("the graphed culls part from the eager ones")
+    bad = [f for f in eng_c.map._fields
+           if not torch.equal(getattr(eng_c.map, f), getattr(eng_e.map, f))]
+    if bad:
+        raise AssertionError(f"graphed culls: map fields {bad} part")
+    print(f"[phase6] {label} the {eng_c.n_culls} culls through their CUDA "
+          f"graphs and eagerly: rows, ring, launches and map bit-equal")
 
     # ---- phase 7: the hybrid tracker on the same frames
     cfg_h = cfg.replace(tracker=dataclasses.replace(cfg.tracker,
@@ -3652,7 +3784,7 @@ def main() -> int:
     # ---- phase 17: the cluster tracker's step as one CUDA graph
     phase17(kernels, label, cluster_rec)
 
-    # ---- phase 18: SlamEngine.process's tracking programs as CUDA graphs
+    # ---- phase 18: SlamEngine.process's programs as CUDA graphs
     phase18(cfg, frames, gt, kernels, label)
 
     # ---- phase 9

@@ -87,12 +87,14 @@ def exp(xi: torch.Tensor) -> torch.Tensor:
 def log(S: torch.Tensor) -> torch.Tensor:
     """(..., 4, 4) -> (..., 7) [rho, phi, sigma]. rho is a batched LU
     solve, as in the JAX package: a closed-form adjugate inverse in
-    float32 moved the pose-graph optimum there."""
+    float32 moved the pose-graph optimum there. solve_ex leaves the LU's
+    error check on the device (a CUDA graph holds it)."""
     s = scale_of(S)
     sigma = torch.log(s)
     phi = so3_log(S[..., :3, :3] / s[..., None, None])
     W = _calc_W(torch.sum(phi * phi, dim=-1), sigma, hat(phi))
-    rho = torch.linalg.solve(W, S[..., :3, 3:4])[..., 0]
+    rho = torch.linalg.solve_ex(W, S[..., :3, 3:4],
+                                check_errors=False)[0][..., 0]
     return torch.cat([rho, phi, sigma[..., None]], dim=-1)
 
 
@@ -111,7 +113,7 @@ def adjoint(S: torch.Tensor) -> torch.Tensor:
     Ad[..., :3, 3:6] = hat(t) @ R
     Ad[..., :3, 6] = -t
     Ad[..., 3:6, 3:6] = R
-    Ad[..., 6, 6] = 1.0
+    Ad[..., 6, 6].fill_(1.0)
     return Ad
 
 

@@ -53,6 +53,7 @@ from slam_toolkit_tpu_torch.optim.pose_graph import (PoseGraphProblem,
                                                      solve_pose_graph,
                                                      solve_pose_graph_sim3)
 from slam_toolkit_tpu_torch.utils import threefry
+from slam_toolkit_tpu_torch.utils.device import constant
 
 N_HYPOTHESES = 64
 SAMPLE_SIZE = 4
@@ -413,18 +414,28 @@ def relocalize_frame(m: MapState, frame_feats: FrameFeatures,
                          n_near=torch.zeros_like(n))
 
 
+def _scalar(x, device) -> torch.Tensor:
+    """A float32 scalar on `device`: a tensor converted there, a host
+    number filled in (no upload)."""
+    if torch.is_tensor(x):
+        return x.to(device=device, dtype=torch.float32)
+    return torch.full((), float(x), dtype=torch.float32, device=device)
+
+
 def loop_edge_measurement(m: MapState, cand_slot, T_cur_loop: torch.Tensor,
                           scale, cfg: SlamConfig) -> torch.Tensor:
     """The loop edge: the re-tracked current pose relative to the
-    candidate; under "sim3" a similarity carrying the detected scale."""
-    rel = se3.compose(T_cur_loop, se3.inv(m.kf_T_cw[cand_slot]))
+    candidate; under "sim3" a similarity carrying the detected scale.
+    cand_slot: a host int or a 0-dim tensor on the map's device."""
+    rel = se3.compose(T_cur_loop, se3.inv(at(m.kf_T_cw, cand_slot)))
     if cfg.loop.pose_graph_group != "sim3":
         return rel
-    s = torch.as_tensor(scale, dtype=rel.dtype, device=rel.device)
+    s = _scalar(scale, rel.device).reshape(
+        torch.Size(rel.shape[:-2])).to(rel.dtype)
     return sim3.make(rel[..., :3, :3], s[..., None] * rel[..., :3, 3], s)
 
 
-def close_loop(m: MapState, cur_slot: int, cand_slot: int,
+def close_loop(m: MapState, cur_slot, cand_slot,
                T_cur_loop: torch.Tensor, prev_loops_i: torch.Tensor,
                prev_loops_j: torch.Tensor, prev_loops_T: torch.Tensor,
                prev_loops_valid: torch.Tensor, cfg: SlamConfig,
@@ -436,7 +447,11 @@ def close_loop(m: MapState, cur_slot: int, cand_slot: int,
     by tracking quality, the new loop edge and the remembered ones (the
     replayed ones boosted), the recent segment rigidly pre-corrected,
     the oldest keyframe fixed. Under "sim3" anchored inverse depths
-    rescale with their anchor keyframes."""
+    rescale with their anchor keyframes. cur_slot and cand_slot: host
+    ints or 0-dim tensors on the map's device; nothing is read back, and
+    every shape is fixed by the tier (the pose graph's assembly by its
+    tier - 1 chain edges and 1 + len(prev_loops_i) loop edges), so a
+    CUDA graph a tier holds the whole close."""
     F = m.kf_valid.shape[0]
     dev = m.kf_valid.device
     if tier <= 0 or tier > F:
@@ -462,16 +477,15 @@ def close_loop(m: MapState, cur_slot: int, cand_slot: int,
     loop_T_new = loop_edge_measurement(m, cand_slot, T_cur_loop, loop_scale,
                                        cfg)
     # rigid pre-correction of the recent segment (ORB-SLAM CorrectLoop)
-    dT = se3.compose(T_cur_loop, se3.inv(T_ring[cur_slot]))
-    seg = m.kf_valid & (rank > rank[cur_slot] - cfg.loop.correction_window)
+    dT = se3.compose(T_cur_loop, se3.inv(at(T_ring, cur_slot)))
+    seg = m.kf_valid & (rank > at(rank, cur_slot) -
+                        cfg.loop.correction_window)
     T_init = torch.where(seg[:, None, None],
                          se3.normalize(se3.compose(dT[None], T_ring)), T_ring)
     m = m._replace(kf_T_cw=T_init)
 
-    li = torch.cat([torch.tensor([cand_slot], device=dev),
-                    prev_loops_i.long()])
-    lj = torch.cat([torch.tensor([cur_slot], device=dev),
-                    prev_loops_j.long()])
+    li = torch.cat([_slot(cand_slot, dev).reshape(1), prev_loops_i.long()])
+    lj = torch.cat([_slot(cur_slot, dev).reshape(1), prev_loops_j.long()])
     lv = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
                     prev_loops_valid])
     lv = lv & (rank[li] < tier) & (rank[lj] < tier)
@@ -485,16 +499,14 @@ def close_loop(m: MapState, cur_slot: int, cand_slot: int,
          cfg.loop.info_rotation]
     if sim3_mode:
         info.append(cfg.loop.info_scale)
-    edge_info = torch.tensor(info, dtype=torch.float32, device=dev) \
-        .expand(edge_i.shape[0], -1)
+    edge_info = constant(tuple(info), str(dev)).expand(edge_i.shape[0], -1)
     qc = m.kf_quality[sel]
     q = torch.minimum(qc[ei], qc[ej])
     chain_scale = torch.clamp(q / (2.0 * cfg.tracker.min_matches),
                               cfg.loop.chain_quality_floor, 1.0)
     if prev_loops_w is None:
         prev_loops_w = torch.ones((prev_loops_i.shape[0],), device=dev)
-    loop_w = torch.cat([torch.as_tensor(loop_weight, dtype=torch.float32,
-                                        device=dev).reshape(1),
+    loop_w = torch.cat([_scalar(loop_weight, dev).reshape(1),
                         prev_loops_w * cfg.loop.replay_edge_boost])
     edge_info = edge_info * torch.cat([chain_scale, loop_w])[:, None]
 
@@ -504,7 +516,8 @@ def close_loop(m: MapState, cur_slot: int, cand_slot: int,
         edge_T_ji=edge_T, edge_info=edge_info, edge_valid=edge_valid)
     if sim3_mode:
         S_opt = solve_pose_graph_sim3(prob,
-                                      iters=cfg.loop.posegraph_iterations)
+                                      iters=cfg.loop.posegraph_iterations,
+                                      chain_edges=tier - 1)
         T_opt = sim3.to_se3(S_opt)
         s_c = torch.where(valid_c, sim3.scale_of(S_opt),
                           torch.ones_like(valid_c, dtype=torch.float32))
@@ -513,7 +526,8 @@ def close_loop(m: MapState, cur_slot: int, cand_slot: int,
         m = m._replace(mp_invd=torch.where(
             m.mp_valid, m.mp_invd * s_ring[m.mp_ref_kf.long()], m.mp_invd))
     else:
-        T_opt = solve_pose_graph(prob, iters=cfg.loop.posegraph_iterations)
+        T_opt = solve_pose_graph(prob, iters=cfg.loop.posegraph_iterations,
+                                 chain_edges=tier - 1)
     new_T = m.kf_T_cw.clone()
     new_T[sel] = torch.where(valid_c[:, None, None], T_opt, m.kf_T_cw[sel])
     return m._replace(kf_T_cw=new_T)
@@ -528,33 +542,36 @@ def _last_writer(targets: torch.Tensor, n: int) -> torch.Tensor:
         0, targets.long(), pos, reduce="amax", include_self=True)
 
 
-def merge_mappoints(m: MapState, cur_slot: int, cand_slot: int,
+def merge_mappoints(m: MapState, cur_slot, cand_slot,
                     cam: StereoCamera, cfg: SlamConfig) -> MapState:
     """Merge duplicate landmarks after a closure (ref :223-299): the
     candidate side's landmarks, matched into the current keyframe at the
     loop radius, win over the landmark the matched keypoint observes;
     every observation of a loser is redirected to its winner, and a
-    matched keypoint that observes nothing adopts the winner."""
-    ids_cand = m.kf_obs[cand_slot]
+    matched keypoint that observes nothing adopts the winner. Slots are
+    host ints or 0-dim tensors on the map's device."""
+    ids_cand = at(m.kf_obs, cand_slot)
     safe = torch.where(ids_cand >= 0, ids_cand, torch.zeros_like(ids_cand))
     valid = (ids_cand >= 0) & m.mp_valid[safe.long()]
     Xw = mappoint_positions_at(m, safe.long())
     feats = _kf_features(m, cur_slot)
     match = projection_match(Xw, m.mp_desc[safe.long()], valid, feats,
-                             m.kf_T_cw[cur_slot], cam, cfg.matcher,
+                             at(m.kf_T_cw, cur_slot), cam, cfg.matcher,
                              cfg.matcher.loop_radius)
     kpt = match.kpt_idx.long()
-    existing = m.kf_obs[cur_slot][kpt]
+    dev = safe.device
+    cur = _slot(cur_slot, dev)
+    existing = row(m.kf_obs, cur)[kpt]
     winner, loser = safe, existing
     do_merge = match.ok & (existing >= 0) & (existing != winner)
 
     M = m.mp_valid.shape[0]
     K = m.kf_obs.shape[1]
-    dev = safe.device
     # a winner that is itself a loser this pass is left for a later pass
     loser_flag = torch.zeros((M + 1,), dtype=torch.bool, device=dev)
-    loser_flag[torch.where(do_merge, loser, torch.full_like(loser, M))
-               .long()] = True
+    loser_flag.index_fill_(0, torch.where(do_merge, loser,
+                                          torch.full_like(loser, M)).long(),
+                           True)
     do_merge = do_merge & ~loser_flag[winner.long()]
 
     dump = torch.where(do_merge, loser, torch.full_like(loser, M)).long()
@@ -566,22 +583,22 @@ def merge_mappoints(m: MapState, cur_slot: int, cand_slot: int,
     kf_obs = remap[torch.where(m.kf_obs >= 0, m.kf_obs,
                                torch.full_like(m.kf_obs, M)).long()]
     mp_valid = torch.cat([m.mp_valid, m.mp_valid.new_zeros(1)])
-    mp_valid[dump] = False
+    mp_valid.index_fill_(0, dump, False)
     mp_valid = mp_valid[:M]
 
     adopt = match.ok & (existing < 0)
     a_of = _last_writer(torch.where(adopt, kpt, torch.full_like(kpt, K)),
                         K + 1)[:K]
     obs_row = torch.where(a_of >= 0, winner[torch.clamp(a_of, min=0)].int(),
-                          kf_obs[cur_slot])
-    kf_obs[cur_slot] = obs_row
+                          row(kf_obs, cur))
+    kf_obs.index_copy_(0, cur.reshape(1), obs_row[None])
 
     # observation counts follow the redirects (integer adds: order-free)
     cnt = torch.cat([m.mp_obs_count, m.mp_obs_count.new_zeros(1)])
     w_dump = torch.where(do_merge, winner, torch.full_like(winner, M)).long()
     gained = torch.where(do_merge, cnt[dump], torch.zeros_like(cnt[dump]))
     cnt = cnt.index_add(0, w_dump, gained)
-    cnt[dump] = 0
+    cnt.index_fill_(0, dump, 0)
     cnt = cnt.index_add(0, torch.where(adopt, winner,
                                        torch.full_like(winner, M)).long(),
                         torch.ones_like(winner, dtype=cnt.dtype))

@@ -47,14 +47,19 @@ def redundancy_scores(m: MapState, protect_recent: int = 8) -> torch.Tensor:
                        torch.full_like(frac, -1.0))
 
 
-def cull_keyframe(m: MapState, slot) -> MapState:
+def cull_keyframe(m: MapState, slot, do=None) -> MapState:
     """Remove keyframe `slot` (int or 0-dim tensor): re-anchor its
     landmarks on the last other keyframe that observes them, or
-    invalidate them. Updates `m` in place and returns it."""
+    invalidate them. Updates `m` in place and returns it. `do`, a 0-dim
+    bool tensor, makes the cull conditional on the device (lax.cond's
+    counterpart): where it is False every field keeps its values."""
     F, K = m.kf_obs.shape
     M = m.mp_valid.shape[0]
     dev = m.kf_obs.device
-    slot = torch.as_tensor(slot, device=dev).long()
+    slot = slot.reshape(()).long() if torch.is_tensor(slot) else \
+        torch.full((), int(slot), dtype=torch.int64, device=dev)
+    if do is None:
+        do = torch.ones((), dtype=torch.bool, device=dev)
     Xw = mappoint_positions(m)                  # before the anchors move
 
     # the alternative observer of every landmark: scatter-max of the
@@ -69,8 +74,9 @@ def cull_keyframe(m: MapState, slot) -> MapState:
     alt = torch.zeros((M + 1,), dtype=torch.int64, device=dev).scatter_reduce(
         0, target.reshape(-1), code.reshape(-1), "amax")[:M]
 
-    moved = m.mp_valid & (m.mp_ref_kf == slot) & (alt > 0)
-    orphan = m.mp_valid & (m.mp_ref_kf == slot) & (alt == 0)
+    anchored = do & m.mp_valid & (m.mp_ref_kf == slot)
+    moved = anchored & (alt > 0)
+    orphan = anchored & (alt == 0)
     new_ref = torch.where(moved, (alt - 1) // K, m.mp_ref_kf.long())
     new_kpt = torch.where(moved, (alt - 1) % K, m.mp_kpt.long())
     # inverse depth along the new anchor ray; a landmark that lands
@@ -81,33 +87,40 @@ def cull_keyframe(m: MapState, slot) -> MapState:
     behind = moved & (z_new <= 1e-3)
 
     # one observation fewer for everything this keyframe saw
-    row = m.kf_obs[slot]
+    row = m.kf_obs.index_select(0, slot.reshape(1))[0]
     seen = torch.where(row >= 0, row, torch.full_like(row, M)).long()
     obs_count = torch.cat([m.mp_obs_count, m.mp_obs_count.new_zeros(1)])
     obs_count = obs_count.index_add(0, seen, torch.full_like(row, -1))[:M]
+    obs_count = torch.where(do, torch.clamp(obs_count, min=0),
+                            m.mp_obs_count)
 
     s = slot.reshape(1)
-    m.kf_valid.index_fill_(0, s, False)
-    m.kf_frame_id.index_fill_(0, s, -1)
-    m.kf_obs.index_fill_(0, s, -1)
+    for field, gone in ((m.kf_valid, False), (m.kf_frame_id, -1),
+                        (m.kf_obs, -1)):
+        old = field.index_select(0, s)
+        field.index_copy_(0, s, torch.where(do, torch.full_like(old, gone),
+                                            old))
     m.mp_ref_kf.copy_(new_ref)
     m.mp_kpt.copy_(new_kpt)
     m.mp_invd.copy_(new_invd)
     m.mp_valid.logical_and_(~orphan & ~behind)
-    m.mp_obs_count.copy_(torch.clamp(obs_count, min=0))
+    m.mp_obs_count.copy_(obs_count)
     return m
 
 
 def cull_most_redundant(m: MapState, min_fraction: float = 0.8,
-                        protect_recent: int = 8) -> Tuple[MapState, int]:
+                        protect_recent: int = 8
+                        ) -> Tuple[MapState, torch.Tensor]:
     """Cull the most redundant unprotected keyframe (the first of equal
-    scores, as argmax) if its score reaches `min_fraction`. Returns (map,
-    culled slot or -1); reading the score is one device->host sync."""
+    scores, as argmax) if its score reaches `min_fraction`, the choice
+    made on the device (the JAX package's lax.cond): every write selects
+    between the culled and the unchanged map. Returns (map, the culled
+    slot or -1 as a 0-dim int64 tensor); the caller reads it back."""
     scores = redundancy_scores(m, protect_recent)
     slot = torch.argmax(scores)
-    if not bool(scores[slot] >= min_fraction):
-        return m, -1
-    return cull_keyframe(m, slot), int(slot)
+    do = scores.index_select(0, slot.reshape(1))[0] >= min_fraction
+    m = cull_keyframe(m, slot, do)
+    return m, torch.where(do, slot, torch.full_like(slot, -1))
 
 
 def cull_weak_mappoints(m: MapState, cur_frame_id: int,

@@ -70,14 +70,21 @@ def save(engine: "SlamEngine", path: str) -> None:
 
 def load(engine: "SlamEngine", path: str) -> "SlamEngine":
     """Restore state saved by save() (this package's or the JAX
-    package's) into a compatible engine in place, on its device."""
+    package's) into a compatible engine in place, on its device. The map
+    and the ring of closed loops are copied into the engine's own tensors
+    (its programs' CUDA graphs read them at their addresses)."""
     path_npz = path if path.endswith(".npz") or not os.path.exists(
         path + ".npz") else path + ".npz"
     dev = engine.device
     z = np.load(path_npz, allow_pickle=False)
-    engine.map = convert.map_state_from_numpy(
+    loaded = convert.map_state_from_numpy(
         MapState(**{k[len("map_"):]: z[k] for k in z.files
                     if k.startswith("map_")}), dev)
+    if engine.map is None:
+        engine.map = loaded
+    else:
+        for dst, src in zip(engine.map, loaded):
+            dst.copy_(src)
     engine.T_cw = torch.from_numpy(z["T_cw"]).to(dev)
     engine.velocity = torch.from_numpy(z["velocity"]).to(dev)
     engine.trajectory = [t for t in z["trajectory"]]
@@ -106,7 +113,7 @@ def load(engine: "SlamEngine", path: str) -> "SlamEngine":
             engine.bow_db = torch.from_numpy(z["bow_db"]).to(dev)
         for k in _CLOSED:
             if k in z.files:          # older checkpoints lack closed_w
-                setattr(engine, k, torch.from_numpy(z[k]).to(dev))
+                getattr(engine, k).copy_(torch.from_numpy(z[k]))
     meta_path = (path_npz[:-4] if path_npz.endswith(".npz") else path_npz) \
         + ".json"
     if not os.path.exists(meta_path):

@@ -21,19 +21,20 @@ Pipeline, src/pipeline.cpp:95-141), under the JAX package's names:
   _closure_is_dup, _dispatch_close, _consume_scores, _try_relocalize,
   _refresh_kf_mirrors and _close_tier.
 
-The JAX package jits each program. Here the per-frame programs, _build
-and _track (or _track_direct), run on static buffers (_StaticTrack)
-and, on a card, as two CUDA graphs captured at the first tracking frame
-and replayed every frame after (graphs=True, the default); graphs=False
-runs them eagerly, bit-equal. The loop programs (the BoW register and
-score, covisibility, relative pose, relocalization and seam BA) run the
-same way, a set of static buffers and graphs for each map they read
-(_LoopPrograms); _kf_row is folded into them, and _close stays eager.
-The keyframe branch is eager PyTorch on the engine's device (the JAX
-package runs it as separate jitted calls). The chunked engine
-(pipeline/scan_engine.py)
-owns the map and the per-frame step when it drives this class for its
-loop phases (own_map=False): it sets `map` and the mirrors, and no
+The JAX package jits each program. Here every one of them runs on static
+buffers and, on a card, as a CUDA graph captured once and replayed
+(graphs=True, the default); graphs=False runs them eagerly, bit-equal.
+The per-frame programs, _build and _track (or _track_direct), are
+_StaticTrack's two graphs, captured at the bootstrap frame. The keyframe
+programs (_stereo, _insert, _ba, _snapshot, _cull, _cull_any) and the
+loop programs (the BoW register and score, covisibility, relative pose,
+relocalization, seam BA, and _close, one program per pose-graph tier)
+are _LoopPrograms: a set of static buffers and graphs for each map
+they read; _kf_row is folded into them. The map's tensors keep their
+addresses from the bootstrap on: every program writes the map in place.
+The chunked engine (pipeline/scan_engine.py) owns the map and the
+per-frame step when it drives this class for its loop phases and its
+keyframe culls (own_map=False): it sets `map` and the mirrors, and no
 second map is allocated. The pose-graph tiers are kept; the JAX
 package's compiles of them ahead of time (warmup_loop_programs and its
 background thread) are not ported: they exist for XLA compile time.
@@ -66,15 +67,15 @@ from slam_toolkit_tpu_torch.mapping.ba_adapter import (local_ba_step,
                                                        seam_ba_step)
 from slam_toolkit_tpu_torch.mapping.culling import (cull_most_redundant,
                                                     cull_weak_mappoints)
-from slam_toolkit_tpu_torch.mapping.map_state import (MapState,
+from slam_toolkit_tpu_torch.mapping.map_state import (MapState, at,
                                                       camera_frustum,
                                                       covisibility_counts,
                                                       covisibility_rows,
                                                       empty_map,
                                                       gather_local_landmarks,
-                                                      insert_keyframe)
+                                                      insert_keyframe, row)
 from slam_toolkit_tpu_torch.ops.extractor import FrameFeatures
-from slam_toolkit_tpu_torch.utils.cuda_graphs import StepGraphs
+from slam_toolkit_tpu_torch.utils.cuda_graphs import StepGraphs, merged_stats
 from slam_toolkit_tpu_torch.utils.device import upload
 
 MAX_CLOSED_LOOPS = 16
@@ -149,38 +150,47 @@ class _StaticTrack:
     state, the snapshot and anchor only when the engine holds new ones
     (a keyframe, a checkpoint restore); a relocalization's re-track
     copies its pose and velocity in and runs the tracking program again.
+    The bootstrap frame runs _build alone. The keyframe program `stereo`
+    reads the frame and image here by address, and the right image from
+    `right`.
 
     On a CUDA device the two programs are captured once as CUDA graphs
-    (utils/cuda_graphs.StepGraphs), at the first frame after the
-    bootstrap keyframe, and replayed; their outputs are the graphs' and
-    every replay writes them anew. On the CPU the same programs run
-    eagerly on the same buffers. A capture failure raises."""
+    (utils/cuda_graphs.StepGraphs), at the bootstrap frame, and
+    replayed; their outputs are the graphs' and every replay writes them
+    anew. On the CPU the same programs run eagerly on the same buffers
+    (the frame copied into the first one built). A capture failure
+    raises."""
 
     def __init__(self, eng: "SlamEngine", img: torch.Tensor):
         self.direct = eng.cfg.tracker.method == "direct"
         dev = eng.device
         self.img = torch.empty(img.shape, dtype=torch.float32, device=dev)
-        self.Xw, self.desc, _, self.valid = (torch.empty_like(t)
-                                             for t in eng._lm)
+        self.right = torch.empty_like(self.img)
+        # the snapshot tracked against, ids included: insert_keyframe
+        # takes the ids the tracking result indexes, while the engine's
+        # snapshot may be refreshed by a cull first
+        self.Xw, self.desc, self.ids, self.valid = (torch.empty_like(t)
+                                                    for t in eng._lm)
         self.T_prev, self.velocity, self.kf_T = (
             torch.empty((4, 4), dtype=torch.float32, device=dev)
             for _ in range(3))
         if self.direct:
-            self.kf_img = torch.empty_like(self.img)
+            self.kf_img = torch.zeros_like(self.img)
             self.kf_ab = torch.empty((2,), dtype=torch.float32, device=dev)
         self._lm_src = self._anchor_src = None
+        self.frame: Optional[FrameState] = None
         self.graphs: Optional[StepGraphs] = None
 
     def _load(self, eng: "SlamEngine") -> None:
         self.T_prev.copy_(eng.T_cw)
         self.velocity.copy_(eng.velocity)
         self.kf_T.copy_(eng._latest_kf_T_dev)
-        if eng._lm is not self._lm_src:
-            for dst, src in zip((self.Xw, self.desc, self.valid),
-                                (eng._lm[0], eng._lm[1], eng._lm[3])):
+        if eng._lm_serial != self._lm_src:
+            for dst, src in zip((self.Xw, self.desc, self.ids, self.valid),
+                                eng._lm):
                 dst.copy_(src)
-            self._lm_src = eng._lm
-        if self.direct:
+            self._lm_src = eng._lm_serial
+        if self.direct and eng._kf_img is not None:
             if eng._kf_img is not self._anchor_src:
                 self.kf_img.copy_(eng._kf_img)
                 self._anchor_src = eng._kf_img
@@ -201,19 +211,35 @@ class _StaticTrack:
         self.tracked = g.capture("track", self._track, eng, self.frame)
         self.graphs = g
 
-    def step(self, eng: "SlamEngine", left) -> tuple:
-        """(the left image on the device, the frame, _track's outputs)
-        for one frame; the image and the outputs are overwritten by the
-        next step."""
+    def build(self, eng: "SlamEngine", left) -> tuple:
+        """(the left image on the device, the frame) of `left`; both are
+        overwritten by the next frame. Captures both graphs on a card the
+        first time, and defines the engine's stereo program on these
+        buffers."""
         self.img.copy_(torch.as_tensor(left))
         self._load(eng)
         if self.img.is_cuda and self.graphs is None:
             self._capture(eng)
         if self.graphs is None:
-            self.frame = eng._build(self.img)
-            self.tracked = self._track(eng, self.frame)
+            frame = eng._build(self.img)
+            if self.frame is None:
+                self.frame = frame
+            else:
+                _tree_copy(self.frame, frame)
         else:
             self.graphs.replay("build")
+        eng._kf.program("stereo", None,
+                        inputs=(self.frame, self.img, self.right))
+        return self.img, self.frame
+
+    def step(self, eng: "SlamEngine", left) -> tuple:
+        """(the left image on the device, the frame, _track's outputs)
+        for one frame; the image and the outputs are overwritten by the
+        next step."""
+        self.build(eng, left)
+        if self.graphs is None:
+            self.tracked = self._track(eng, self.frame)
+        else:
             self.graphs.replay("track")
         return self.img, self.frame, self.tracked
 
@@ -240,8 +266,9 @@ def _tree_map(fn, x):
 
 
 def _tree_copy(dst, src) -> None:
-    """Copy every tensor of `src` into the same place of `dst`."""
-    if dst is None:
+    """Copy every tensor of `src` into the same place of `dst` (a tensor
+    that is its own destination is left)."""
+    if dst is None or dst is src:
         return
     if torch.is_tensor(dst):
         dst.copy_(src)
@@ -251,27 +278,56 @@ def _tree_copy(dst, src) -> None:
 
 
 def _copy_in(buf, value) -> None:
-    """A program input into its static buffer: a host int is filled in, a
-    host array uploaded without waiting, a tensor (or a nest of them)
-    copied on the current stream."""
+    """A program input into its static buffer: a host number is filled
+    in, a host array uploaded without waiting, a tensor (or a nest of
+    them) copied on the current stream."""
     if isinstance(value, (int, np.integer)):
         buf.fill_(int(value))
+    elif isinstance(value, (float, np.floating)):
+        buf.fill_(float(value))
     elif isinstance(value, np.ndarray):
         buf.copy_(upload(value, buf.device))
     else:
         _tree_copy(buf, value)
 
 
+def _buffer_like(value, device):
+    """A static buffer for a program input first given as `value`: a
+    tensor's like, a 0-dim int64 for a host int, a 0-dim float32 for a
+    host float (nests alike; None stays)."""
+    if value is None:
+        return None
+    if torch.is_tensor(value):
+        return torch.empty_like(value, memory_format=torch.contiguous_format)
+    if isinstance(value, (int, np.integer)):
+        return torch.zeros((), dtype=torch.int64, device=device)
+    if isinstance(value, (float, np.floating)):
+        return torch.zeros((), dtype=torch.float32, device=device)
+    vals = [_buffer_like(v, device) for v in value]
+    return type(value)(*vals) if hasattr(value, "_fields") \
+        else type(value)(vals)
+
+
+def store_map(dst_map: MapState, m: MapState) -> None:
+    """Store the map `m` a program returned into `dst_map`: the fields it
+    replaced are copied, those it updated in place (the same tensors) are
+    already there."""
+    for dst, src in zip(dst_map, m):
+        if src.data_ptr() != dst.data_ptr():
+            dst.copy_(src)
+
+
 class _LoopProgram(NamedTuple):
     name: str
     fn: Callable          # fn(engine, map, *inputs)
-    inputs: tuple         # static input buffers
+    inputs: tuple         # (map, static input buffers...)
     gname: str            # its graph's name in _LoopPrograms.graphs
     mutates_map: bool     # warm it up on a throwaway copy of the map
+    late: bool            # may be captured after the freeze (the close)
 
 
 class _LoopPrograms:
-    """SlamEngine's loop programs, the ones the JAX engine jits, on static
+    """SlamEngine's programs, the ones the JAX engine jits, on static
     buffers: for each program and each map it reads, the inputs are
     copied into static buffers and the program runs on them, its outputs
     landing in static buffers that the next run overwrites. On a card each
@@ -279,11 +335,13 @@ class _LoopPrograms:
     of its own (they replay in any order), and replayed; on the CPU the
     same code runs eagerly on the same buffers. A graph records fixed
     addresses, so a map is known by its tensors' addresses, and the
-    engines keep those in place: the chunked engine reads its static
-    carry's map and, under its mapping worker, two published copies, and
-    copies every change into them.
+    engines keep those in place: the per-frame engine's map from its
+    bootstrap on; the chunked engine reads its static carry's map and,
+    under its mapping worker, two published copies, and copies every
+    change into them. An engine holds two sets: the keyframe programs
+    (KEYFRAME_NAMES) and the loop programs (NAMES and the close).
 
-    The programs (JAX names in brackets):
+    The loop programs (JAX names in brackets):
     - register [_bow_register_only, and _loop_step's one row]: the BoW of
       BOW_ROWS keyframe rows of a map, one descent over all their
       descriptors, written into the database in place (rows left out go
@@ -298,28 +356,53 @@ class _LoopPrograms:
     - reloc [_reloc]: relocalize_frame of a frame's features against a
       device slot;
     - seam [_seam_ba]: seam BA over the window of a device slot pair, the
-      map updated in place.
+      map updated in place;
+    - close@<tier> [_close, one program per static tier]: close_loop,
+      merge_mappoints and the closed-loop ring's update, the map written
+      in place, the slots, ring index and measurement on the device, the
+      new ring returned.
+    The keyframe programs:
+    - stereo [_stereo]: add_stereo on _StaticTrack's frame and image, the
+      right image copied into its buffer;
+    - insert [_insert]: insert_keyframe and cull_weak_mappoints, the map
+      in place, the frame id and quality device scalars; the new slot;
+    - ba [_ba]: local_ba_step, the map in place;
+    - snapshot [_snapshot]: the landmark snapshot, the latest keyframe's
+      pose and (slot, valid keyframes);
+    - cull, cull_any [_cull, _cull_any]: cull_most_redundant, decided on
+      the device, the map in place; the culled slot or -1.
     [_kf_row] is folded into its callers: each program gathers a slot's
     rows on the device (map_state.row), the host steps index with host
-    ints. _close stays eager (SlamEngine._close).
+    ints. An input that is another program's output of the same set is
+    read at its address, not copied (the frame from stereo into insert,
+    the snapshot into insert).
 
     Outputs a caller keeps past the next run are copied out (relpose,
     reloc, register: a measurement pending across folds, scores waiting
     for their fold). A capture runs only on the thread that made the
-    engine and, once `frozen` is set, not at all: the chunked engine
-    captures every graph before its mapping worker's first job (a capture
-    in global mode fails while another thread uses the card) and then
-    freezes; a missing graph then raises. Nothing falls back to eager."""
+    engine and, once `frozen` is set, not at all, the close aside: the
+    chunked engine captures every other graph before its mapping
+    worker's first job (a capture in global mode fails while another
+    thread uses the card) and then freezes; a missing graph then raises.
+    A close is captured the first time its tier is used, on that thread,
+    in thread_local mode: a closure lands on it while the worker is
+    drained or waits for that closure (scan_engine's _apply_close).
+    Nothing falls back to eager."""
 
     NAMES = ("register", "register_packed", "covis", "relpose", "reloc",
              "seam")
+    KEYFRAME_NAMES = ("stereo", "insert", "ba", "snapshot", "cull",
+                      "cull_any")
+    # the programs that write the map in place
+    _MUTATE = {"seam", "insert", "ba", "cull", "cull_any"}
 
-    def __init__(self, eng: "SlamEngine"):
+    def __init__(self, eng: "SlamEngine", names: tuple = NAMES):
         # a weak reference: the engine holds this object, and a cycle would
         # leave the engine (and its graphs) to the cyclic collector
         self._eng = weakref.ref(eng)
         self.device = eng.device
         self.cuda = self.device.type == "cuda"
+        self.names = names
         self.graphs = StepGraphs(self.device, shared_pool=False) \
             if self.cuda else None
         self.rows_capacity = BOW_ROWS     # register_packed's chunk rows
@@ -327,11 +410,12 @@ class _LoopPrograms:
         self.owner = threading.current_thread()
         self._progs: dict = {}            # (name, map key) -> _LoopProgram
         self._out: dict = {}              # graph name -> static outputs
-        self.runs: dict = {n: 0 for n in self.NAMES}
+        self._out_ptrs: set = set()       # their tensors' addresses
+        self.runs: dict = {n: 0 for n in names}
 
     @staticmethod
-    def _key(m: MapState) -> tuple:
-        return tuple(t.data_ptr() for t in m)
+    def _key(m: Optional[MapState]) -> tuple:
+        return () if m is None else tuple(t.data_ptr() for t in m)
 
     def _inputs(self, name: str, m: MapState) -> tuple:
         dev = self.device
@@ -362,26 +446,58 @@ class _LoopPrograms:
             return feats, f32(k, 2), i64()
         return i64(), i64()                       # relpose, seam
 
-    def program(self, name: str, m: MapState) -> _LoopProgram:
+    def _held_or_buffer(self, value):
+        """An input's static buffer: another program's output is read at
+        its address; anything else gets a buffer of its own."""
+        if torch.is_tensor(value) and value.data_ptr() in self._out_ptrs:
+            return value
+        if value is None or torch.is_tensor(value) or \
+                not isinstance(value, (tuple, list)):
+            return _buffer_like(value, self.device)
+        vals = [self._held_or_buffer(v) for v in value]
+        return type(value)(*vals) if hasattr(value, "_fields") \
+            else type(value)(vals)
+
+    @staticmethod
+    def _fn(name: str) -> Callable:
+        if name.startswith("close@"):
+            tier = int(name[len("close@"):])
+            return lambda eng, m, *a: eng._close_program(m, *a, tier=tier)
+        return {"register": SlamEngine._register_static,
+                "register_packed": SlamEngine._register_packed_static,
+                "covis": lambda eng, m, s, v: covisibility_rows(m, s, v),
+                "relpose": SlamEngine._relpose_program,
+                "reloc": SlamEngine._reloc_program,
+                "seam": SlamEngine._seam_program,
+                "stereo": lambda eng, m, *a: eng._stereo(*a),
+                "insert": SlamEngine._insert_program,
+                "ba": SlamEngine._ba_program,
+                "snapshot": SlamEngine._snapshot,
+                "cull": lambda eng, m: eng._cull(m)[1],
+                "cull_any": lambda eng, m: eng._cull_any(m)[1]}[name]
+
+    def program(self, name: str, m: Optional[MapState], values=(),
+                inputs=None) -> _LoopProgram:
+        """Program `name` on map `m`, defined the first time with
+        `inputs` (static buffers), or buffers like `values`."""
         key = (name, self._key(m))
         prog = self._progs.get(key)
         if prog is None:
-            fns = {"register": SlamEngine._register_static,
-                   "register_packed": SlamEngine._register_packed_static,
-                   "covis": lambda eng, m, s, v: covisibility_rows(m, s, v),
-                   "relpose": SlamEngine._relpose_program,
-                   "reloc": SlamEngine._reloc_program,
-                   "seam": SlamEngine._seam_program}
-            inputs = self._inputs(name, m)
-            prog = _LoopProgram(name, fns[name], (m,) + inputs,
-                                f"{name}#{len(self._progs)}", name == "seam")
+            if inputs is None:
+                inputs = self._inputs(name, m) if name in self.NAMES else \
+                    tuple(self._held_or_buffer(v) for v in values)
+            late = name.startswith("close@")
+            prog = _LoopProgram(name, self._fn(name), (m,) + tuple(inputs),
+                                f"{name}#{len(self._progs)}",
+                                late or name in self._MUTATE, late)
             self._progs[key] = prog
         return prog
 
     def _capture(self, prog: _LoopProgram) -> None:
-        if self.frozen or threading.current_thread() is not self.owner:
+        if (self.frozen and not prog.late) or \
+                threading.current_thread() is not self.owner:
             raise RuntimeError(
-                f"loop program {prog.name!r} has no CUDA graph for this map "
+                f"program {prog.name!r} has no CUDA graph for this map "
                 f"and may not be captured here (graphs are captured on the "
                 f"thread that made the engine, before any mapping job)")
         g, eng = self.graphs, self._eng()
@@ -391,22 +507,29 @@ class _LoopPrograms:
             g.warm_up(prog.fn, eng, *warm)
         else:
             g.warm_up(prog.fn, eng, *prog.inputs)
-        self._out[prog.gname] = g.capture(prog.gname, prog.fn, eng,
-                                          *prog.inputs)
+        out = g.capture(prog.gname, prog.fn, eng, *prog.inputs,
+                        error_mode="thread_local" if prog.late
+                        else "global")
+        self._keep(prog.gname, out)
+
+    def _keep(self, gname: str, out) -> None:
+        self._out[gname] = out
+        _tree_map(lambda t: self._out_ptrs.add(t.data_ptr()), out)
 
     def prepare(self, maps, names=None) -> None:
-        """Capture (on a card) every program of `names` (default all) for
-        each map in `maps`, now, on this thread."""
+        """Capture (on a card) every program of `names` (default all of
+        this set's) for each map in `maps`, now, on this thread."""
         for m in maps:
-            for name in names or self.NAMES:
+            for name in names or self.names:
                 prog = self.program(name, m)
                 if self.cuda and prog.gname not in self.graphs:
                     self._capture(prog)
 
-    def run(self, name: str, m: MapState, *values, copy_out: bool = False):
+    def run(self, name: str, m: Optional[MapState], *values,
+            copy_out: bool = False):
         """The program on map `m` with these inputs: its outputs, static
         buffers the next run overwrites (copies with copy_out)."""
-        prog = self.program(name, m)
+        prog = self.program(name, m, values)
         for buf, v in zip(prog.inputs[1:], values):
             _copy_in(buf, v)
         if self.cuda:
@@ -418,18 +541,25 @@ class _LoopPrograms:
             res = prog.fn(self._eng(), *prog.inputs)
             out = self._out.get(prog.gname)
             if out is None:
-                out = self._out[prog.gname] = _tree_map(torch.clone, res)
+                self._keep(prog.gname, _tree_map(torch.clone, res))
+                out = self._out[prog.gname]
             else:
                 _tree_copy(out, res)
-        self.runs[name] += 1
+        self.runs[name] = self.runs.get(name, 0) + 1
         return _tree_map(torch.clone, out) if copy_out else out
 
     def stats(self) -> Optional[dict]:
         """The graphs' captures, capture seconds, pool bytes and capturing
-        threads, and the runs by program (None off a card)."""
+        threads, the runs by program, and each close tier's capture
+        seconds and pool bytes (None off a card)."""
         if self.graphs is None:
             return None
-        return dict(self.graphs.stats(), runs=dict(self.runs))
+        g = self.graphs
+        closes = {prog.name: {"capture_s": g.graph_s[prog.gname],
+                              "pool_bytes": g.pool_bytes([prog.gname])}
+                  for prog in self._progs.values()
+                  if prog.late and prog.gname in g}
+        return dict(g.stats(), runs=dict(self.runs), closes=closes)
 
 
 class SlamEngine:
@@ -439,12 +569,14 @@ class SlamEngine:
     detection, closing and relocalization; it is moved to `device`.
     Entry points run on `device` (default the card, which must exist).
     graphs=True (the default) runs process's per-frame programs on
-    static buffers, as CUDA graphs on a card (_StaticTrack), and the loop
-    programs the same way (_LoopPrograms: register, covisibility,
-    relative pose, relocalization, seam BA); graphs=False runs both
-    eagerly, with the same results bit for bit. The `graphs` attribute
-    is read at each loop program's call, so setting it to False turns
-    the loop graphs alone off.
+    static buffers, as CUDA graphs on a card (_StaticTrack), and the
+    keyframe and loop programs the same way (_LoopPrograms: stereo,
+    insert, BA, snapshot and the two culls; register, covisibility,
+    relative pose, relocalization, seam BA and the close a tier);
+    graphs=False runs them all eagerly, with the same results bit for
+    bit. The `graphs` attribute is read at each keyframe and loop
+    program's call, so setting it to False on the chunked engine's host
+    turns its graphs alone off.
     own_map=False is the chunked engine's host: no map is allocated, and
     the caller sets `map` and the mirrors before any program runs.
     `stages`, a utils.timing.StreamStages, times the loop's stages
@@ -478,6 +610,7 @@ class SlamEngine:
         self._loop_events: List[dict] = []
         self.graphs = graphs
         self._static: Optional[_StaticTrack] = None
+        self._kf = _LoopPrograms(self, _LoopPrograms.KEYFRAME_NAMES)
         self.stages = None              # a StreamStages while timed
         # the photometric anchor ("direct" and "hybrid")
         self._kf_img: Optional[torch.Tensor] = None
@@ -487,6 +620,7 @@ class SlamEngine:
         # refreshed at keyframe events
         self.map: Optional[MapState] = None
         self._lm = None
+        self._lm_serial = 0             # snapshots taken (a new one: +1)
         self._latest_kf_T_dev = eye.clone()
         self._latest_kf_T_host = np.eye(4, dtype=np.float32)
         self._latest_slot_host = 0
@@ -549,9 +683,11 @@ class SlamEngine:
 
     def graph_stats(self) -> Optional[dict]:
         """Captures, capture seconds, pool bytes and set-up launches of
-        process's CUDA graphs; None where nothing was captured."""
-        return None if self._static is None or self._static.graphs is None \
-            else self._static.graphs.stats()
+        process's CUDA graphs and the keyframe programs' (the culls' of
+        the chunked engine's host too); None where nothing was
+        captured."""
+        return merged_stats([None if self._static is None
+                             else self._static.graphs, self._kf.graphs])
 
     def loop_graph_stats(self) -> Optional[dict]:
         """The loop programs' graphs: captures, capture seconds, pool
@@ -585,7 +721,7 @@ class SlamEngine:
         fid = torch.where(m.kf_valid, m.kf_frame_id,
                           torch.full_like(m.kf_frame_id, -1))
         slot = torch.argmax(fid)
-        return lm, m.kf_T_cw[slot].clone(), \
+        return lm, row(m.kf_T_cw, slot), \
             torch.stack([slot, torch.sum(m.kf_valid)])
 
     def _packed(self, T_prev, velocity, kf_T_latest, T_pred, res,
@@ -623,9 +759,11 @@ class SlamEngine:
         return self._packed(T_prev, velocity, kf_T_latest, T_pred, res,
                             ab[0], ab[1])
 
-    def _insert(self, m: MapState, frame: FrameState, T_cw, frame_id: int,
+    def _insert(self, m: MapState, frame: FrameState, T_cw, frame_id,
                 ids, kpts, inliers, lm_Xw, lm_valid, quality):
-        """Insert the keyframe, then cull the weak mappoints."""
+        """Insert the keyframe, then cull the weak mappoints, in place:
+        (m, the new slot). frame_id and quality: host numbers or 0-dim
+        device tensors."""
         m, slot = insert_keyframe(m, frame, T_cw, frame_id, ids, kpts,
                                   inliers, self.cfg, quality=quality,
                                   lm_snapshot=(lm_Xw, lm_valid))
@@ -633,8 +771,14 @@ class SlamEngine:
         return cull_weak_mappoints(m, frame_id, mc.mp_cull_grace_frames,
                                    mc.mp_cull_min_obs), slot
 
+    def _insert_program(self, m: MapState, *inputs) -> torch.Tensor:
+        return self._insert(m, *inputs)[1]
+
     def _ba(self, m: MapState) -> MapState:
         return local_ba_step(m, self.cam, self.cfg)
+
+    def _ba_program(self, m: MapState) -> None:
+        self._ba(m)
 
     def _cull(self, m: MapState):
         """The most redundant unprotected keyframe, if it clears 0.8."""
@@ -760,34 +904,61 @@ class SlamEngine:
                 self._loop.run("seam", m, cur, cand)
         return m
 
-    def _close(self, m, cur: int, cand: int, T_loop, ci, cj, cT, cv, cw,
-               k: int, scale, q, tier: int):
-        """Close + merge + ring update. The loop edge's weight is the
-        relative pose's inlier count over 2 min_matches, clipped; the
-        ring records the edge relative to the pre-correction candidate
-        (SE3), or post-correction at unit scale (Sim3: close_loop has
-        rescaled the anchored depths, so the map is metric again).
-
-        Eager on purpose, with graphs too: it runs once a closure; the
-        pose graph is solved at one of six sizes (_PG_TIERS), so a graph
-        would be needed a tier, whose capture costs more than the one
-        closure saves; and optim/pose_graph.SegmentSum reads its width
-        back to the host, which a graph cannot hold."""
+    def _close_body(self, m, cur, cand, T_loop, ci, cj, cT, cv, cw, k, scale,
+                    q, tier: int):
+        """Close + merge + ring update: (the map, ci, cj, cT, cv, cw). The
+        loop edge's weight is the relative pose's inlier count over 2
+        min_matches, clipped; the ring records the edge relative to the
+        pre-correction candidate (SE3), or post-correction at unit scale
+        (Sim3: close_loop has rescaled the anchored depths, so the map is
+        metric again). cur, cand and the ring index k: host ints or 0-dim
+        device tensors; the returned map's replaced fields and the ring
+        are new tensors."""
         cfg = self.cfg
         w = torch.clamp(q / (2.0 * cfg.loop.min_matches),
                         cfg.loop.loop_edge_min_weight, 1.0)
-        loop_T_se3 = T_loop @ se3.inv(m.kf_T_cw[cand])
+        loop_T_se3 = T_loop @ se3.inv(at(m.kf_T_cw, cand))
         m = closer_mod.close_loop(m, cur, cand, T_loop, ci, cj, cT, cv, cfg,
                                   tier=tier, loop_scale=scale,
                                   loop_weight=w, prev_loops_w=cw)
         if cfg.loop.pose_graph_group == "sim3":
-            loop_T = m.kf_T_cw[cur] @ se3.inv(m.kf_T_cw[cand])
+            loop_T = at(m.kf_T_cw, cur) @ se3.inv(at(m.kf_T_cw, cand))
         else:
             loop_T = loop_T_se3
         m = closer_mod.merge_mappoints(m, cur, cand, self.cam, cfg)
-        ci, cj, cT, cv, cw = (t.clone() for t in (ci, cj, cT, cv, cw))
-        ci[k], cj[k], cT[k], cv[k], cw[k] = cand, cur, loop_T, True, w
-        return m, ci, cj, cT, cv, cw
+        dev = ci.device
+        hit = torch.arange(ci.shape[0], device=dev) == (
+            k if torch.is_tensor(k) else int(k))
+        return (m, torch.where(hit, closer_mod._slot(cand, dev).int(), ci),
+                torch.where(hit, closer_mod._slot(cur, dev).int(), cj),
+                torch.where(hit[:, None, None], loop_T, cT), cv | hit,
+                torch.where(hit, w, cw))
+
+    def _close_program(self, m: MapState, cur, cand, T_loop, scale, q, k, ci,
+                       cj, cT, cv, cw, tier: int) -> tuple:
+        """_close_body on m in place: the new ring (ci, cj, cT, cv, cw)."""
+        m2, *ring = self._close_body(m, cur, cand, T_loop, ci, cj, cT, cv,
+                                     cw, k, scale, q, tier)
+        store_map(m, m2)
+        return tuple(ring)
+
+    def _close(self, cur: int, cand: int, rel, k: int, tier: int) -> None:
+        """The close of keyframe cur onto cand with relative pose `rel`
+        into ring entry k, on the map and the ring in place (the
+        programs' graphs read them at their addresses): the close@tier
+        program with graphs, else its body."""
+        ring = (self.closed_i, self.closed_j, self.closed_T,
+                self.closed_valid, self.closed_w)
+        q = rel.n_inliers.float()
+        if self.graphs:
+            new = self._loop.run(f"close@{tier}", self.map, cur, cand,
+                                 rel.T_cw, rel.scale, q, k, *ring)
+        else:
+            m, *new = self._close_body(self.map, cur, cand, rel.T_cw, *ring,
+                                       k, rel.scale, q, tier)
+            store_map(self.map, m)
+        for dst, src in zip(ring, new):
+            dst.copy_(src)
 
     def _register(self, m: MapState, slots, valid):
         """Register and score keyframe rows (BOW_ROWS slots and their mask,
@@ -835,6 +1006,23 @@ class SlamEngine:
         normalized query, a standing false candidate."""
         return self.bow_db, self._register(m, slots, valid)
 
+    # the keyframe programs the host steps call
+    def _take_snapshot(self, m: MapState) -> tuple:
+        """_snapshot of m: the snapshot program's outputs with graphs (the
+        buffers its next run overwrites), else its body's."""
+        if not self.graphs:
+            return self._snapshot(m)
+        return self._kf.run("snapshot", m)
+
+    def _cull_slot(self, m: MapState, name: str) -> int:
+        """Program `name` ("cull" or "cull_any") on m in place: the culled
+        slot or -1, read back here (the cull's one host read)."""
+        if self.graphs:
+            s = self._kf.run(name, m)
+        else:
+            s = (self._cull if name == "cull" else self._cull_any)(m)[1]
+        return int(s)
+
     # ----- per-frame driver ---------------------------------------------
     def _upload(self, img) -> torch.Tensor:
         return torch.as_tensor(img).to(self.device, torch.float32)
@@ -850,10 +1038,16 @@ class SlamEngine:
         return)."""
         self._t_frame0 = time.perf_counter()
         direct = self.cfg.tracker.method == "direct"
+        if self.graphs and self._static is None:
+            self._static = _StaticTrack(self, torch.as_tensor(left))
         if self.n_keyframes == 0:
-            img_l = self._upload(left)
-            self._make_keyframe(self._build(img_l), img_l,
-                                self._upload(right), self.T_cw, ids=None,
+            if self.graphs:
+                img_l, frame = self._static.build(self, left)
+                img_r = right              # copied into the stereo program
+            else:
+                img_l, img_r = self._upload(left), self._upload(right)
+                frame = self._build(img_l)
+            self._make_keyframe(frame, img_l, img_r, self.T_cw, ids=None,
                                 kpts=None, inliers=None, run_ba=False)
             eye = np.eye(4, dtype=np.float32)
             self._finish_frame(eye, eye, 0, True)
@@ -861,10 +1055,9 @@ class SlamEngine:
 
         Xw, desc, ids, valid = self._lm
         if self.graphs:
-            if self._static is None:
-                self._static = _StaticTrack(self, torch.as_tensor(left))
             img_l, frame, (res, T_new, vel_new, packed) = \
                 self._static.step(self, left)
+            ids = self._static.ids
         else:
             img_l = self._upload(left)
             frame = self._build(img_l)
@@ -909,7 +1102,8 @@ class SlamEngine:
             max(self._inlier_peak, float(n_inliers))
 
         if needs_kf or not tracked_ok:
-            self._make_keyframe(frame, img_l, self._upload(right), T_new,
+            self._make_keyframe(frame, img_l, right if self.graphs
+                                else self._upload(right), T_new,
                                 ids=ids, kpts=res.mp_kpt,
                                 inliers=res.mp_inlier, run_ba=True)
             # BA may have moved the keyframe: the frame takes its pose
@@ -927,7 +1121,9 @@ class SlamEngine:
     def _refresh_kf_mirrors(self) -> None:
         """Landmark snapshot and host mirrors after a map mutation: one
         small readback."""
-        self._lm, self._latest_kf_T_dev, counts = self._snapshot(self.map)
+        self._lm, self._latest_kf_T_dev, counts = \
+            self._take_snapshot(self.map)
+        self._lm_serial += 1
         vals = torch.cat([counts.float(),
                           self._latest_kf_T_dev.reshape(-1)]).cpu().numpy()
         self._latest_slot_host, self._n_kf_valid_host = \
@@ -942,9 +1138,9 @@ class SlamEngine:
             # if nothing is redundant enough, evict the most redundant
             for _ in range(4):
                 kf_T_pre = self.map.kf_T_cw.cpu().numpy().copy()
-                self.map, s = self._cull(self.map)
+                s = self._cull_slot(self.map, "cull")
                 if s < 0:
-                    self.map, s = self._cull_any(self.map)
+                    s = self._cull_slot(self.map, "cull_any")
                 if s < 0:
                     break
                 # frames anchored on the culled slot move to a surviving
@@ -960,7 +1156,8 @@ class SlamEngine:
             if self._n_kf_valid_host >= cap - 2:
                 raise RuntimeError(f"keyframe capacity {cap} exhausted "
                                    f"(nothing redundant to cull)")
-        frame = self._stereo(frame, img_l, img_r)
+        frame = self._kf.run("stereo", None, frame, img_l, img_r) \
+            if self.graphs else self._stereo(frame, img_l, img_r)
         if self.cfg.tracker.method in ("direct", "hybrid"):
             # the new keyframe becomes the photometric anchor (a copy:
             # process's static image buffer is overwritten); its (a, b)
@@ -978,14 +1175,20 @@ class SlamEngine:
             quality = float(2 * self.cfg.tracker.min_matches)
         else:
             quality = torch.sum(inliers.float())
-        self.map, slot = self._insert(self.map, frame, T_cw, self.frame_id,
-                                      ids, kpts, inliers, self._lm[0],
-                                      self._lm[3], quality)
+        args = (frame, T_cw, self.frame_id, ids, kpts, inliers, self._lm[0],
+                self._lm[3], quality)
+        if self.graphs:
+            slot = self._kf.run("insert", self.map, *args)
+        else:
+            slot = self._insert(self.map, *args)[1]
         self.n_keyframes += 1
         if self.vocab is not None:
             self._loop_step(slot)
         if run_ba and self.n_keyframes >= 3:
-            self.map = self._ba(self.map)
+            if self.graphs:
+                self._kf.run("ba", self.map)
+            else:
+                self._ba(self.map)
         self._refresh_kf_mirrors()
 
     def _finish_frame(self, T_np: np.ndarray, T_rel_np: np.ndarray,
@@ -1133,16 +1336,7 @@ class SlamEngine:
                 T_pre[:3, :3].T @ T_pre[:3, 3]
                 - T_meas[:3, :3].T @ T_meas[:3, 3]))
         with self._stage("close"):
-            (m, self.closed_i, self.closed_j, self.closed_T,
-             self.closed_valid, self.closed_w) = self._close(
-                self.map, slot, cand, rel.T_cw, self.closed_i,
-                self.closed_j, self.closed_T, self.closed_valid,
-                self.closed_w, k, rel.scale, rel.n_inliers.float(), tier)
-            # into the map's own tensors: the loop programs' graphs read
-            # them at their addresses
-            for dst, src in zip(self.map, m):
-                if src.data_ptr() != dst.data_ptr():
-                    dst.copy_(src)
+            self._close(slot, cand, rel, k, tier)
         if self.cfg.loop.seam_ba and \
                 corr_m >= self.cfg.loop.seam_ba_min_corr_m:
             self.map = self._seam_ba(self.map, slot, cand)

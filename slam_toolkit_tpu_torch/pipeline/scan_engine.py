@@ -71,8 +71,7 @@ from slam_toolkit_tpu_torch.geometry.camera import StereoCamera
 from slam_toolkit_tpu_torch.loop.vocab import db_set as vocab_db_set
 from slam_toolkit_tpu_torch.mapping import keyframe as kf_rule
 from slam_toolkit_tpu_torch.mapping.ba_adapter import local_ba_step
-from slam_toolkit_tpu_torch.mapping.culling import (cull_most_redundant,
-                                                    cull_weak_mappoints)
+from slam_toolkit_tpu_torch.mapping.culling import cull_weak_mappoints
 from slam_toolkit_tpu_torch.mapping.map_state import (MapState,
                                                       camera_frustum,
                                                       empty_map,
@@ -81,7 +80,7 @@ from slam_toolkit_tpu_torch.mapping.map_state import (MapState,
 from slam_toolkit_tpu_torch.optim import direct_lm
 from slam_toolkit_tpu_torch.optim.direct_lm import DirectState
 from slam_toolkit_tpu_torch.pipeline.engine import (BOW_ROWS, SlamEngine,
-                                                    full_float32)
+                                                    full_float32, store_map)
 from slam_toolkit_tpu_torch.utils.cuda_graphs import StepGraphs
 from slam_toolkit_tpu_torch.utils.lanes import lane
 
@@ -154,19 +153,10 @@ def keyframe_event(carry: ChunkCarry, frame, left, right, T_new,
     return m, slot, _snapshot(m, cfg), latest_T
 
 
-def _write_back(dst_map: MapState, m: MapState) -> None:
-    """Store the map `m` a keyframe event returned into `dst_map`: the
-    fields it replaced are copied, those it updated in place (the same
-    tensors) are already there."""
-    for dst, src in zip(dst_map, m):
-        if src.data_ptr() != dst.data_ptr():
-            dst.copy_(src)
-
-
 def write_lane(batched: MapState, b: int, m: MapState) -> None:
     """Store lane b's map `m` into the batched map (its views of the
     batch are already there)."""
-    _write_back(lane(batched, b), m)
+    store_map(lane(batched, b), m)
 
 
 class Tracked(NamedTuple):
@@ -554,7 +544,7 @@ class _StaticChunk:
     def _keyframe_step(self, S: ChunkCarry, t: Tracked) -> None:
         m, slot, lm, latest_T, refvals = self.keyframe(
             S._replace(frame_id=self.fid), t, self.left, self.right)
-        _write_back(S.m, m)
+        store_map(S.m, m)
         for dst, src in zip((S.lm_Xw, S.lm_desc, S.lm_ids, S.lm_valid), lm):
             dst.copy_(src)
         S.latest_slot.copy_(slot)
@@ -983,6 +973,12 @@ class ChunkedSlamEngine:
         if vocab is not None:
             self._host = SlamEngine(self.cfg, self.cam, vocab, self.device,
                                     own_map=False, graphs=graphs)
+        # the host engine whose keyframe programs cull the carry's map (the
+        # loop host, or one of its own without a vocabulary)
+        self._mapper = self._host if vocab is not None else SlamEngine(
+            self.cfg, self.cam, None, self.device, own_map=False,
+            graphs=graphs)
+        if vocab is not None:
             self._host._loop.rows_capacity = max(chunk_size, BOW_ROWS)
             self._loop_stash: List[dict] = []     # detections awaiting age 2
             self._closure_pend: List[dict] = []   # measurements awaiting age 1
@@ -1081,7 +1077,9 @@ class ChunkedSlamEngine:
         estimate; a cull first flushes (its rows are owed to the caller).
         Trajectory rows anchored on a culled slot move to the latest
         keyframe. JAX scan_engine._ensure_headroom with its host engine's
-        _cull, _cull_any and _refresh_kf_mirrors."""
+        _cull, _cull_any and _refresh_kf_mirrors: the culls are the host's
+        cull programs on the carry's map (graphed with the static step),
+        each decided on the device and its slot read back here."""
         cap = self.cfg.map.max_keyframes
         in_flight = sum(p["n"] for p in self._pending)
         if self._n_kf_valid + in_flight < cap - n_next - 2:
@@ -1089,14 +1087,13 @@ class ChunkedSlamEngine:
         rows = self.flush()           # the JAX engine drains before a cull
         if len(rows):
             self._owed_rows.append(rows)
-        protect = self.cfg.local_ba.window_keyframes
         m = self.carry.m
         latest = None
         while self._n_kf_valid >= cap - n_next - 2:
             kf_T_pre = m.kf_T_cw.cpu().numpy().copy()
-            m, s = cull_most_redundant(m, 0.8, protect)
+            s = self._mapper._cull_slot(m, "cull")
             if s < 0:
-                m, s = cull_most_redundant(m, 0.0, protect)
+                s = self._mapper._cull_slot(m, "cull_any")
             if s < 0:
                 raise RuntimeError(
                     f"keyframe capacity {cap} exhausted (all protected)")
@@ -1170,18 +1167,23 @@ class ChunkedSlamEngine:
 
     def _prepare_loop_graphs(self) -> None:
         """Once, on the main thread, before any mapping job: the loop
-        programs for the static carry's map (all of them) and the published
-        copies (those a job runs), captured as CUDA graphs on a card; then
-        no capture is allowed (_LoopPrograms.frozen)."""
+        programs for the static carry's map (all of them), the published
+        copies (those a job runs) and the keyframe programs the main thread
+        runs on the static carry's map between chunks (the culls and the
+        closure's snapshot), captured as CUDA graphs on a card; then no
+        capture is allowed (_LoopPrograms.frozen) but a close's, at its
+        tier's first closure. No job runs a keyframe program, so none is
+        captured for the published copies."""
         h = self._host
         if not h.graphs or h._loop.frozen or \
                 not isinstance(self._chunk, _StaticChunk):
             return
+        h._kf.prepare([self.carry.m], ("cull", "cull_any", "snapshot"))
         h._loop.prepare([self.carry.m])
         if self._worker is not None:
             h._loop.prepare(self._worker.allocate(self.carry.m),
                             ("register", "covis", "relpose"))
-        h._loop.frozen = True
+        h._loop.frozen = h._kf.frozen = True
 
     def _settle(self) -> None:
         """Hold the static carry: a carry the host rebuilt is copied into
@@ -1538,7 +1540,7 @@ class ChunkedSlamEngine:
         latest_T_old = self.carry.latest_T
         h._dispatch_close(slot, cand, rel, fid, fid_cand, vals)
         with h._stage("snapshot"):
-            lm, latest_T, counts = h._snapshot(h.map)
+            lm, latest_T, counts = h._take_snapshot(h.map)
             self._rebuild_carry(
                 m=h.map, lm_Xw=lm[0], lm_desc=lm[1], lm_ids=lm[2],
                 lm_valid=lm[3], latest_slot=counts[0], latest_T=latest_T,

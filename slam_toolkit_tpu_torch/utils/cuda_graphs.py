@@ -41,7 +41,9 @@ class StepGraphs:
     """Named CUDA graphs on one device, captured once on one shared memory
     pool (or, with shared_pool=False, a pool each) and replayed by name.
     `captures` and `capture_s` (warm-up included) say what capturing
-    cost; `capture_threads` names the threads that captured."""
+    cost, `graph_s` what each graph's capture cost with the warm-ups
+    since the one before; `capture_threads` names the threads that
+    captured."""
 
     def __init__(self, device, shared_pool: bool = True):
         self.device = torch.device(device)
@@ -49,8 +51,11 @@ class StepGraphs:
         self.pool = None
         self._pools: List = []
         self._graphs: Dict[str, tuple] = {}
+        self._pool_of: Dict[str, tuple] = {}
         self.captures = 0
         self.capture_s = 0.0
+        self.graph_s: Dict[str, float] = {}
+        self._warm_s = 0.0
         self.setup_launches: Dict[str, int] = {}
         self.capture_threads: set = set()
 
@@ -69,11 +74,16 @@ class StepGraphs:
         for c, n in delta.items():
             key = getattr(c, "symbol", type(c).__name__)
             self.setup_launches[key] = self.setup_launches.get(key, 0) + n
-        self.capture_s += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        self.capture_s += dt
+        self._warm_s += dt
 
-    def capture(self, name: str, fn: Callable, *args):
+    def capture(self, name: str, fn: Callable, *args,
+                error_mode: str = "global"):
         """Capture fn(*args) as graph `name`; returns fn's outputs, tensors
-        of the pool that every replay writes anew."""
+        of the pool that every replay writes anew. error_mode is
+        torch.cuda.graph's capture_error_mode: "thread_local" lets other
+        threads use the card meanwhile."""
         if name in self._graphs:
             raise RuntimeError(f"graph {name!r} is captured already")
         t0 = time.perf_counter()
@@ -86,7 +96,8 @@ class StepGraphs:
         gc.disable()
         try:
             with cuda_lib.counts_apart() as delta:
-                with torch.cuda.graph(graph, pool=self.pool):
+                with torch.cuda.graph(graph, pool=self.pool,
+                                      capture_error_mode=error_mode):
                     out = fn(*args)
         finally:
             if collecting:
@@ -95,11 +106,16 @@ class StepGraphs:
             if self.pool is None:
                 self.pool = graph.pool()
                 self._pools.append(self.pool)
+            self._pool_of[name] = tuple(self.pool)
         else:
             self._pools.append(graph.pool())
+            self._pool_of[name] = tuple(graph.pool())
         self._graphs[name] = (graph, dict(delta))
         self.captures += 1
-        self.capture_s += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        self.capture_s += dt
+        self.graph_s[name] = self._warm_s + dt
+        self._warm_s = 0.0
         return out
 
     def __contains__(self, name: str) -> bool:
@@ -111,15 +127,17 @@ class StepGraphs:
         for c, n in delta.items():
             c.add(n)
 
-    def pool_bytes(self) -> Optional[int]:
-        """Bytes the caching allocator holds in the graphs' pools, or None
-        where its snapshot names no pool."""
+    def pool_bytes(self, names=None) -> Optional[int]:
+        """Bytes the caching allocator holds in the graphs' pools (those of
+        graphs `names`, default all), or None where its snapshot names no
+        pool."""
         if not self._pools:
             return 0
         segs = torch.cuda.memory_snapshot()
         if not any("segment_pool_id" in s for s in segs):
             return None
-        pools = {tuple(p) for p in self._pools}
+        pools = {tuple(p) for p in self._pools} if names is None else \
+            {self._pool_of[n] for n in names}
         return sum(s["total_size"] for s in segs
                    if tuple(s.get("segment_pool_id", ())) in pools)
 
@@ -128,3 +146,24 @@ class StepGraphs:
                 "pool_bytes": self.pool_bytes(),
                 "setup_launches": dict(self.setup_launches),
                 "capture_threads": sorted(self.capture_threads)}
+
+
+def merged_stats(graphs) -> Optional[dict]:
+    """One stats dict over several StepGraphs (None entries and sets with
+    no capture left out): captures, seconds and pool bytes summed (None if
+    any is unknown), set-up launches and capturing threads merged; None
+    where nothing was captured."""
+    parts = [g.stats() for g in graphs if g is not None and g.captures]
+    if not parts:
+        return None
+    pools = [p["pool_bytes"] for p in parts]
+    setup: Dict[str, int] = {}
+    for p in parts:
+        for k, n in p["setup_launches"].items():
+            setup[k] = setup.get(k, 0) + n
+    return {"captures": sum(p["captures"] for p in parts),
+            "capture_s": sum(p["capture_s"] for p in parts),
+            "pool_bytes": None if None in pools else sum(pools),
+            "setup_launches": setup,
+            "capture_threads": sorted({t for p in parts
+                                       for t in p["capture_threads"]})}

@@ -4,7 +4,9 @@ JAX chunked engine, on the CPU.
 tests/test_capacity.py's tiny ring (max_keyframes=12, decay_ratio=0.95,
 32 frames of seed 3 at 0.25 m a frame, chunks of 4). The JAX engine is
 flushed after every chunk, so it culls from the same state the port's
-synchronous engine does. Both engines' cull calls are recorded.
+synchronous engine does. Both engines' cull calls are recorded (the
+port's where its cull programs call mapping/culling.cull_most_redundant:
+pipeline/engine's SlamEngine._cull and _cull_any).
 """
 
 import dataclasses
@@ -19,6 +21,7 @@ from slam_toolkit_tpu.evaluation.traj import ate_rmse
 from slam_toolkit_tpu.pipeline.scan_engine import \
     ChunkedSlamEngine as JaxEngine
 from slam_toolkit_tpu_torch.config import SlamConfig
+from slam_toolkit_tpu_torch.pipeline import engine as t_engine
 from slam_toolkit_tpu_torch.pipeline import scan_engine
 from slam_toolkit_tpu_torch.utils import convert
 
@@ -58,14 +61,14 @@ def runs():
         jvalid.append(int(np.asarray(jeng.map.kf_valid).sum()))
 
     tculls, tvalid, trows = [], [], []
-    real = scan_engine.cull_most_redundant
+    real = t_engine.cull_most_redundant
 
     def t_recorded(m, min_fraction, protect):
         m, slot = real(m, min_fraction, protect)
-        tculls.append(slot)
+        tculls.append(int(slot))
         return m, slot
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(scan_engine, "cull_most_redundant", t_recorded)
+        mp.setattr(t_engine, "cull_most_redundant", t_recorded)
         teng = scan_engine.ChunkedSlamEngine(_tiny_ring(SlamConfig.tiny()),
                                              chunk_size=CHUNK, device="cpu")
         for i in range(0, len(imgs), CHUNK):

@@ -841,12 +841,13 @@ def test_graphed_chunks_match_eager(dev, method):
 
 @pytest.mark.parametrize("method", ["indirect", "hybrid", "direct"])
 def test_graphed_process_matches_eager(dev, method):
-    """SlamEngine.process replaying its two CUDA graphs (_build, then
-    _track or _track_direct) against the eager programs (graphs=False) on
-    the card, tiny config, 17 frames past a small keyframe ring that
-    culls: every pose, flag, inlier count and map field bit-equal, the
-    kernels' launch counts (from the replays) equal, two captures for the
-    engine's life."""
+    """SlamEngine.process replaying its CUDA graphs (_build, then _track
+    or _track_direct; the keyframe programs stereo, insert, ba, snapshot
+    and the culls) against the eager programs (graphs=False) on the card,
+    tiny config, 17 frames past a small keyframe ring that culls: every
+    pose, flag, inlier count and map field bit-equal, the kernels' launch
+    counts (from the replays) equal, the culls run from their graphs, one
+    capture a program for the engine's life."""
     import dataclasses
 
     from slam_toolkit_tpu_torch.config import SlamConfig
@@ -880,7 +881,12 @@ def test_graphed_process_matches_eager(dev, method):
     assert g_l == e_l and g_l["slam_gather_blocks"] > 0
     if method != "direct":
         assert g_l["slam_topk2_match"] > 0 and g_l["slam_pose_lm"] > 0
-    assert g.graph_stats()["captures"] == 2 and e.graph_stats() is None
+    runs = g._kf.runs
+    assert runs["cull"] >= 1 and all(
+        runs[n] for n in ("stereo", "insert", "ba", "snapshot")), runs
+    assert g.graph_stats()["captures"] == 2 + sum(1 for v in runs.values()
+                                                  if v)
+    assert e.graph_stats() is None
 
 
 def test_graphed_fused_tracker_matches_eager(dev):
@@ -1448,8 +1454,10 @@ def test_graphed_loop_engine_matches_eager(loop_runs):
     assert torch.equal(g._host.bow_db, e._host.bow_db)
     assert gl == el and gl["slam_topk2_match"] > 0
     st = g._host.loop_graph_stats()
-    assert st["captures"] == 6 and st["capture_threads"] == ["MainThread"]
+    assert len(st["closes"]) == 1 and st["captures"] == 7 and \
+        st["capture_threads"] == ["MainThread"]
     assert st["runs"]["relpose"] > 0 and st["runs"]["reloc"] > 0
+    assert g._host.graph_stats()["captures"] == 3     # culls, snapshot
     assert not any(e._host._loop.runs.values())
 
 
@@ -1508,3 +1516,75 @@ def test_graphed_loop_programs_match_eager(loop_runs):
     assert n_g == n_e and n_g["slam_local_ba"] == 1
     for dst, src in zip(m, saved):
         dst.copy_(src)
+
+
+def test_graphed_close_matches_eager(loop_runs):
+    """The closure's close@tier graph replayed against its body run eagerly
+    on the same static inputs and the same map and ring: every map field
+    and the ring bit-equal, equal launch counts (the merge's top-2); the
+    map and ring put back after."""
+    from slam_toolkit_tpu_torch.mapping.map_state import MapState
+    from slam_toolkit_tpu_torch.utils import cuda_lib
+    g, _ = loop_runs[True]
+    h = g._host
+    prog = next(p for p in h._loop._progs.values()
+                if p.late and p.gname in h._loop.graphs)
+    m = prog.inputs[0]
+    ring = (h.closed_i, h.closed_j, h.closed_T, h.closed_valid, h.closed_w)
+    saved = [t.clone() for t in (*m, *ring)]
+    ref = MapState(*(t.clone() for t in m))
+    with cuda_lib.counting() as d_e:
+        ring_e = prog.fn(h, ref, *prog.inputs[1:])
+    with cuda_lib.counting() as d_g:
+        h._loop.graphs.replay(prog.gname)
+    torch.cuda.synchronize()
+    ring_g = h._loop._out[prog.gname]
+    for f in MapState._fields:
+        assert torch.equal(getattr(m, f), getattr(ref, f)), f
+    for a, b in zip(ring_g, ring_e):
+        assert torch.equal(a, b)
+    n_e = {c.symbol: n for c, n in d_e.items()}
+    assert {c.symbol: n for c, n in d_g.items()} == n_e
+    assert n_e["slam_topk2_match"] >= 1
+    for dst, src in zip((*m, *ring), saved):
+        dst.copy_(src)
+
+
+def test_graphed_chunked_culls_match_eager(dev):
+    """The chunked engine's headroom culls from their CUDA graphs against
+    their eager bodies (the host's `graphs` off; the chunk graphed in
+    both), tiny config, 32 frames in chunks of 4 past a ring of 12: at
+    least 2 culls, rows, anchors and map bit-equal, equal launches, one
+    capture a cull program run."""
+    import dataclasses
+
+    from slam_toolkit_tpu_torch.config import SlamConfig
+    from slam_toolkit_tpu_torch.pipeline.scan_engine import ChunkedSlamEngine
+    from slam_toolkit_tpu_torch.utils import cuda_lib
+    cfg = SlamConfig.tiny()
+    cfg = dataclasses.replace(
+        cfg, map=dataclasses.replace(cfg.map, max_keyframes=12),
+        keyframe=dataclasses.replace(cfg.keyframe, decay_ratio=0.95))
+    imgs = _tiny_images(32)
+    out = {}
+    for cull_graphs in (True, False):
+        eng = ChunkedSlamEngine(cfg, chunk_size=4, device=dev)
+        eng._mapper.graphs = cull_graphs
+        with cuda_lib.counting() as launched:
+            rows = [eng.process_chunk(imgs[i:i + 4])
+                    for i in range(0, 32, 4)] + [eng.flush()]
+        torch.cuda.synchronize()
+        out[cull_graphs] = (eng, np.concatenate(rows),
+                            {c.symbol: n for c, n in launched.items()
+                             if isinstance(c, cuda_lib.CudaKernel)})
+    (g, gr, gl), (e, er, el) = out[True], out[False]
+    assert g.n_culls == e.n_culls >= 2
+    np.testing.assert_array_equal(gr, er)
+    assert [s for s, _ in g._traj_anchor] == [s for s, _ in e._traj_anchor]
+    for f in g.map._fields:
+        assert torch.equal(getattr(g.map, f), getattr(e.map, f)), f
+    assert gl == el
+    runs = g._mapper._kf.runs
+    assert runs["cull"] >= 2 and not any(e._mapper._kf.runs.values())
+    assert g._mapper.graph_stats()["captures"] == sum(
+        1 for v in runs.values() if v)

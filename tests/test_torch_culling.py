@@ -3,8 +3,10 @@
 One JAX engine map at the tiny configuration, carried over with
 utils/convert.map_state_from_numpy, goes through both packages'
 redundancy_scores, cull_keyframe (every valid slot) and
-cull_most_redundant (at the engine's 0.8 bar and at 0.0, its forced
-eviction): integer and bool fields exact, inverse depths to rtol 1e-5.
+cull_most_redundant (at the engine's 0.8 bar, at 0.0, its forced
+eviction, and at 1.01, which nothing clears: both sides of the choice the
+port makes on the device): integer and bool fields exact, inverse depths
+to rtol 1e-5.
 """
 
 import jax
@@ -76,11 +78,12 @@ def test_cull_keyframe_matches_jax(jmap):
         _assert_maps_equal(out, ref)
 
 
-@pytest.mark.parametrize("min_fraction", [0.8, 0.0])
+@pytest.mark.parametrize("min_fraction", [0.8, 0.0, 1.01])
 def test_cull_most_redundant_matches_jax(jmap, min_fraction):
-    """At the engine's two bars, protecting one keyframe (so several are
-    candidates): the same slot (or -1) and the same map; then again on
-    the result."""
+    """At the engine's two bars and at one nothing clears, protecting one
+    keyframe (so several are candidates): the same slot (or -1, a device
+    tensor the caller reads) and the same map; then again on the
+    result."""
     j, t = jmap, convert.map_state_from_numpy(jmap, device="cpu")
     culled = []
     for _ in range(2):
@@ -91,3 +94,6 @@ def test_cull_most_redundant_matches_jax(jmap, min_fraction):
         culled.append(ts)
     if min_fraction == 0.0:
         assert min(culled) >= 0, culled
+    if min_fraction > 1.0:
+        assert culled == [-1, -1]
+        _assert_maps_equal(t, jax.tree_util.tree_map(jnp.asarray, jmap))

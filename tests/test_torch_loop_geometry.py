@@ -192,11 +192,13 @@ def test_sim3_pose_graph_matches_jax():
 
 def test_segment_sum_matches_in_order_scatter():
     """The pose graph's fixed-order scatter-add: repeated keys summed as
-    an in-order .at[].add sums them (float64 reference), unused slots 0."""
+    an in-order .at[].add sums them (float64 reference), unused slots 0
+    (the table as wide as the keys, which bounds any multiplicity)."""
     rng = np.random.default_rng(3)
     keys = rng.integers(0, 9, 40)
     rows = rng.normal(size=(40, 2, 3)).astype(np.float32)
-    out = t_pg.SegmentSum(torch.from_numpy(keys), 12)(torch.from_numpy(rows))
+    out = t_pg.SegmentSum(torch.from_numpy(keys), 12, len(keys))(
+        torch.from_numpy(rows))
     ref = np.zeros((12, 2, 3))
     np.add.at(ref, keys, rows.astype(np.float64))
     np.testing.assert_allclose(out.numpy(), ref, atol=1e-5)

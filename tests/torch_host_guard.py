@@ -24,7 +24,10 @@ PLAIN_TWINS = (
     (ba_kernel, ("solve_ba_plain", "solve_ba_batched_plain")),
     (fast_kernel, ("detect_levels_plain", "detect_fused_plain")))
 HOST_CALLS = {"__bool__", "item", "tolist", "numpy", "cpu", "nonzero",
-              "tensor", "as_tensor", "__int__", "__float__", "__index__"}
+              "tensor", "as_tensor", "__int__", "__float__", "__index__",
+              # linear algebra that checks its result on the host on a
+              # card (the _ex forms with check_errors=False do not)
+              "linalg_solve", "linalg_inv", "linalg_cholesky", "inverse"}
 # the aten operations behind a read-back (.item(), and the C++ callers of
 # it such as indexing with a 0-dim tensor), a data-dependent shape, and a
 # tensor made from host values
