@@ -6,8 +6,10 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. Device and build: require CUDA, print the card's name and power limit,
-   build the CUDA kernels from csrc/ (one nvcc per source, in parallel)
-   and print the build time.
+   torch's CUDA, the driver and whether torch binds CUDA-graph
+   conditional nodes (the port adds its own, csrc/graph_cond.cu), build
+   the CUDA kernels from csrc/ (one nvcc per source, in parallel) and
+   print the build time.
 2. Each kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it, with its stated tolerance, and its
    times:
@@ -57,12 +59,17 @@ Phases (any failure raises and the script exits non-zero):
    cached under the temporary directory),
    ChunkedSlamEngine(chunk_size=16, device="cuda"), 3 chunks, then
    trajectory_refined(). The engine runs graphed, its default
-   (scan_engine.make_chunk_fn: the tracking step and the keyframe event
-   captured once each as CUDA graphs in the first chunk, then replayed);
-   phases 4-8, 10, 11 (c) and 13 too. Every kernel's launch count is
-   reset just before and read just after (a graph adds on each replay
-   the launches its capture recorded; the warm-up before the capture is
-   set-up and not counted); kernels 1-5 must have launched, the gather
+   (scan_engine.make_chunk_fn: the frame captured once as a CUDA graph
+   in the first chunk, the keyframe event an IF node on the device
+   flag, then replayed once a frame); phases 4-8, 10, 11 (c) and 13
+   too. Every kernel's launch count is reset just before and read just
+   after (a graph adds on each replay the launches its capture recorded,
+   and an IF body's once for each of its executions; the warm-up before
+   the capture is set-up and not counted). Phases 3, 4, 6, 7 and 8 print
+   the host syncs inside the chunks (CUDA's sync debug mode; the
+   capturing chunk left out), which must be 0, and the keyframe IF
+   body's runs, which must equal the rows' keyframe flags. Kernels 1-5
+   must have launched, the gather
    once a frame, local BA once per keyframe after the bootstrap; ATE
    must stay <= 0.138 m. The captures, their seconds and the graphs'
    memory pool are printed. The inputs projection_match hands to the
@@ -206,7 +213,10 @@ Phases (any failure raises and the script exits non-zero):
    names the frame). Aggregate frames/s of both layouts (the second
    chunk) and one lane alone's, and the device operations a frame of
    each layout (frames 2 and 3 under torch.profiler, after frame 1
-   captured the graphs) are printed. The inputs of the five batched
+   captured the graphs) are printed, and the host syncs over the rest
+   of the first chunk: the batched layout's graph (the keyframe event an
+   IF node on any lane's flag) must make none, and its IF body must run
+   once for each frame with a flagged lane. The inputs of the five batched
    entries in the batched run are kept on the card (as phase 3's: the
    last frame that ran each); each entry is then held, lane by lane,
    against its single launch on them (exactly; the pose LM and local BA
@@ -228,10 +238,13 @@ Phases (any failure raises and the script exits non-zero):
    runs, counted from the replays, equal to the eager runs' (by window
    shape too). Then phase 13's batched indirect and hybrid runs again,
    eagerly: their rows bit-equal to phase 13's graphed runs and their
-   launches equal; each graphed batched run captured 2 graphs (tracking
-   and one keyframe graph for all lanes). Prints each run's frames/s,
-   the captures, their seconds and the graphs' pool memory, and both
-   modes' aggregate frames/s at four lanes.
+   launches equal; each graphed batched run captured 1 graph (its
+   keyframe event an IF node for all lanes). Prints each run's frames/s,
+   the captures, their seconds and the graphs' pool memory, the host
+   syncs inside each run's chunks (0 graphed, 1 a frame eager) and the
+   keyframe IF body's runs against the keyframe rows, the second
+   graphed run's last chunk under torch.profiler (kernels a frame, busy
+   share), and both modes' aggregate frames/s at four lanes.
 15. The option sets (tools/bench.OPTIONS) at SlamConfig(): (a) the
    kernels at their shapes on frame 0 (frame 1 as a second lane), each
    exact against its plain version and unfold, with phase 2's columns:
@@ -291,26 +304,33 @@ Phases (any failure raises and the script exits non-zero):
    chunks under torch.profiler: each stream's busy time and the share
    of the wall in which another stream's work overlapped the graphs'.
    The same frames at depth 2 with the loop phases inline right after
-   (a): its frames/s and closures, and the host's flag reads (ms a
-   frame) in both runs. (c) Without a vocabulary, phase 3's frames at
+   (a): its frames/s and closures, and the host syncs inside the chunks
+   in both runs (0 inline; the worker's own are counted with the
+   worker). (c) Without a vocabulary, phase 3's frames at
    depths 0 and 2: the rows returned (none while the queue fills)
    concatenated with the flush's are bit-equal. (d) The interpreter
    lock: a pure-Python loop on another thread ticks through the depth-2
    run's chunks 2-3; its rate against its rate alone is the share of
    the lock the main thread leaves free, and those chunks' walls are
    printed beside depth 0's without it.
-17. The cluster tracker's fused step as one CUDA graph: the first 16 of
+17. The cluster tracker's fused step as one CUDA graph, the skip gate's
+   two sides and each RANSAC round IF nodes: the first 20 of
    phase 12's frames at 1241x376 staged on the card, through
    FusedDenseTracker(graphs=False), then (graphs=True), counts set to 0
    just before each run and read just after (no kernel may launch).
    Every row (labels, skip flag, counts, sizes, ground flags, the
    accepted motions and their poses) must be bit-equal between the
    runs, and the graphed run must capture one graph. Printed per run:
-   frames/s over frames 3-10, host syncs a frame over 11-12 (CUDA's sync
+   frames/s over frames 3-10, host syncs a frame over 11-16 (CUDA's sync
    debug mode) beside the tracker's waits for its packed row (an event
    wait the debug mode does not see), kernels a frame and the card's
-   busy share on frame 13 (torch.profiler), and the graph's capture
-   seconds and pool. Phase 12 (a)'s record is the graphed 60-frame run.
+   busy share on frame 17 (torch.profiler), and the graph's capture
+   seconds and pool. The IF bodies' runs must equal the eager run's
+   (run_if's plain version reads each flag on the host: the host-gated
+   count), the skip and run sides the skipped and live rows, and the
+   graphed kernels a frame must fall below 14,604 (the masked step's
+   graph, which ran every round). Phase 12 (a)'s record is the graphed
+   60-frame run.
 18. SlamEngine.process's programs as CUDA graphs (tracking: _build and
    _track; the keyframe programs: stereo, insert, BA, snapshot): phase
    3's 48 frames through SlamEngine(graphs=False) and (graphs=True) in
@@ -1832,15 +1852,15 @@ class BatchedCapture:
     call of each batched kernel entry (a mid-run frame of the batched
     layout; the keyframe event's entries, which run only on frames with
     a flagged lane, at their last call); the entries run as before.
-    Under CUDA graphs the copy made at the capture holds the inputs of
-    the last frame replayed: graph A's first call of an entry (A is
-    captured first; the hybrid tracker's 8x8 gather also runs in graph
-    B), and the keyframe event's calls in graph B copied into the
-    buffers of an earlier eager call (the bootstrap's, the warm-up's),
-    outside the graphs' shared pool: a copy allocated in graph B's
-    capture sits where graph A's temporaries lay, and graph A's next
-    replay overwrites it. The batched gather's calls are kept apart by
-    window shape ("patch_gather_batched" for 31x31, else
+    Under the CUDA graph the copy made at the capture holds the inputs of
+    the last frame replayed: tracking's first call of an entry (captured
+    first; the hybrid tracker's 8x8 gather also runs in the keyframe
+    event), and the keyframe event's calls, in the IF node's body,
+    copied into the buffers of an earlier eager call (the bootstrap's,
+    the warm-up's), outside the graph's pools: the body runs only on a
+    frame with a flagged lane, and a copy it allocated would hold stale
+    memory after the frames that skip it. The batched gather's calls are
+    kept apart by window shape ("patch_gather_batched" for 31x31, else
     "patch_gather_batched_<bh>x<bw>"), and its launches counted by shape
     (`shape_counts`, LaunchCounts that a CUDA graph adds on replay)."""
 
@@ -1871,11 +1891,11 @@ class BatchedCapture:
             self.calls[key] = self.calls.get(key, 0) + 1
             capturing = torch.cuda.is_current_stream_capturing()
             if capturing and key in KEYFRAME_ENTRIES:
-                # graph B: into the buffers of an eager call
+                # the keyframe event's IF body: into an eager call's buffers
                 _copy_into(self.args[key], list(args))
                 _copy_into(self.kwargs[key], kw)
             elif capturing and key not in self.captured:
-                # graph A (captured first): its call of the entry
+                # tracking (captured first): its call of the entry
                 self.captured.add(key)
                 self.args[key] = _clone(list(args))
                 self.kwargs[key] = _clone(kw)
@@ -2140,10 +2160,13 @@ def dp_run(make_step, cfg, cam, first, chunks, kernels: dict, cap=None):
     bootstrap, read just after the last chunk (a photometric tracker's
     anchor added after the bootstrap, anchored()); frame 1 alone (where
     the graphs are captured, outside the profiler), frames 2 to
-    DP_PROFILED + 1 under torch.profiler (operations a frame), the second
-    chunk timed alone. Returns the chunk function too."""
+    DP_PROFILED + 1 under torch.profiler (operations a frame), the rest
+    of the first chunk with its host syncs counted (act["syncs"]: syncs,
+    frames), the second chunk timed alone. Returns the chunk function
+    too."""
     from slam_toolkit_tpu_torch.parallel import mesh
-    from slam_toolkit_tpu_torch.utils.timing import device_activity
+    from slam_toolkit_tpu_torch.utils.timing import (count_syncs,
+                                                     device_activity)
     step = make_step(cfg, cam)
     for k in kernels.values():
         k.launches = 0
@@ -2154,7 +2177,9 @@ def dp_run(make_step, cfg, cam, first, chunks, kernels: dict, cap=None):
         carry, p0 = step(carry, chunks[0][:1])
         (carry, p1), act = device_activity(step, carry,
                                            chunks[0][1:1 + DP_PROFILED])
-        carry, p2 = step(carry, chunks[0][1 + DP_PROFILED:])
+        (carry, p2), syncs = count_syncs(step, carry,
+                                         chunks[0][1 + DP_PROFILED:])
+        act["syncs"] = (syncs, chunks[0].shape[0] - 1 - DP_PROFILED)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         carry, p3 = step(carry, chunks[1])
@@ -2211,6 +2236,24 @@ def compare_lanes(rows_v, others: dict, what: str) -> None:
         print(f"[phase13] {what} lane {b}: keyframes at frames "
               f"{[i + 1 for i, v in enumerate(kf) if v]}, inliers "
               f"{[int(v) for v in rows_v[:, b, 35]]}")
+
+
+def lanes_if_line(step, rows_v, act, what: str) -> str:
+    """The batched chunk's keyframe IF body runs against its frames with a
+    flagged lane, and its host syncs in the counted frames: both must hold
+    (a run a flagged frame, 0 syncs)."""
+    st = step.graph_stats()
+    runs = st["if_runs"].get("keyframe", 0)
+    n_any = int((rows_v[..., 34] > 0.5).any(1).sum())
+    syncs, frames = act["syncs"]
+    if st["captures"] != 1 or runs != n_any or syncs:
+        raise AssertionError(f"{what}: {st['captures']} graphs, keyframe IF "
+                             f"body runs {runs} for {n_any} frames with a "
+                             f"flagged lane, {syncs} host syncs")
+    return (f"1 graph for {rows_v.shape[1]} lanes, the keyframe event an IF "
+            f"node on any lane's flag: IF body runs {runs} = frames with a "
+            f"flagged lane {n_any} of {rows_v.shape[0]}; host syncs inside "
+            f"a chunk {syncs} over {frames} frames")
 
 
 def keyframe_launches(rows_v, launch_v, launch_l, what: str) -> int:
@@ -2275,6 +2318,8 @@ def phase13_photometric(cfg, method: str, seqs, first, chunks, cam,
     compare_lanes(rows_v, {"lane layout": rows_l.transpose(1, 0, 2),
                            "alone": alone}, method)
     n_any = keyframe_launches(rows_v, launch_v, launch_l, method)
+    print(f"[phase13] {label} {method} batched layout: "
+          f"{lanes_if_line(step_v, rows_v, act_v, method)}")
     n8 = cap.shape_counts.get("patch_gather_batched_8x8", 0)
     if n8 == 0 or launch_v["patch_gather"] != 0:
         raise AssertionError(f"{method}: the batched gather at 8x8 launched "
@@ -2348,8 +2393,10 @@ def phase13(cfg, frames7, loop_frames, kernels: dict, label: str) -> dict:
     n_any = keyframe_launches(rows_v, launch_v, launch_l, "indirect")
     print(f"[phase13] {label} batched layout: {n_any} of {n_frames} frames "
           f"with a flagged lane, {int((rows_v[..., 34] > 0.5).sum())} lane "
-          f"keyframes; keyframe graphs captured: "
-          f"{step_v.graph_stats()['captures'] - 1}")
+          f"keyframes; {lanes_if_line(step_v, rows_v, act_v, 'indirect')}")
+    print(f"[phase13] {label} lane layout (one frame graph a lane): host "
+          f"syncs {act_l['syncs'][0]} over {act_l['syncs'][1]} frames of "
+          f"{lanes} lanes")
     rows = [check_gather_batched(cap.args["patch_gather_batched"]),
             check_topk2_batched(cap.args["topk2_match_batched"]),
             check_pose_lm_batched(cap.args["pose_lm_batched"]),
@@ -2400,7 +2447,8 @@ def graph_line(stats) -> str:
         f"{stats['pool_bytes'] / 2 ** 20:.1f} MiB"
     return (f"{stats['captures']} captures in {stats['capture_s']:.3f} s "
             f"(warm-up included), pool {pool}, warm-up launches (not "
-            f"counted) {stats['setup_launches']}")
+            f"counted) {stats['setup_launches']}, IF nodes "
+            f"{stats['if_nodes']}, their bodies' runs {stats['if_runs']}")
 
 
 def phase14(cfg, frames, kernels: dict, label: str, dp: dict) -> None:
@@ -2410,17 +2458,34 @@ def phase14(cfg, frames, kernels: dict, label: str, dp: dict) -> None:
     from slam_toolkit_tpu_torch.parallel import mesh
     t_phase = time.perf_counter()
     runs = []
-    for mode in PAIRED:
+    for i, mode in enumerate(PAIRED):
+        # the second graphed run's last chunk under torch.profiler
+        prof = i == 2
         eng, chunk_s, launches, shapes = drive(cfg, frames, 16, kernels,
-                                               graphs=mode == "graphed")
+                                               graphs=mode == "graphed",
+                                               profile_last=prof)
         stats = eng._chunk.graph_stats() if mode == "graphed" else None
         runs.append({"rows": engine_rows(eng), "launches": launches,
                      "shapes": shapes})
+        steady = "chunk 2 (chunk 3 profiled)" if prof else "chunks 2-3"
         print(f"[phase14] {label} {mode}: frames/s "
               f"{len(frames) / sum(chunk_s):.2f} over the 3 chunks, "
-              f"{32 / sum(chunk_s[1:]):.2f} over chunks 2-3 (chunk seconds "
+              f"{16 * (3 - prof - 1) / sum(chunk_s[1:3 - prof]):.2f} over "
+              f"{steady} (chunk seconds "
               f"{[round(c, 3) for c in chunk_s]}), launches {launches}"
               + ("" if stats is None else f"; {graph_line(stats)}"))
+        print(f"[phase14] {label} {mode}: "
+              f"{if_runs_line(eng, eng.smoke_syncs, f'phase 14 {mode}')}")
+        if prof:
+            act, n = eng.smoke_profile
+            kern = "not seen" if act["kernels"] is None else \
+                f"{act['kernels'] / n:.1f}"
+            busy = "not seen" if act["busy"] is None else \
+                f"{act['busy']:.4f}"
+            kf = sum(s["kf"] for s in eng.frame_stats[-n:])
+            print(f"[phase14] {label} graphed, last chunk ({n} frames, {kf} "
+                  f"keyframes) under torch.profiler: kernels, copies and "
+                  f"fills a frame {kern}, busy share {busy}")
     ref = runs[0]
     for mode, r in zip(PAIRED[1:], runs[1:]):
         if not np.array_equal(r["rows"], ref["rows"]):
@@ -2448,12 +2513,12 @@ def phase14(cfg, frames, kernels: dict, label: str, dp: dict) -> None:
         print(f"[phase14] {label} batched {method}, {lanes} lanes: aggregate "
               f"frames/s eager {lanes * DP_CHUNK / secs_e:.2f}, graphed "
               f"{fps_g:.2f} (phase 13; chunk 2); graphed "
-              f"{graph_line(stats)}; graphs: 1 tracking + "
-              f"{stats['captures'] - 1} keyframe graph for {lanes} lanes "
-              f"(one a lane would make 1 + {lanes})")
-        if stats["captures"] != 2:
+              f"{graph_line(stats)}; {stats['captures']} frame graph for "
+              f"{lanes} lanes, {stats['if_nodes']} IF node")
+        if stats["captures"] != 1 or stats["if_nodes"] != 1:
             raise AssertionError(f"batched {method}: {stats['captures']} "
-                                 "graphs captured, expected 2")
+                                 f"graphs, {stats['if_nodes']} IF nodes "
+                                 "captured, expected 1 and 1")
         if not np.array_equal(rows_e, run["rows_v"]):
             bad = np.flatnonzero((rows_e != run["rows_v"]).any((1, 2)))
             raise AssertionError(f"batched {method}: the graphed rows part "
@@ -2934,21 +2999,6 @@ def stream_overlap(prof, wall_ms: float) -> dict:
             "main": str(main), "overlap_ms": ov, "share": ov / wall_ms}
 
 
-def timed_flags(eng) -> list:
-    """Time the host's flag reads of `eng`'s graphed chunk (the frame's
-    one synchronisation, _StaticChunk._flagged): [seconds, reads]."""
-    orig, acc = eng._chunk._flagged, [0.0, 0]
-
-    def flagged(t):
-        t0 = time.perf_counter()
-        out = orig(t)
-        acc[0] += time.perf_counter() - t0
-        acc[1] += 1
-        return out
-    eng._chunk._flagged = flagged
-    return acc
-
-
 def timed_run(eng, frames, chunk: int):
     """(chunk seconds, flush seconds) of `eng` over `frames`, each ending
     in a synchronise."""
@@ -3036,7 +3086,7 @@ def phase16(cfg, frames48, loop: dict, kernels: dict, label: str) -> dict:
     eng = pipelined()
     eng._host.stages = StreamStages()
     spy = WorkerCounts(eng)
-    flags = timed_flags(eng)
+    syncs = ChunkSyncs()
     for k in kernels.values():
         k.launches = 0
     try:
@@ -3044,6 +3094,7 @@ def phase16(cfg, frames48, loop: dict, kernels: dict, label: str) -> dict:
             chunk_s, flush_s = timed_run(eng, frames, chunk)
     finally:
         spy.close()
+        syncs.close()
     launches = {n: k.launches for n, k in kernels.items()}
     out = loop_outcome(eng, gt, lap, revisit, LOOP_FRAMES)
     ate, seam = out["ate"], out["seam"]
@@ -3114,16 +3165,22 @@ def phase16(cfg, frames48, loop: dict, kernels: dict, label: str) -> dict:
     eng_q = ChunkedSlamEngine(cfg, vocab=vocab, chunk_size=chunk,
                               device="cuda", queue_depth=2,
                               loop_thread=False)
-    flags_q = timed_flags(eng_q)
-    chunk_q, flush_q = timed_run(eng_q, frames, chunk)
+    syncs_q = ChunkSyncs()
+    try:
+        chunk_q, flush_q = timed_run(eng_q, frames, chunk)
+    finally:
+        syncs_q.close()
     print(f"[phase16] {label} queue depth 2, loop phases inline: frames/s "
           f"{LOOP_FRAMES / sum(chunk_q):.2f} over the chunks, "
           f"{LOOP_FRAMES / (sum(chunk_q) + flush_q):.2f} with the flush "
           f"(chunk seconds {[round(x, 3) for x in chunk_q]}, flush "
           f"{flush_q:.3f} s), closures "
           f"{[(e['frame'], e['fid_cand']) for e in eng_q.loop_events if 'cand' in e]}"
-          f"; the host's flag reads {1000 * flags_q[0] / flags_q[1]:.3f} "
-          f"ms a frame, with the worker {1000 * flags[0] / flags[1]:.3f}")
+          f"; {if_runs_line(eng_q, syncs_q, 'queue depth 2, inline')}; "
+          f"with the worker (its syncs counted too) {syncs.line()}, keyframe "
+          f"IF body runs "
+          f"{eng._chunk.graph_stats()['if_runs'].get('keyframe', 0)} for "
+          f"{sum(s['kf'] for s in eng.frame_stats[1:])} keyframe rows")
     on_worker = [(s, n) for t, s, n in spy.calls if t]
     on_main = [(s, n) for t, s, n in spy.calls if not t]
     worker_top2 = sum(n for _, n in on_worker)
@@ -3244,22 +3301,26 @@ def phase16(cfg, frames48, loop: dict, kernels: dict, label: str) -> dict:
 
 # ---------------------------------------------------------------- phase 17
 # phase 17's first frames of make_cluster_scene: 3 warm-up frames (the
-# capture in them), 8 timed, 2 with the host syncs counted, 1 under
+# capture in them), 8 timed, 6 with the host syncs counted, 1 under
 # torch.profiler (the eager step's events take ~10 s to collect), the
 # rest folded
-CL_FRAMES, CL_WARM, CL_TIMED, CL_SYNCS, CL_PROF = 16, 3, 11, 13, 14
+CL_FRAMES, CL_WARM, CL_TIMED, CL_SYNCS, CL_PROF = 20, 3, 11, 17, 18
 
 
 def cluster_run(scene, cfg, staged, graphs: bool, kernels: dict) -> dict:
     """FusedDenseTracker over the staged frames, graphed or eager: every
     row, frames/s over frames CL_WARM..CL_TIMED, host syncs (CUDA's sync
     debug mode) and the tracker's row waits a frame, kernels a frame and
-    the card's busy share, the kernels' launches and the graph's stats."""
+    the card's busy share, the kernels' launches, the graph's stats and
+    the branches' runs (the IF bodies' executions graphed, run_if's plain
+    runs eager: the host-gated count)."""
     from slam_toolkit_tpu_torch.cluster.tracker import FusedDenseTracker
+    from slam_toolkit_tpu_torch.utils import cuda_graphs
     from slam_toolkit_tpu_torch.utils.timing import (count_syncs,
                                                      device_activity)
     for k in kernels.values():
         k.launches = 0
+    plain0 = dict(cuda_graphs.plain_runs)
     tr = FusedDenseTracker(scene.cam, cfg, queue_depth=2, device="cuda",
                            graphs=graphs)
     outs = []
@@ -3282,12 +3343,17 @@ def cluster_run(scene, cfg, staged, graphs: bool, kernels: dict) -> dict:
     _, act = device_activity(run, staged[CL_SYNCS:CL_PROF])
     run(staged[CL_PROF:])
     outs += tr.flush()
+    stats = tr.graph_stats()
+    ran = stats["if_runs"] if stats is not None else {
+        k: n - plain0.get(k, 0) for k, n in cuda_graphs.plain_runs.items()}
+    bodies = {k: ran.get(k, 0) for k in ("skip", "run", "round")}
     return {"outs": outs, "fps": (CL_TIMED - CL_WARM) / secs,
+            "bodies": bodies,
             "syncs": syncs / n_sync, "waits": waits,
             "kernels": act["kernels"] / (CL_PROF - CL_SYNCS)
             if act["kernels"] else None, "busy": act["busy"],
             "launches": {n: k.launches for n, k in kernels.items()},
-            "stats": tr.graph_stats()}
+            "stats": stats}
 
 
 def phase17(kernels: dict, label: str, cluster_rec: dict) -> None:
@@ -3326,6 +3392,25 @@ def phase17(kernels: dict, label: str, cluster_rec: dict) -> None:
             raise AssertionError(f"cluster: {r['stats']['captures']} "
                                  "graphs captured, expected 1")
     ref = runs[0]["outs"]
+    live = sum(not o["skipped"] for o in ref)
+    g_b, e_b = runs[1]["bodies"], runs[0]["bodies"]
+    R = cfg.max_ransac_rounds
+    print(f"[phase17] {label} branches: RANSAC rounds run graphed "
+          f"{g_b.get('round', 0)} (IF bodies), host-gated (eager, flags "
+          f"read on the host) {e_b.get('round', 0)}, a masked step that "
+          f"runs every round {R * len(ref)} ({R} a frame); skip side "
+          f"{g_b.get('skip', 0)} and run side {g_b.get('run', 0)} for "
+          f"{len(ref) - live} skipped and {live} live rows; IF nodes "
+          f"{runs[1]['stats']['if_nodes']}; kernels a frame graphed "
+          f"{runs[1]['kernels']} against 14604-14624 for the masked "
+          f"step's graph (PERF.md)")
+    if g_b != e_b or g_b.get("skip", 0) != len(ref) - live or \
+            g_b.get("run", 0) != live:
+        raise AssertionError(f"cluster branches: graphed {g_b}, eager "
+                             f"{e_b}, rows {len(ref)} ({live} live)")
+    if runs[1]["kernels"] is not None and runs[1]["kernels"] >= 14604:
+        raise AssertionError(f"cluster: {runs[1]['kernels']} kernels a "
+                             "frame graphed, not below the masked graph's")
     for mode, r in (("graphed", runs[1]),):
         if len(r["outs"]) != len(ref):
             raise AssertionError(f"cluster {mode}: {len(r['outs'])} rows, "
@@ -3335,7 +3420,6 @@ def phase17(kernels: dict, label: str, cluster_rec: dict) -> None:
             if bad:
                 raise AssertionError(f"cluster {mode}: frame {t + 1} parts "
                                      f"from eager in {bad}")
-    live = sum(not o["skipped"] for o in ref)
     print(f"[phase17] {label} eager and graphed: {len(ref)} rows bit-equal "
           f"(labels, skip flags, counts, sizes, ground flags, accepted "
           f"motions and their poses; {live} live frames, "
@@ -3456,20 +3540,30 @@ def phase18(cfg, frames, gt, kernels: dict, label: str) -> None:
 
 # ---------------------------------------------------------------- phase 3
 def run_engine(cfg, frames, chunk: int, device: str, ring=None,
-               vocab=None, graphs: bool = True, cull_graphs: bool = True):
+               vocab=None, graphs: bool = True, cull_graphs: bool = True,
+               profile_last: bool = False):
     """The engine over `frames` in chunks; the seconds of each chunk. With
     a list `ring`, the keyframes in the ring after each chunk go into it
     (read outside the chunk's time). graphs: the engine's (CUDA graphs of
     the step, the default, or the eager step); cull_graphs False runs the
-    headroom culls' programs eagerly (the host's `graphs` off)."""
+    headroom culls' programs eagerly (the host's `graphs` off);
+    profile_last: the last chunk under torch.profiler, its device
+    activity and frames kept in eng.smoke_profile."""
     from slam_toolkit_tpu_torch.pipeline.scan_engine import ChunkedSlamEngine
+    from slam_toolkit_tpu_torch.utils.timing import device_activity
     eng = ChunkedSlamEngine(cfg, vocab=vocab, chunk_size=chunk,
                             device=device, graphs=graphs)
     eng._mapper.graphs = graphs and cull_graphs
     chunk_s = []
-    for i in range(0, len(frames), chunk):
+    starts = range(0, len(frames), chunk)
+    for i in starts:
         t0 = time.perf_counter()
-        eng.process_chunk(frames[i:i + chunk])
+        if profile_last and i == starts[-1]:
+            part = frames[i:i + chunk]
+            _, act = device_activity(eng.process_chunk, part)
+            eng.smoke_profile = (act, len(part))
+        else:
+            eng.process_chunk(frames[i:i + chunk])
         if device == "cuda":
             torch.cuda.synchronize()
         chunk_s.append(time.perf_counter() - t0)
@@ -3517,18 +3611,91 @@ class GatherShapes:
         self.patches.gather_blocks_multi_cuda = self.orig
 
 
+class ChunkSyncs:
+    """The host synchronisations (CUDA's sync debug mode) inside every
+    chunk call while installed, graphed (_StaticChunk, _StaticBatchedChunk)
+    or eager (make_chunk_fn(graphs=False)): (syncs, frames) a call. A
+    graphed chunk's capturing call is left out (its warm-up and capture
+    synchronise). The mode is process-wide: a mapping worker's syncs
+    meanwhile are counted too."""
+
+    def __init__(self):
+        from slam_toolkit_tpu_torch.pipeline import scan_engine as se
+        from slam_toolkit_tpu_torch.utils.timing import count_syncs
+        self.se, self.calls = se, []
+        self.orig = (se._StaticChunk.__call__, se._eager_chunk)
+        calls, (orig_call, orig_eager) = self.calls, self.orig
+
+        def call(chunk, carry, images):
+            if images.is_cuda and chunk.graphs is None:
+                return orig_call(chunk, carry, images)
+            out, n = count_syncs(orig_call, chunk, carry, images)
+            calls.append((n, images.shape[0]))
+            return out
+
+        def eager(body):
+            run = orig_eager(body)
+
+            def counted(carry, images):
+                out, n = count_syncs(run, carry, images)
+                calls.append((n, images.shape[0]))
+                return out
+            return counted
+        se._StaticChunk.__call__ = call
+        se._eager_chunk = eager
+
+    def close(self):
+        self.se._StaticChunk.__call__, self.se._eager_chunk = self.orig
+
+    @property
+    def syncs(self) -> int:
+        return sum(n for n, _ in self.calls)
+
+    def line(self) -> str:
+        frames = sum(f for _, f in self.calls)
+        return (f"host syncs inside the chunks {self.syncs} over {frames} "
+                f"frames ({self.syncs / max(frames, 1):.2f} a frame; "
+                f"per call {[n for n, _ in self.calls]})")
+
+
+def if_runs_line(eng, syncs: ChunkSyncs, what: str) -> str:
+    """A graphed engine's keyframe IF body runs against its rows'
+    keyframe column, and the syncs inside its chunks: both must hold (0
+    syncs, a run a keyframe row); an eager engine's syncs alone."""
+    st = eng._chunk.graph_stats() if hasattr(eng._chunk, "graphs") \
+        else None
+    if st is None:
+        return f"eager: {syncs.line()}"
+    kf = sum(s["kf"] for s in eng.frame_stats[1:])
+    runs = st["if_runs"].get("keyframe", 0)
+    if syncs.syncs or runs != kf:
+        raise AssertionError(f"{what}: {syncs.line()}; keyframe IF body "
+                             f"runs {runs} for {kf} keyframe rows")
+    return (f"graphed, the keyframe event an IF node: {syncs.line()}; IF "
+            f"body runs {runs} = keyframe rows {kf} of "
+            f"{len(eng.frame_stats) - 1} frames")
+
+
 def drive(cfg, frames, chunk: int, kernels: dict, ring=None,
-          graphs: bool = True, cull_graphs: bool = True):
+          graphs: bool = True, cull_graphs: bool = True,
+          profile_last: bool = False):
     """One path on the card: every kernel's count set to 0 just before,
-    read just after; the gather's launches by window shape too."""
+    read just after; the gather's launches by window shape too. The
+    engine keeps the host syncs inside its chunks (`smoke_syncs`, a
+    ChunkSyncs) and, with profile_last, its last chunk's device activity
+    under torch.profiler (`smoke_profile`)."""
     for k in kernels.values():
         k.launches = 0
     shapes = GatherShapes()
+    syncs = ChunkSyncs()
     try:
         eng, chunk_s = run_engine(cfg, frames, chunk, "cuda", ring,
-                                  graphs=graphs, cull_graphs=cull_graphs)
+                                  graphs=graphs, cull_graphs=cull_graphs,
+                                  profile_last=profile_last)
     finally:
         shapes.close()
+        syncs.close()
+    eng.smoke_syncs = syncs
     return eng, chunk_s, {n: k.launches for n, k in kernels.items()}, \
         shapes.counts
 
@@ -3556,8 +3723,15 @@ def main() -> int:
     from slam_toolkit_tpu_torch.utils import cuda_lib
     card = card_line()
     label = f"[{card}]"
+    driver = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=driver_version",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
     print(f"[phase1] card: {card}; torch {torch.__version__}, "
-          f"CUDA {torch.version.cuda}")
+          f"CUDA {torch.version.cuda}, driver {driver}; torch binds "
+          f"CUDAGraph.begin_capture_to_if_node: "
+          f"{hasattr(torch.cuda.CUDAGraph, 'begin_capture_to_if_node')} "
+          f"(the port adds its IF nodes through csrc/graph_cond.cu)")
     t0 = time.perf_counter()
     lib = cuda_lib.library()
     print(f"[phase1] kernels built in {time.perf_counter() - t0:.2f} s "
@@ -3612,6 +3786,8 @@ def main() -> int:
           f"of frames")
     print(f"[phase3] {label} launches {launches}")
     print(f"[phase3] {label} graphs: {graph_line(eng._chunk.graph_stats())}")
+    print(f"[phase3] {label} "
+          f"{if_runs_line(eng, eng.smoke_syncs, 'main path')}")
     if n_kf < 2:
         raise AssertionError(f"only {n_kf} keyframes")
     if ok_frac < 0.9:
@@ -3646,6 +3822,8 @@ def main() -> int:
     print(f"[phase4] {label} fused_fast: frames/s "
           f"{32 / sum(chunk_f[1:]):.2f} over chunks 2-3, launches "
           f"{launches_f}, max |t_fused - t_main| {max(dt_f)} m")
+    print(f"[phase4] {label} "
+          f"{if_runs_line(eng_f, eng_f.smoke_syncs, 'fused_fast')}")
     if launches_f["fast_nms"] != len(frames):
         raise AssertionError(f"FAST launched {launches_f['fast_nms']} "
                              f"times for {len(frames)} frames of "
@@ -3688,6 +3866,8 @@ def main() -> int:
           f"{chunk_c}: keyframes {eng_c.n_keyframes}, culls {eng_c.n_culls}, "
           f"ring after each chunk {ring}, ATE {ate_c:.4f} m (bound 0.138), "
           f"frames/s {len(frames) / sum(chunk_cs):.2f}, launches {launches_c}")
+    print(f"[phase6] {label} "
+          f"{if_runs_line(eng_c, eng_c.smoke_syncs, 'capacity')}")
     if max(ring) > cap_kf:
         raise AssertionError(f"the ring held {max(ring)} > {cap_kf}")
     if eng_c.n_culls < 2:
@@ -3732,6 +3912,8 @@ def main() -> int:
           f"{eng_h.n_keyframes}, frames/s over chunks 2-3 "
           f"{32 / sum(chunk_hs[1:]):.2f}, launches {launches_h}, gather by "
           f"window {shapes_h} ({n8 / (len(frames) - 1):.2f} 8x8 a frame)")
+    print(f"[phase7] {label} "
+          f"{if_runs_line(eng_h, eng_h.smoke_syncs, 'hybrid')}")
     if ok_h < 0.9:
         raise AssertionError(f"hybrid: tracking ok on only {ok_h:.2f}")
     if not ate_h <= 0.150:
@@ -3753,6 +3935,8 @@ def main() -> int:
           f"{100 * np.mean([s['ok'] for s in eng_d.frame_stats[1:]]):.1f}%, "
           f"{sum(chunk_ds):.2f} s, launches {launches_d}, gather by window "
           f"{shapes_d} ({n8 / (n_d - 1):.1f} 8x8 a frame)")
+    print(f"[phase8] {label} "
+          f"{if_runs_line(eng_d, eng_d.smoke_syncs, 'direct')}")
     if n8 == 0:
         raise AssertionError("direct: the gather never launched at 8x8")
     if launches_d["pose_lm"] != 0:

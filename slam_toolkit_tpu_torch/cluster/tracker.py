@@ -22,15 +22,16 @@ the label mask of ref MakeMask :394-409). Two trackers: `DenseTracker`,
 stepwise with host-side slot allocation (what run_cluster uses), and
 `FusedDenseTracker`, which allocates slots on the device by rank over
 the free slots and reads back one packed row a frame; both give the same
-labels. The fused step (`fused_step`) makes the JAX program's choices on
-the device, as lax.cond and lax.scan make them there: the skip gate and
-each RANSAC round's stop are device flags that select the step's writes,
-every PnP-RANSAC draws from uniforms uploaded ahead (`frame_draws`), and
-optim/pose_lm.optimize_pose's damping is a device fill. With no host
-read and fixed shapes, FusedDenseTracker captures the step as one CUDA
-graph on a card and replays it; the one host synchronisation a frame is
-the wait for its packed row. Every entry point runs with TF32 off
-(pipeline/engine.full_float32) and on the card unless asked for the CPU.
+labels. The fused step (`fused_step`) branches as the JAX program's
+lax.cond and lax.scan do: the skip gate's two sides and each RANSAC
+round are utils/cuda_graphs.run_if bodies on device flags, writing the
+state in place; every PnP-RANSAC draws from uniforms uploaded ahead
+(`frame_draws`), and optim/pose_lm.optimize_pose's damping is a device
+fill. With fixed shapes, FusedDenseTracker captures the step as one CUDA
+graph on a card, the branches as IF nodes, and replays it; the one host
+synchronisation a frame is the wait for its packed row. Every entry
+point runs with TF32 off (pipeline/engine.full_float32) and on the card
+unless asked for the CPU.
 """
 
 from __future__ import annotations
@@ -49,7 +50,7 @@ from slam_toolkit_tpu_torch.cluster import stereo_bm
 from slam_toolkit_tpu_torch.config import CameraConfig
 from slam_toolkit_tpu_torch.pipeline.engine import full_float32
 from slam_toolkit_tpu_torch.utils import threefry
-from slam_toolkit_tpu_torch.utils.cuda_graphs import StepGraphs
+from slam_toolkit_tpu_torch.utils.cuda_graphs import StepGraphs, run_if
 from slam_toolkit_tpu_torch.utils.device import upload
 
 
@@ -573,63 +574,105 @@ def frame_draws(key, cfg: DenseConfig) -> np.ndarray:
                               ).reshape(-1)])
 
 
+def _row_width(cfg: DenseConfig) -> int:
+    """The packed row's length: labels, 5 scalars, sizes, ground flags,
+    accepted flags, poses."""
+    return cfg.max_points + 5 + 3 * cfg.max_clusters + 16 * cfg.max_clusters
+
+
+def _skipped_side(S: FusedState, f: DenseFrame, row: torch.Tensor,
+                  cfg: DenseConfig) -> None:
+    """lax.cond's skipped branch: the state stays as it was, the previous
+    frame included, so motion accumulates (ref :722-724); the skipped
+    row."""
+    C, dev = cfg.max_clusters, row.device
+    row.copy_(_pack(FusedOut(
+        labels=S.labels, skipped=torch.ones((), dtype=torch.bool,
+                                            device=dev),
+        flow_p95=f.flow_p95, n_points=torch.sum(f.pts_valid),
+        n_tracked=torch.full((), -1, dtype=torch.int64, device=dev),
+        n_new=torch.zeros((), dtype=torch.int64, device=dev),
+        cluster_T=torch.zeros((C, 4, 4), device=dev),
+        cluster_ok=torch.zeros(C, dtype=torch.bool, device=dev),
+        sizes=torch.zeros(C, dtype=torch.int64, device=dev),
+        is_ground=S.is_ground)))
+
+
+def _round(S: FusedState, f: DenseFrame, n_new: torch.Tensor,
+           done: torch.Tensor, u: torch.Tensor, cam: CameraConfig,
+           cfg: DenseConfig, grid_shape) -> None:
+    """One RansacCluster round and its slot allocation, the round carry
+    written in place: labels, alive, ground flags and ever_created into
+    the state, the clusters made added to n_new, the stop into done."""
+    ground_round = ~S.ever_created                               # ref :315
+    rout = ransac_round(f, S.labels < 0, S.prev_depth, ground_round, None,
+                        cam, cfg, grid_shape, draws=u)
+    *carry, stop, made = _new_clusters(rout, S.labels, S.alive,
+                                       S.is_ground, S.ever_created,
+                                       ground_round, cfg)
+    for dst, src in zip((S.labels, S.alive, S.is_ground, S.ever_created),
+                        carry):
+        dst.copy_(src)
+    n_new.add_(made)
+    done.copy_(stop)
+
+
+def _run_side(S: FusedState, f: DenseFrame, gl: torch.Tensor,
+              row: torch.Tensor, draws: torch.Tensor, cam: CameraConfig,
+              cfg: DenseConfig, grid_shape) -> None:
+    """lax.cond's run branch: TrackCluster, then the rounds, each under
+    run_if on its device flag (lax.cond(do, do_round, skip_round) in the
+    JAX lax.scan: a round after the stop does not run); the state and
+    the row written in place."""
+    C, R = cfg.max_clusters, cfg.max_ransac_rounds
+    nt = C * TRACK_HYPOTHESES * SAMPLE
+    out = track_clusters(f, S.labels, S.prev_depth, S.is_ground, S.alive,
+                         None, cam, cfg, grid_shape,
+                         draws=draws[:nt].reshape(C, -1))
+    S.labels.copy_(out.labels)
+    n_new = torch.zeros((), dtype=torch.int64, device=row.device)
+    done = torch.zeros((), dtype=torch.bool, device=row.device)
+    round_draws = draws[nt:].reshape(R, -1)
+    for rnd in range(R):
+        do = ~done & (torch.sum(S.labels < 0) >= 10)             # ref :239
+        run_if(do, _round, S, f, n_new, done, round_draws[rnd], cam, cfg,
+               grid_shape, name="round")
+    # alive <- labels actually present (ref: mask0_ rebuild :747)
+    cnt = _counts(torch.where(S.labels >= 0, S.labels, C), C + 1)[:C]
+    row.copy_(_pack(FusedOut(
+        labels=S.labels, skipped=torch.zeros((), dtype=torch.bool,
+                                             device=row.device),
+        flow_p95=f.flow_p95, n_points=torch.sum(f.pts_valid),
+        n_tracked=torch.sum(S.labels >= 0), n_new=n_new,
+        cluster_T=out.cluster_T, cluster_ok=out.cluster_ok, sizes=cnt,
+        is_ground=S.is_ground)))
+    S.alive.copy_(cnt > 0)
+    S.prev_gray.copy_(gl)
+    S.prev_depth.copy_(f.depth)
+
+
 def fused_step(state: FusedState, gl: torch.Tensor, gr: torch.Tensor,
                draws: torch.Tensor, cam: CameraConfig, cfg: DenseConfig,
                grid_shape):
     """dense_frame, TrackCluster and the residual RansacCluster rounds
-    with slot allocation on the device; returns (new state, packed row).
-    `draws` is frame_draws' row on the device. The step makes the JAX
-    program's choices on the device and reads nothing back: below the
-    p95 gate (lax.cond(skip, ...)) the state, the previous frame
-    included, is selected unchanged so motion accumulates (ref
-    :722-724), and the packed row is the skipped one; all
-    cfg.max_ransac_rounds rounds run (lax.scan), each one's writes
-    selected by a device flag (lax.cond(do, ...)): a round after the
-    stop leaves everything as it was. Fixed shapes, no upload: the step
-    is what FusedDenseTracker captures as a CUDA graph."""
-    C, R = cfg.max_clusters, cfg.max_ransac_rounds
-    dev = gl.device
-    nt = C * TRACK_HYPOTHESES * SAMPLE
-    round_draws = draws[nt:].reshape(R, -1)
+    with slot allocation on the device, branching as the JAX program
+    does: lax.cond(skip, skipped, run) is two run_if sides, on the p95
+    gate and on its negation (the torch binding has no ELSE), and each
+    of the cfg.max_ransac_rounds rounds runs under run_if on its stop
+    flag. `state`'s tensors are the carry, written in place; returns
+    (state, the packed row), the row allocated before the branches and
+    written by the side that runs. `draws` is frame_draws' row on the
+    device. Fixed shapes, no upload, and under a capture no host read:
+    the step is what FusedDenseTracker captures as one CUDA graph with
+    IF nodes. Its plain version (the CPU, graphs=False) reads each flag
+    on the host: the host-gated step."""
     f = dense_frame(gl, gr, state.prev_gray, cam, cfg)
     skip = f.flow_p95 < cfg.min_flow_p95
-    out = track_clusters(f, state.labels, state.prev_depth,
-                         state.is_ground, state.alive, None, cam, cfg,
-                         grid_shape, draws=draws[:nt].reshape(C, -1))
-    carry = (out.labels, state.alive, state.is_ground, state.ever_created)
-    n_new = torch.zeros((), dtype=torch.int64, device=dev)
-    done = torch.zeros((), dtype=torch.bool, device=dev)
-    for rnd in range(R):
-        labels, alive, is_ground, ever = carry
-        do = ~done & (torch.sum(labels < 0) >= 10)               # ref :239
-        ground_round = ~ever                                     # ref :315
-        rout = ransac_round(f, labels < 0, state.prev_depth, ground_round,
-                            None, cam, cfg, grid_shape,
-                            draws=round_draws[rnd])
-        *nxt, stop, made = _new_clusters(rout, labels, alive, is_ground,
-                                         ever, ground_round, cfg)
-        carry = tuple(torch.where(do, a, b) for a, b in zip(nxt, carry))
-        n_new = n_new + torch.where(do, made, 0)
-        done = ~do | stop
-    labels, _, is_ground, ever = carry
-    # alive <- labels actually present (ref: mask0_ rebuild :747)
-    cnt = _counts(torch.where(labels >= 0, labels, C), C + 1)[:C]
-    res = FusedOut(
-        labels=torch.where(skip, state.labels, labels), skipped=skip,
-        flow_p95=f.flow_p95, n_points=torch.sum(f.pts_valid),
-        n_tracked=torch.where(skip, -1, torch.sum(labels >= 0)),
-        n_new=torch.where(skip, 0, n_new),
-        cluster_T=torch.where(skip, 0.0, out.cluster_T),
-        cluster_ok=out.cluster_ok & ~skip,
-        sizes=torch.where(skip, 0, cnt),
-        is_ground=torch.where(skip, state.is_ground, is_ground))
-    new_state = FusedState(
-        labels=res.labels, is_ground=res.is_ground,
-        alive=torch.where(skip, state.alive, cnt > 0),
-        ever_created=torch.where(skip, state.ever_created, ever),
-        prev_gray=torch.where(skip, state.prev_gray, gl),
-        prev_depth=torch.where(skip, state.prev_depth, f.depth))
-    return new_state, _pack(res)
+    row = gl.new_empty(_row_width(cfg))
+    run_if(skip, _skipped_side, state, f, row, cfg, name="skip")
+    run_if(~skip, _run_side, state, f, gl, row, draws, cam, cfg, grid_shape,
+           name="run")
+    return state, row
 
 
 def _as_image(x, device: torch.device) -> torch.Tensor:
@@ -680,22 +723,17 @@ class FusedDenseTracker:
             alive=torch.zeros(cfg.max_clusters, dtype=torch.bool,
                               device=dev),
             ever_created=torch.zeros((), dtype=torch.bool, device=dev),
-            prev_gray=gl, prev_depth=f0.depth)
+            prev_gray=gl.clone(), prev_depth=f0.depth)
 
     def _static_step(self, S: FusedState) -> torch.Tensor:
-        """fused_step on the static buffers, its state written back into
-        S; returns the packed row."""
-        new, packed = fused_step(S, self._gl, self._gr, self._draws,
-                                 self.cam, self.cfg, self._grid_shape)
-        for dst, src in zip(S, new):
-            dst.copy_(src)
-        return packed
+        """fused_step on the static buffers, S written in place; returns
+        the packed row."""
+        return fused_step(S, self._gl, self._gr, self._draws, self.cam,
+                          self.cfg, self._grid_shape)[1]
 
     def _replay(self, gl, gr, draws: np.ndarray) -> torch.Tensor:
         if self.graphs is None:
-            # the static state: copies the steps write in place (the seed
-            # holds the caller's first image)
-            self._state = FusedState(*(t.clone() for t in self._state))
+            # the static state is the seed's, written in place
             self._gl = torch.empty_like(gl)
             self._gr = torch.empty_like(gr)
             self._draws = torch.empty(draws.shape, dtype=torch.float32,
@@ -760,7 +798,7 @@ class FusedDenseTracker:
             if self.graphed:
                 packed = self._replay(gl, gr, draws)
             else:
-                self._state, packed = fused_step(
+                _, packed = fused_step(
                     self._state, gl, gr, upload(draws, self.device),
                     self.cam, self.cfg, self._grid_shape)
             self._post(packed)

@@ -11,7 +11,7 @@ Every tracker.method runs in every layout. Three layouts run it:
 
 - lanes in turn (multi_sequence_lane_chunk, the JAX lax.map over lanes):
   each lane runs the single-sequence chunk (pipeline/scan_engine.
-  make_chunk_fn, two CUDA graphs a lane) on a copy of its views t[b] of
+  make_chunk_fn, one CUDA graph a lane) on a copy of its views t[b] of
   the batched carry, keyframe event and all, written back after the
   chunk; no new kernel.
 - batched lanes (multi_sequence_chunk, multi_sequence_engine, the JAX
@@ -22,7 +22,8 @@ Every tracker.method runs in every layout. Three layouts run it:
   flags as its lane mask, with batched entries of the stereo-SAD and
   local-BA kernels (JAX lowers its vmapped lax.cond to both branches,
   masked: the same computation). multi_sequence_chunk runs it on a
-  static carry as two CUDA graphs for any B (scan_engine.
+  static carry as one CUDA graph for any B, the keyframe event an IF
+  node on any lane's flag (scan_engine.
   _StaticBatchedChunk); multi_sequence_engine's per-frame step is eager.
 - lanes over devices (multi_sequence_shard_chunk, the JAX shard_map): a
   mesh is a tuple of torch.devices; shard_batch splits the lanes evenly
@@ -245,7 +246,7 @@ def multi_sequence_lane_chunk(cfg: SlamConfig, cam: StereoCamera,
     packed (C, B, 36)). Each lane runs its C frames through the
     single-sequence chunk before the next lane starts, so a lane pays the
     keyframe event only on its own keyframes. graphs as
-    scan_engine.make_chunk_fn's (two CUDA graphs a lane)."""
+    scan_engine.make_chunk_fn's (one CUDA graph a lane)."""
     return full_float32()(_lane_chunk(cfg, cam, graphs))
 
 
@@ -256,7 +257,7 @@ def multi_sequence_chunk(cfg: SlamConfig, cam: StereoCamera,
     each batched kernel a frame for all B lanes, the keyframe event's on
     a frame where any lane is flagged), for every tracker.method; a
     photometric one needs the carry's anchor (ValueError otherwise).
-    graphs=True: the steps on a static batched carry, two CUDA graphs on
+    graphs=True: the steps on a static batched carry, one CUDA graph on
     a CUDA device for any B (scan_engine._StaticBatchedChunk);
     graphs=False: the batched frame body eagerly. The carry returned is
     overwritten by the next call, as JAX's donated carry is."""

@@ -14,14 +14,15 @@ the JAX engine's _ensure_headroom does.
 
 The JAX package runs a chunk as one jitted lax.scan with the keyframe
 branch under lax.cond (make_chunk_fn). Here the step is split at the
-keyframe flag into two halves, tracking and the keyframe event, and the
-branch is a host `if` on the one-byte device flag: the single
-device->host synchronisation of a frame. make_chunk_fn runs the halves
-on a static carry, each captured once as a CUDA graph on a CUDA device
-and replayed every frame (eagerly on the CPU); make_frame_body runs
-them eagerly on a carry rebuilt every frame. Everything else stays on
-the device; a chunk's packed result rows are read back once, when the
-chunk is folded.
+keyframe flag into two halves, tracking and the keyframe event.
+make_chunk_fn runs them on a static carry, captured once on a CUDA
+device as one CUDA graph a frame whose keyframe event is an IF node on
+the device flag (utils/cuda_graphs.run_if), replayed every frame with
+no host read (eagerly on the CPU, the flag read on the host);
+make_frame_body runs them eagerly on a carry rebuilt every frame, the
+branch a host `if` on the flag. A chunk's frames go up through pinned
+memory without waiting, and its packed result rows are read back once,
+when the chunk is folded.
 
 ChunkedSlamEngine keeps up to queue_depth chunks run and not yet folded
 (the JAX engine's in-flight queue, SLAM_QUEUE_DEPTH; 0 by default here):
@@ -81,7 +82,8 @@ from slam_toolkit_tpu_torch.optim import direct_lm
 from slam_toolkit_tpu_torch.optim.direct_lm import DirectState
 from slam_toolkit_tpu_torch.pipeline.engine import (BOW_ROWS, SlamEngine,
                                                     full_float32, store_map)
-from slam_toolkit_tpu_torch.utils.cuda_graphs import StepGraphs
+from slam_toolkit_tpu_torch.utils.cuda_graphs import StepGraphs, run_if
+from slam_toolkit_tpu_torch.utils.device import upload
 from slam_toolkit_tpu_torch.utils.lanes import lane
 
 PACK_WIDTH = 16 + 16 + 4  # T, T_rel, [slot, ok, kf, n_inliers]
@@ -488,24 +490,27 @@ class _StaticChunk:
 
     The carry lives in buffers bound on the first call (static_copy) and
     written in place, with `copy_`, by every step; images pass through
-    two static (H, W) buffers. The step is make_frame_body's two halves,
+    two static (H, W) buffers. A frame is make_frame_body's two halves,
     each followed by the writes into the static carry:
 
-    - graph A, tracking: extraction, the configured tracker, the
-      keyframe rule, velocity, peak and (a, b); the frame id advanced on
-      the device; the packed row as a frame that is no keyframe;
-    - graph B, the keyframe event: keyframe_event, the new anchor (its
-      image copied in, and "hybrid"'s pattern intensities), the snapshot,
-      the slot and pose, and the packed row again.
+    - tracking: extraction, the configured tracker, the keyframe rule,
+      velocity, peak and (a, b); the frame id advanced on the device; the
+      packed row as a frame that is no keyframe;
+    - the keyframe event, under run_if on the device flag (the JAX
+      body's lax.cond(needs, kf_branch, no_branch)): keyframe_event, the
+      new anchor (its image copied in, and "hybrid"'s pattern
+      intensities), the snapshot, the slot and pose, and the packed row
+      again.
 
-    On a CUDA device both are captured once, at the first call (after a
-    warm-up on a throwaway copy of the carry), on one memory pool, and
-    replayed: graph A every frame, then the host reads the flag (the
-    frame's one synchronisation) and replays graph B on a keyframe. On
-    the CPU the same two halves run eagerly, as the graphs' plain
-    version. Either way every row equals make_frame_body's bit for bit.
-    The carry returned is the static one; the caller may change it or
-    hand another, which the next call copies in (load_carry)."""
+    On a CUDA device the frame is captured once, at the first call (after
+    a warm-up on a throwaway copy of the carry that runs the keyframe
+    event too), as one graph whose keyframe event is an IF node, and
+    replayed once a frame: no host read between a chunk's first and last
+    frame. On the CPU the same frame runs eagerly, as the graph's plain
+    version (the flag read on the host). Either way every row equals
+    make_frame_body's bit for bit. The carry returned is the static one;
+    the caller may change it or hand another, which the next call copies
+    in (load_carry)."""
 
     def __init__(self, cfg: SlamConfig, cam: StereoCamera):
         self.cfg, self.cam = cfg, cam
@@ -524,13 +529,13 @@ class _StaticChunk:
         self.row = self.left.new_empty(frame.shape[:-2] + (PACK_WIDTH,))
         self.fid = torch.empty((), dtype=torch.int32, device=frame.device)
 
-    def _flagged(self, t: Tracked) -> bool:
-        """Whether graph B runs: the frame's one host synchronisation."""
-        return bool(t.needs)
+    def _flag(self, t: Tracked) -> torch.Tensor:
+        """The keyframe event's flag, on the device."""
+        return t.needs
 
     def _track_step(self, S: ChunkCarry) -> Tracked:
         t = self.track(S, self.left)
-        self.fid.copy_(S.frame_id)           # the frame graph B inserts
+        self.fid.copy_(S.frame_id)           # the frame a keyframe inserts
         S.frame_id.add_(1)
         S.T_cw.copy_(t.T_new)
         S.velocity.copy_(t.velocity)
@@ -557,16 +562,15 @@ class _StaticChunk:
         self.row.copy_(_pack(latest_T, _relative(latest_T, latest_T), slot,
                              t.res, t.needs))
 
+    def _frame_step(self, S: ChunkCarry) -> None:
+        """One frame: tracking, then the keyframe event where flagged."""
+        t = self._track_step(S)
+        run_if(self._flag(t), self._keyframe_step, S, t, name="keyframe")
+
     def _capture(self) -> None:
         g = StepGraphs(self.left.device)
-        warm = static_copy(self.static)
-
-        def warm_step():
-            self._keyframe_step(warm, self._track_step(warm))
-        g.warm_up(warm_step)
-        self._tracked = g.capture("track", self._track_step, self.static)
-        g.capture("keyframe", self._keyframe_step, self.static,
-                  self._tracked)
+        g.warm_up(self._frame_step, static_copy(self.static))
+        g.capture("frame", self._frame_step, self.static)
         self.graphs = g
 
     def graph_stats(self) -> Optional[dict]:
@@ -590,15 +594,9 @@ class _StaticChunk:
             if images.is_cuda and self.graphs is None:
                 self._capture()
             if self.graphs is None:
-                t = self._track_step(S)
+                self._frame_step(S)
             else:
-                self.graphs.replay("track")
-                t = self._tracked
-            if self._flagged(t):
-                if self.graphs is None:
-                    self._keyframe_step(S, t)
-                else:
-                    self.graphs.replay("keyframe")
+                self.graphs.replay("frame")
             rows[i].copy_(self.row)
         return S, rows
 
@@ -632,13 +630,13 @@ def _eager_chunk(body):
 
 class _StaticBatchedChunk(_StaticChunk):
     """mesh.multi_sequence_chunk's chunk: make_batched_frame_body's halves
-    on a static batched carry. Graph A tracks all B lanes (images through
-    static (B, H, W) buffers) with the configured tracker and packs every
-    lane's row as a frame that is no keyframe; the host reads whether any
-    of the B flags is set; graph B runs the keyframe event once over all
-    lanes with the flags, on the device, as its lane mask (the flagged
-    lanes' maps, snapshots, slots, poses, anchors and rows). Two graphs
-    for any B, captured once."""
+    on a static batched carry. Tracking runs over all B lanes (images
+    through static (B, H, W) buffers) with the configured tracker and
+    packs every lane's row as a frame that is no keyframe; where any of
+    the B flags is set (computed on the device: the IF node's flag), the
+    keyframe event runs once over all lanes with the flags as its lane
+    mask (the flagged lanes' maps, snapshots, slots, poses, anchors and
+    rows). One graph for any B, captured once."""
 
     def __init__(self, cfg: SlamConfig, cam: StereoCamera):
         self.cfg, self.cam = cfg, cam
@@ -648,9 +646,9 @@ class _StaticBatchedChunk(_StaticChunk):
         self.static = None
         self.graphs = None
 
-    def _flagged(self, t: Tracked) -> bool:
-        """Whether graph B runs: any lane flagged (one readback of B)."""
-        return bool(t.needs.any())
+    def _flag(self, t: Tracked) -> torch.Tensor:
+        """Any lane flagged, on the device."""
+        return t.needs.any()
 
     def _track_step(self, S: ChunkCarry) -> Tracked:
         t = self.track(S, self.left)
@@ -1133,8 +1131,11 @@ class ChunkedSlamEngine:
         engine's work runs in full float32; the caller's TF32 flags are
         restored on return."""
         t0 = time.perf_counter()
-        imgs = torch.as_tensor(np.asarray(images) if not torch.is_tensor(
-            images) else images).to(self.device, torch.float32)
+        # host frames go up through pinned memory, without waiting
+        imgs = images.to(self.device, torch.float32) if \
+            torch.is_tensor(images) and \
+            images.device.type == self.device.type else \
+            upload(np.asarray(images, np.float32), self.device)
         if self.carry is None:
             self._bootstrap(imgs[0, 0], imgs[0, 1], t0)
             self._n_dispatched = 1
@@ -1162,8 +1163,19 @@ class ChunkedSlamEngine:
                 h.bow_db, sc = h._bow_register(self.carry.m, h.bow_db, packed)
         if self._worker is not None:
             self._worker.publish(self.carry.m)
-        self._pending.append({"packed": packed, "t0": t0, "n": len(imgs),
-                              "sc": sc, "last_img": imgs[-1]})
+        ready = None
+        if packed.is_cuda:
+            # the rows to pinned memory without a wait, and an event the
+            # fold waits for: a later chunk queued meanwhile stays in flight
+            host = torch.empty(packed.shape, dtype=packed.dtype,
+                               pin_memory=True)
+            host.copy_(packed, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record()
+            packed = host
+        self._pending.append({"packed": packed, "ready": ready, "t0": t0,
+                              "n": len(imgs), "sc": sc,
+                              "last_img": imgs[-1]})
 
     def _prepare_loop_graphs(self) -> None:
         """Once, on the main thread, before any mapping job: the loop
@@ -1198,10 +1210,13 @@ class ChunkedSlamEngine:
 
     def _fold_one(self) -> np.ndarray:
         """Fold the oldest chunk in flight: its one readback of packed
-        rows, the host rows and mirrors, and with a vocabulary the loop
-        work of the fold (JAX _fold_one)."""
+        rows (on a card a wait for their copy to pinned memory alone, not
+        for the chunks queued after it), the host rows and mirrors, and
+        with a vocabulary the loop work of the fold (JAX _fold_one)."""
         p = self._pending.pop(0)
-        packed_np = p["packed"].cpu().numpy()            # one readback
+        if p["ready"] is not None:
+            p["ready"].synchronize()                     # one readback
+        packed_np = p["packed"].numpy()
         self._fold(packed_np, p["t0"])
         if self._host is not None:
             self._loop_fold(packed_np, p)

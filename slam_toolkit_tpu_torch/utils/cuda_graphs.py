@@ -18,23 +18,154 @@ warm-up's launches are set-up, as the kernels' build is: they are taken
 back too and kept in `setup_launches`.
 
 Graphs on one pool must replay in the order they were captured (a
-later graph's outputs may sit in an earlier one's scratch memory), as
-the chunk's two graphs do. Programs replayed in any order (the loop
-programs) take a pool each (shared_pool=False).
+later graph's outputs may sit in an earlier one's scratch memory).
+Programs replayed in any order (the loop programs) take a pool each
+(shared_pool=False).
 
-A failed capture or replay raises; nothing falls back to eager launches.
+run_if is the JAX programs' lax.cond(pred, body, identity) on a device
+flag. Inside a capture it is a CUDA-graph IF node, added by the kernel
+library (csrc/graph_cond.cu: a kernel that sets the node's condition
+from the flag, the node, and the body captured into the node's child
+graph from a stream of its own, its allocations routed to a private
+pool); the torch this port runs on binds no conditional nodes. The body
+runs at a replay only when the flag, read by the device, is set, so a
+graph that branches needs no host read. Its plain
+version, on the CPU and eagerly on a card, reads the flag on the host.
+A body's results leave it only through copy_ into tensors allocated
+before the node (a tensor it allocates holds stale memory after a
+replay that skipped it). A body adds one to a device count of its
+executions; its kernels' launches are counted per execution when a count
+is read (utils/cuda_lib.settle), and its capture's are taken back. A
+warm-up runs every body whatever its flag holds.
+
+A failed capture or replay raises, as does a refused conditional node
+(CUDA before 12.4); nothing falls back to eager launches or to a flag
+read on the host.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
+import ctypes
+import functools
 import gc
 import threading
 import time
+import weakref
 from typing import Callable, Dict, List, Optional
 
 import torch
 
 from slam_toolkit_tpu_torch.utils import cuda_lib
+
+_LOCAL = threading.local()   # .capturing: the StepGraphs capturing, .warming
+MAX_BODIES = 64              # IF nodes in one graph
+MAX_DEPTH = 4                # IF nodes nested in IF nodes
+_RUNS_LOCK = threading.Lock()
+# plain-version executions of run_if's bodies, by name (callers reset it)
+plain_runs: collections.Counter = collections.Counter()
+
+
+def taken(pred: torch.Tensor) -> bool:
+    """The plain version's reading of a flag: a host read (on a card a
+    synchronisation)."""
+    return bool(pred)
+
+
+@functools.lru_cache(maxsize=None)
+def _entries() -> dict:
+    """The library's slam_if_begin(flag, body stream, stream),
+    slam_if_end(body stream) and slam_stream_create(&stream)."""
+    lib = cuda_lib.library().cdll
+    args = {"slam_if_begin": [cuda_lib.PTR] * 3,
+            "slam_if_end": [cuda_lib.PTR],
+            "slam_stream_create": [ctypes.POINTER(ctypes.c_void_p)]}
+    out = {}
+    for name, types in args.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = types, cuda_lib.INT
+        out[name] = fn
+    return out
+
+
+def _body_streams(device: torch.device) -> list:
+    """This thread's streams on `device` for IF bodies, one a nesting
+    depth (MAX_DEPTH): streams of their own, as one of torch's pool may
+    be the very stream that captures; made once, before a capture (a
+    thread captures one graph at a time)."""
+    made = _LOCAL.__dict__.setdefault("streams", {})
+    if device not in made:
+        create = _entries()["slam_stream_create"]
+        made[device] = []
+        for _ in range(MAX_DEPTH):
+            h = ctypes.c_void_p()
+            _check(create(ctypes.byref(h)), "slam_stream_create")
+            made[device].append(torch.cuda.ExternalStream(h.value,
+                                                          device=device))
+    return made[device]
+
+
+def _check(err: int, what: str) -> None:
+    if err != 0:
+        msg = cuda_lib.library().cdll.slam_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg}); CUDA-graph "
+                           "conditional nodes need CUDA 12.4 or later")
+
+
+@contextlib.contextmanager
+def _allocating_to(g: "StepGraphs", pool) -> None:
+    """Route this thread's allocations to `pool` (a body's stream is not
+    the capture's, so the capture's own routing misses it); held until
+    `g` is gone, as a graph holds its pool."""
+    dev = g.device.index if g.device.index is not None else \
+        torch.cuda.current_device()
+    torch._C._cuda_beginAllocateCurrentThreadToPool(dev, pool)
+    g._pool_holds[(dev, pool)] += 1
+    try:
+        yield
+    finally:
+        torch._C._cuda_endAllocateToPool(dev, pool)
+
+
+def _release(holds) -> None:
+    """Give back the body pools' holds (a graph's own pool is released
+    with the graph)."""
+    for (dev, pool), n in holds.items():
+        for _ in range(n):
+            torch._C._cuda_releasePool(dev, pool)
+
+
+@contextlib.contextmanager
+def warming():
+    """A warm-up: every run_if body inside runs whatever its flag holds
+    (its first-call constants and handles made outside any capture)."""
+    prev = getattr(_LOCAL, "warming", False)
+    _LOCAL.warming = True
+    try:
+        yield
+    finally:
+        _LOCAL.warming = prev
+
+
+def run_if(pred: torch.Tensor, fn: Callable, *args, name: str = "if"
+           ) -> None:
+    """fn(*args) where the 0-dim bool tensor `pred` is set, as
+    lax.cond(pred, fn, identity) for an fn that writes its results in
+    place and returns nothing. Inside a StepGraphs capture, an IF node
+    on `pred` whose body is fn (executions counted under `name`); in a
+    StepGraphs warm-up, fn whatever `pred` holds; otherwise the plain
+    version: fn when `pred`, read on the host, is set (counted in
+    plain_runs[name])."""
+    g = getattr(_LOCAL, "capturing", None)
+    if g is not None:
+        g._if_node(pred, fn, args, name)
+    elif getattr(_LOCAL, "warming", False):
+        fn(*args)
+    elif taken(pred):
+        with _RUNS_LOCK:
+            plain_runs[name] += 1
+        fn(*args)
 
 
 class StepGraphs:
@@ -58,15 +189,25 @@ class StepGraphs:
         self._warm_s = 0.0
         self.setup_launches: Dict[str, int] = {}
         self.capture_threads: set = set()
+        # run_if bodies: (name, executions, flag, {LaunchCount: n})
+        self._bodies: List[tuple] = []
+        # a memory pool for each nesting depth of bodies, held (its
+        # begins counted) until this object is gone
+        self._depth = 0
+        self._body_pools: List = []
+        self._pool_holds = collections.Counter()
+        fin = weakref.finalize(self, _release, self._pool_holds)
+        fin.atexit = False
 
     def warm_up(self, fn: Callable, *args) -> None:
-        """fn(*args) once on a side stream, waited for; its launches are
-        not counted (see the module's note)."""
+        """fn(*args) once on a side stream, waited for, every run_if body
+        in it run; its launches are not counted (see the module's
+        note)."""
         t0 = time.perf_counter()
         main = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(main)
-        with cuda_lib.counts_apart() as delta:
+        with warming(), cuda_lib.counts_apart() as delta:
             with torch.cuda.stream(side):
                 fn(*args)
             main.wait_stream(side)
@@ -94,14 +235,29 @@ class StepGraphs:
         # refuses (and the capture is lost)
         collecting = gc.isenabled()
         gc.disable()
+        n_bodies = len(self._bodies)
+        # the bodies' execution counts: memory of no graph pool, which a
+        # replay rewrites wherever the capture reused a freed block
+        self._runs = torch.zeros(MAX_BODIES, dtype=torch.int64,
+                                 device=self.device)
+        self._n_runs = 0
+        self._streams = _body_streams(self.device)
+        _LOCAL.capturing = self
         try:
             with cuda_lib.counts_apart() as delta:
                 with torch.cuda.graph(graph, pool=self.pool,
                                       capture_error_mode=error_mode):
                     out = fn(*args)
+        except BaseException:
+            del self._bodies[n_bodies:]
+            raise
         finally:
+            _LOCAL.capturing = None
             if collecting:
                 gc.enable()
+        self._runs.zero_()
+        for body in self._bodies[n_bodies:]:
+            cuda_lib.defer(self, body[1], body[3])
         if self.shared_pool:
             if self.pool is None:
                 self.pool = graph.pool()
@@ -110,7 +266,8 @@ class StepGraphs:
         else:
             self._pools.append(graph.pool())
             self._pool_of[name] = tuple(graph.pool())
-        self._graphs[name] = (graph, dict(delta))
+        self._graphs[name] = (graph, dict(delta),
+                              len(self._bodies) > n_bodies)
         self.captures += 1
         dt = time.perf_counter() - t0
         self.capture_s += dt
@@ -121,11 +278,66 @@ class StepGraphs:
     def __contains__(self, name: str) -> bool:
         return name in self._graphs
 
+    def _if_node(self, pred: torch.Tensor, fn: Callable, args,
+                 name: str) -> None:
+        """run_if inside a capture: an IF node on `pred` (csrc/
+        graph_cond.cu), fn captured into its body on a stream of this
+        nesting depth, its allocations routed to a pool of that depth,
+        with one add to the body's execution count; the body's launches
+        kept apart (cuda_lib.defer after the capture). The count is a slot
+        of a buffer allocated before the capture."""
+        if not (pred.is_cuda and pred.dtype == torch.bool
+                and pred.numel() == 1):
+            raise ValueError(f"an IF node's flag is a one-element bool "
+                             f"CUDA tensor, got {pred.dtype} "
+                             f"{tuple(pred.shape)} on {pred.device}")
+        lib, d = _entries(), self._depth
+        if d == MAX_DEPTH:
+            raise RuntimeError(f"IF nodes nested deeper than {MAX_DEPTH}")
+        if d == len(self._body_pools):
+            self._body_pools.append(torch.cuda.graph_pool_handle())
+            self._pools.append(self._body_pools[d])
+        body, pool = self._streams[d], self._body_pools[d]
+        if self._n_runs == MAX_BODIES:
+            raise RuntimeError(f"more than {MAX_BODIES} IF nodes in a graph")
+        runs = self._runs[self._n_runs]        # a slot of its own
+        self._n_runs += 1
+        stream = torch.cuda.current_stream(self.device)
+        _check(lib["slam_if_begin"](pred.data_ptr(), body.cuda_stream,
+                                    stream.cuda_stream), "slam_if_begin")
+        self._depth += 1
+        try:
+            with torch.cuda.stream(body), _allocating_to(self, pool):
+                with cuda_lib.counts_apart() as delta:
+                    fn(*args)
+                runs.add_(1)
+        finally:
+            self._depth -= 1
+            err = lib["slam_if_end"](body.cuda_stream)
+        _check(err, "slam_if_end")
+        # the flag lives as long as the graph
+        self._bodies.append((name, runs, pred, dict(delta)))
+
     def replay(self, name: str) -> None:
-        graph, delta = self._graphs[name]
+        graph, delta, bodies = self._graphs[name]
         graph.replay()
         for c, n in delta.items():
             c.add(n)
+        if bodies:
+            cuda_lib.mark_unsettled(self)
+
+    def executions(self) -> Dict[str, int]:
+        """Executions of the graphs' conditional bodies since their
+        capture, by run_if name (bodies of one name summed): one
+        synchronise and one readback."""
+        if not self._bodies:
+            return {}
+        torch.cuda.synchronize(self.device)
+        got = torch.stack([b[1] for b in self._bodies]).tolist()
+        out: Dict[str, int] = {}
+        for b, n in zip(self._bodies, got):
+            out[b[0]] = out.get(b[0], 0) + n
+        return out
 
     def pool_bytes(self, names=None) -> Optional[int]:
         """Bytes the caching allocator holds in the graphs' pools (those of
@@ -142,10 +354,15 @@ class StepGraphs:
                    if tuple(s.get("segment_pool_id", ())) in pools)
 
     def stats(self) -> dict:
+        """Captures, capture seconds, pool bytes, set-up launches,
+        capturing threads, and IF nodes ("if_nodes") with their bodies'
+        executions by name ("if_runs")."""
         return {"captures": self.captures, "capture_s": self.capture_s,
                 "pool_bytes": self.pool_bytes(),
                 "setup_launches": dict(self.setup_launches),
-                "capture_threads": sorted(self.capture_threads)}
+                "capture_threads": sorted(self.capture_threads),
+                "if_nodes": len(self._bodies),
+                "if_runs": self.executions()}
 
 
 def merged_stats(graphs) -> Optional[dict]:
@@ -158,12 +375,17 @@ def merged_stats(graphs) -> Optional[dict]:
         return None
     pools = [p["pool_bytes"] for p in parts]
     setup: Dict[str, int] = {}
+    runs: Dict[str, int] = {}
     for p in parts:
         for k, n in p["setup_launches"].items():
             setup[k] = setup.get(k, 0) + n
+        for k, n in p["if_runs"].items():
+            runs[k] = runs.get(k, 0) + n
     return {"captures": sum(p["captures"] for p in parts),
             "capture_s": sum(p["capture_s"] for p in parts),
             "pool_bytes": None if None in pools else sum(pools),
             "setup_launches": setup,
             "capture_threads": sorted({t for p in parts
-                                       for t in p["capture_threads"]})}
+                                       for t in p["capture_threads"]}),
+            "if_nodes": sum(p["if_nodes"] for p in parts),
+            "if_runs": runs}

@@ -13,7 +13,10 @@ on it without synchronising, and returns ``cudaGetLastError()``;
 launch. Nothing here falls back to another implementation. Every launch
 count (:class:`LaunchCount`: each kernel's own, and any a caller keeps
 beside them) is listed in :func:`launch_counts`, so that a CUDA graph
-(utils/cuda_graphs) can add on each replay what its capture recorded.
+(utils/cuda_graphs) can add on each replay what its capture recorded. A
+graph's conditional bodies run on some replays only: each counts its
+executions on the device, and their launches are added when a count is
+read (:func:`settle`), never inside the replays.
 
 The chunked engine's mapping worker launches kernels on a thread of its
 own while the main thread replays graphs, so counts are added under a
@@ -132,34 +135,102 @@ def library() -> Library:
 _COUNTS: "weakref.WeakSet[LaunchCount]" = weakref.WeakSet()
 _COUNT_LOCK = threading.Lock()
 _COUNTING = threading.local()      # .blocks: the thread's open counting()s
+# the launches of conditional bodies, counted once per execution when read:
+# [owner (weak), executions (a device int64), {LaunchCount: n}, executions
+# counted so far]
+_DEFERRED: list = []
+_SETTLE_LOCK = threading.RLock()
+_UNSETTLED: dict = {}   # thread -> ids of owners it replayed since
 
 
 class LaunchCount:
     """A count of kernel launches, `launches`, that callers reset by
-    assigning 0. Every live one is listed by launch_counts()."""
+    assigning 0. Every live one is listed by launch_counts(). Reading or
+    assigning `launches` first settles the conditional bodies' launches
+    (settle)."""
 
     def __init__(self):
-        self.launches = 0
+        self._n = 0
         _COUNTS.add(self)
+
+    @property
+    def launches(self) -> int:
+        settle()
+        return self._n
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        settle()
+        with _COUNT_LOCK:
+            self._n = n
 
     def add(self, n: int = 1) -> None:
         """Count n launches made by this thread: under a lock (an
         increment from another thread is never lost), and into the
         thread's innermost open counting() or counts_apart() block."""
         with _COUNT_LOCK:
-            self.launches += n
+            self._n += n
         blocks = getattr(_COUNTING, "blocks", None)
         if blocks:
             blocks[-1][self] = blocks[-1].get(self, 0) + n
 
 
+def defer(owner, executions: torch.Tensor, delta: dict) -> None:
+    """Count `delta`'s launches once for every execution of a conditional
+    body (utils/cuda_graphs.run_if): `executions` is the device int64
+    that the body adds one to. They are added when counts are read
+    (settle), while `owner` (the body's StepGraphs) lives and once after."""
+    with _SETTLE_LOCK:
+        _DEFERRED.append([weakref.ref(owner), executions, dict(delta), 0])
+
+
+def mark_unsettled(owner) -> None:
+    """This thread replayed a graph of `owner` that has conditional
+    bodies: its next read of a count settles them."""
+    with _SETTLE_LOCK:
+        _UNSETTLED.setdefault(threading.get_ident(), set()).add(id(owner))
+
+
+def settle() -> None:
+    """Add the launches of the conditional bodies this thread replayed,
+    for their executions since the last settle, into this thread's open
+    blocks: one synchronise and one readback of their executions, made
+    only after such a replay and never while this thread's stream
+    captures. Bodies whose graphs are gone are dropped after their last
+    reading."""
+    me = threading.get_ident()
+    if me not in _UNSETTLED or (torch.cuda.is_available() and
+                                torch.cuda.is_current_stream_capturing()):
+        return
+    with _SETTLE_LOCK:
+        owners = _UNSETTLED.pop(me, set())
+        by_dev: dict = {}
+        for e in _DEFERRED:
+            o = e[0]()
+            if o is None or id(o) in owners:
+                by_dev.setdefault(e[1].device, []).append(e)
+        for dev, entries in by_dev.items():
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            got = torch.stack([e[1] for e in entries]).tolist()
+            for e, n in zip(entries, got):
+                k, e[3] = n - e[3], n
+                for c, m in e[2].items():
+                    if m * k:       # a block sees no body that did not run
+                        c.add(m * k)
+        _DEFERRED[:] = [e for e in _DEFERRED if e[0]() is not None]
+
+
 @contextlib.contextmanager
 def _block(merge: bool):
+    settle()                       # what ran before is not the block's
     blocks = _COUNTING.__dict__.setdefault("blocks", [])
     delta: dict = {}
     blocks.append(delta)
     try:
         yield delta
+        if merge:
+            settle()
     finally:
         blocks.pop()
         if merge and blocks:
@@ -169,8 +240,9 @@ def _block(merge: bool):
 
 def counting():
     """A block whose yielded dict receives {LaunchCount: launches} made by
-    this thread inside it (those of nested blocks too). Launches another
-    thread makes meanwhile are not in it."""
+    this thread inside it (those of nested blocks, and of conditional
+    bodies replayed in it, too). Launches another thread makes meanwhile
+    are not in it."""
     return _block(merge=True)
 
 
@@ -186,12 +258,14 @@ def counts_apart():
         finally:
             for c, n in delta.items():
                 with _COUNT_LOCK:
-                    c.launches -= n
+                    c._n -= n
 
 
 def launch_counts() -> list:
     """Every live LaunchCount: each CudaKernel's, and those callers made
-    (a count by window shape, say)."""
+    (a count by window shape, say), the conditional bodies' launches
+    settled."""
+    settle()
     return list(_COUNTS)
 
 

@@ -1,16 +1,18 @@
-"""The cluster tracker's fused step with its choices made on the device, on
-the CPU.
+"""The cluster tracker's fused step, branching on device flags, on the CPU.
 
-cluster/tracker.fused_step makes the JAX program's choices
-(lax.cond(skip, ...), the lax.scan of lax.cond-gated RANSAC rounds) with
-device flags and reads nothing back, so that FusedDenseTracker can
-capture it as one CUDA graph. `host_gated_step` below is the step as the
-port ran it before: the skip gate and each round's stop flag read on the
-host, a round after the stop not run, each PnP-RANSAC's uniforms drawn
-from its threefry key. The two are held equal bit for bit over frames of
+cluster/tracker.fused_step branches as the JAX program does
+(lax.cond(skip, ...), the lax.scan of lax.cond-gated RANSAC rounds):
+each side of the skip gate and each round is a utils/cuda_graphs.run_if
+body on a device flag, which FusedDenseTracker captures as an IF node
+of one CUDA graph; on the CPU run_if's plain version reads the flag.
+`host_gated_step` below is the step as the port ran it before its graph:
+the skip gate and each round's stop flag read on the host, a round after
+the stop not run, each PnP-RANSAC's uniforms drawn from its threefry
+key. The two are held equal bit for bit over frames of
 make_cluster_scene (cut to 188x320 and one mover) that include a skipped
-frame (a pair given twice) and frames whose rounds stop early, and the
-step is shown to make no host read. tests/test_torch_cuda.py holds the
+frame (a pair given twice) and frames whose rounds stop early, with the
+rounds run counted equal, and the step is shown to make no host read
+but the plain version's flag reads. tests/test_torch_cuda.py holds the
 replayed graph to the eager step on the card.
 """
 
@@ -22,9 +24,9 @@ import torch
 
 from slam_toolkit_tpu_torch.cluster import tracker as trk
 from slam_toolkit_tpu_torch.data.synthetic import make_cluster_scene
-from slam_toolkit_tpu_torch.utils import threefry
+from slam_toolkit_tpu_torch.utils import cuda_graphs, threefry
 
-from torch_host_guard import HostOpGuard, HostReadGuard
+from torch_host_guard import HostOpGuard, HostReadGuard, stand_aside
 
 torch.set_num_threads(1)
 
@@ -102,7 +104,8 @@ def scene():
 @pytest.fixture(scope="module")
 def runs(scene):
     """Both steps over the frames from the same seed: each step's (state,
-    row) and the reference's rounds."""
+    row), the reference's rounds and the rounds fused_step ran. fused_step
+    writes the state it is given, so it gets a copy of the last one."""
     cam, cfg, gs, frames = scene
     seed = trk.FusedDenseTracker(cam, cfg, device="cpu")._seed(*frames[0])
     old, new = seed, seed
@@ -111,10 +114,12 @@ def runs(scene):
         key = threefry.prng_key(i + 2)
         old, row_old, rounds = host_gated_step(old, gl, gr, key, cam, cfg,
                                                gs)
+        ran = cuda_graphs.plain_runs["round"]
         new, row_new = trk.fused_step(
-            new, gl, gr, torch.from_numpy(trk.frame_draws(key, cfg)), cam,
-            cfg, gs)
-        out.append((old, row_old, rounds, new, row_new))
+            trk.FusedState(*(t.clone() for t in new)), gl, gr,
+            torch.from_numpy(trk.frame_draws(key, cfg)), cam, cfg, gs)
+        out.append((old, row_old, rounds, new, row_new,
+                    cuda_graphs.plain_runs["round"] - ran))
     return out
 
 
@@ -123,10 +128,11 @@ def test_masked_step_is_the_host_gated_step(runs, scene):
     step's; the frames include a skipped one, one that made clusters and
     one whose rounds stopped before cfg.max_ransac_rounds."""
     _, cfg, _, _ = scene
-    for old, row_old, _, new, row_new in runs:
+    for old, row_old, rounds, new, row_new, ran in runs:
         assert torch.equal(row_new, row_old)
         for name, a, b in zip(trk.FusedState._fields, new, old):
             assert a.dtype == b.dtype and torch.equal(a, b), name
+        assert ran == (rounds or 0)
     rounds = [o[2] for o in runs]
     assert None in rounds                             # skipped
     assert any(r is not None and 0 < r < cfg.max_ransac_rounds
@@ -149,13 +155,15 @@ def test_skipped_frame_keeps_the_state(runs, scene):
     assert not v[P + 5:P + 5 + C].any() and not v[P + 5 + 3 * C:].any()
 
 
-def test_masked_step_reads_nothing_back(scene):
+def test_masked_step_reads_nothing_back(scene, monkeypatch):
     """fused_step on the CPU makes no host read, no upload and no
-    data-dependent shape: nothing a CUDA graph cannot capture."""
+    data-dependent shape but run_if's plain flag reads (an IF node's
+    flag on the card): nothing a CUDA graph cannot capture."""
     cam, cfg, gs, frames = scene
     state = trk.FusedDenseTracker(cam, cfg, device="cpu")._seed(*frames[0])
     draws = torch.from_numpy(trk.frame_draws(threefry.prng_key(2), cfg))
     guard = HostReadGuard()
+    stand_aside(monkeypatch, guard, cuda_graphs, ("taken",))
     with torch.no_grad(), guard, HostOpGuard(guard):
         new, row = trk.fused_step(state, *frames[1], draws, cam, cfg, gs)
     assert guard.seen == []

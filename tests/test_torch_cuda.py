@@ -801,13 +801,32 @@ def _tiny_images(n: int, seed: int = 3):
         np.float32)
 
 
+def _chunk_syncs(monkeypatch) -> list:
+    """The host synchronisations (CUDA's sync debug mode) of every chunk
+    call after the one that captured, listed as they come."""
+    from slam_toolkit_tpu_torch.pipeline import scan_engine
+    from slam_toolkit_tpu_torch.utils.timing import count_syncs
+    orig, syncs = scan_engine._StaticChunk.__call__, []
+
+    def counted(self, carry, images):
+        if self.graphs is None:
+            return orig(self, carry, images)
+        out, n = count_syncs(orig, self, carry, images)
+        syncs.append(n)
+        return out
+    monkeypatch.setattr(scan_engine._StaticChunk, "__call__", counted)
+    return syncs
+
+
 @pytest.mark.parametrize("method", ["indirect", "hybrid", "direct"])
-def test_graphed_chunks_match_eager(dev, method):
-    """ChunkedSlamEngine replaying its two CUDA graphs against the eager
-    step (graphs=False) on the card, tiny config, 17 frames in chunks of
-    4 with a small keyframe ring that culls between them: the rows and
-    the maps bit-equal, the kernels' launch counts (from the replays)
-    equal, two captures for the engine's life."""
+def test_graphed_chunks_match_eager(dev, method, monkeypatch):
+    """ChunkedSlamEngine replaying its frame graph (the keyframe event an
+    IF node on the device flag) against the eager step (graphs=False) on
+    the card, tiny config, 17 frames in chunks of 4 with a small keyframe
+    ring that culls between them: the rows and the maps bit-equal, the
+    kernels' launch counts (from the replays and the IF body's
+    executions) equal, the body run once for each keyframe row, one
+    capture for the engine's life, no host sync inside a chunk."""
     import dataclasses
 
     from slam_toolkit_tpu_torch.config import SlamConfig
@@ -819,6 +838,7 @@ def test_graphed_chunks_match_eager(dev, method):
         map=dataclasses.replace(cfg.map, max_keyframes=11),
         keyframe=dataclasses.replace(cfg.keyframe, decay_ratio=0.95))
     imgs = _tiny_images(17)
+    syncs = _chunk_syncs(monkeypatch)
     out = {}
     for graphs in (False, True):
         before = {c: c.launches for c in cuda_lib.launch_counts()}
@@ -836,7 +856,10 @@ def test_graphed_chunks_match_eager(dev, method):
     for f in e_eng.map._fields:
         assert torch.equal(getattr(g_eng.map, f), getattr(e_eng.map, f)), f
     assert g_l == e_l and e_l["slam_local_ba"] > 0
-    assert g_eng._chunk.graph_stats()["captures"] == 2
+    st = g_eng._chunk.graph_stats()
+    assert st["captures"] == 1 and st["if_nodes"] == 1
+    assert st["if_runs"]["keyframe"] == int((g_rows[:, 34] > 0.5).sum())
+    assert syncs == [0, 0, 0]
 
 
 @pytest.mark.parametrize("method", ["indirect", "hybrid", "direct"])
@@ -890,21 +913,25 @@ def test_graphed_process_matches_eager(dev, method):
 
 
 def test_graphed_fused_tracker_matches_eager(dev):
-    """FusedDenseTracker replaying its CUDA graph against the eager step
-    (graphs=False) on the card, on tests/test_dense_tracker.py's tiny
-    scene over 10 frames with frame 4's pair given twice (a skipped
-    frame): every row's labels, flags, counts, sizes and motions
-    bit-equal, one capture, one row wait a frame and no host sync the
-    sync debug mode sees."""
+    """FusedDenseTracker replaying its CUDA graph (the skip gate's sides
+    and each RANSAC round IF nodes) against the eager step (graphs=False,
+    the flags read on the host) on the card, on
+    tests/test_dense_tracker.py's tiny scene over 10 frames with frame
+    4's pair given twice (a skipped frame): every row's labels, flags,
+    counts, sizes and motions bit-equal, one capture, each IF body run
+    as often as the eager step ran it, one row wait a frame and no host
+    sync the sync debug mode sees."""
     from slam_toolkit_tpu_torch.cluster.tracker import (DenseConfig,
                                                         FusedDenseTracker)
     from slam_toolkit_tpu_torch.utils.timing import count_syncs
     from torch_cluster_scene import make_scene, tracker_args
     cam, kw = tracker_args()
     cfg = DenseConfig(**kw)
+    from slam_toolkit_tpu_torch.utils import cuda_graphs
     frames = [make_scene(t) for t in (0, 1, 2, 3, 4, 4, 5, 6, 7, 8)]
-    outs, syncs = {}, {}
+    outs, syncs, runs = {}, {}, {}
     for graphs in (False, True):
+        ran = dict(cuda_graphs.plain_runs)
         tr = FusedDenseTracker(cam, cfg, device=dev, graphs=graphs)
         for left, right in frames[:3]:
             tr.process(left, right)
@@ -914,6 +941,9 @@ def test_graphed_fused_tracker_matches_eager(dev):
         mid, syncs[graphs] = count_syncs(run, frames[3:])
         o = [x for x in mid if x is not None] + tr.flush()
         outs[graphs] = (tr, o)
+        runs[graphs] = {k: n - ran.get(k, 0)
+                        for k, n in cuda_graphs.plain_runs.items()
+                        if k in ("skip", "run", "round")}
     (e, eo), (g, go) = outs[False], outs[True]
     assert len(go) == len(eo) == len(frames) - 1
     assert any(x["skipped"] for x in go) and any(
@@ -923,7 +953,12 @@ def test_graphed_fused_tracker_matches_eager(dev):
             np.testing.assert_array_equal(a[k], b[k])
     assert g.graph_stats()["captures"] == 1 and e.graph_stats() is None
     assert g.waits == e.waits == len(frames) - 1
-    assert syncs[True] == 0, syncs
+    assert syncs[True] == 0 < syncs[False], syncs    # eager reads flags
+    st = g.graph_stats()
+    assert st["if_nodes"] == 2 + cfg.max_ransac_rounds
+    assert st["if_runs"] == runs[False] and runs[False]["round"] > 0
+    assert runs[False]["skip"] == sum(x["skipped"] for x in eo)
+    assert runs[False]["run"] == sum(not x["skipped"] for x in eo)
 
 
 @pytest.mark.parametrize("thread", [False, True])
@@ -960,7 +995,7 @@ def test_graphed_pipelined_engine_cuda(dev, thread):
     ev, _ = run(vocab=V.synthesize(4, 3, seed=0), queue_depth=2,
                 loop_thread=thread)
     assert ev.loop_thread == thread
-    assert ev._chunk.graph_stats()["captures"] == 2
+    assert ev._chunk.graph_stats()["captures"] == 1
     assert ev.n_culls == e0.n_culls >= 1
     assert all(np.isfinite(T).all() for T in ev.trajectory_refined())
     if thread:
@@ -1008,12 +1043,14 @@ def _batched_gather_by_shape(monkeypatch) -> dict:
 
 
 @pytest.mark.parametrize("method", ["indirect", "hybrid", "direct"])
-@pytest.mark.parametrize("lanes", [1, 2])
+@pytest.mark.parametrize("lanes", [1, 2, 4])
 def test_graphed_batched_chunks_match_eager(dev, lanes, method, monkeypatch):
-    """multi_sequence_chunk's two CUDA graphs (any B) against the eager
-    batched step on the card, tiny config, B lanes of distinct sequences
-    over two chunks, every tracker: rows and maps bit-equal, launches
-    equal, the batched SAD and local-BA entries launched and their single
+    """multi_sequence_chunk's frame graph (any B; the keyframe event an IF
+    node on any lane's flag) against the eager batched step on the card,
+    tiny config, B lanes of distinct sequences over two chunks, every
+    tracker: rows and maps bit-equal, launches equal, the IF body run on
+    each frame with a flagged lane, no host sync inside the second
+    chunk, the batched SAD and local-BA entries launched and their single
     entries never; the batched gather at 31x31 once a frame (and the
     bootstrap), at 8x8 exactly as the photometric tracker needs."""
     import dataclasses
@@ -1031,6 +1068,7 @@ def test_graphed_batched_chunks_match_eager(dev, lanes, method, monkeypatch):
                     axis=1)
     imgs = torch.from_numpy(seqs).to(dev)
     by_shape = _batched_gather_by_shape(monkeypatch)
+    syncs = _chunk_syncs(monkeypatch)
     out = {}
     for graphs in (False, True):
         before = {c: c.launches for c in cuda_lib.launch_counts()}
@@ -1070,7 +1108,9 @@ def test_graphed_batched_chunks_match_eager(dev, lanes, method, monkeypatch):
     assert l_e["slam_sad_curve_batched"] == 1 + n_kf   # + the bootstrap
     assert l_e["slam_local_ba_batched"] == n_kf
     assert l_e["slam_sad_curve"] == l_e["slam_local_ba"] == 0
-    assert chunk.graph_stats()["captures"] == 2
+    st = chunk.graph_stats()
+    assert st["captures"] == 1 and st["if_runs"]["keyframe"] == n_kf
+    assert syncs == [0]
 
 
 def _sad_lanes(dev, lanes, k, max_disp, seed):

@@ -1,11 +1,12 @@
 """The static-carry step that scan_engine.make_chunk_fn captures as CUDA
 graphs, on the CPU: against the eager step, bit for bit.
 
-On a CUDA device make_chunk_fn replays two CUDA graphs a frame (tracking;
-the keyframe event) over a static carry, and multi_sequence_chunk two
-for any number of lanes. On the CPU the same functions run eagerly, as the graphs'
-plain version: these tests hold them to make_frame_body and
-make_batched_frame_body (the eager steps, graphs=False) exactly, through
+On a CUDA device make_chunk_fn replays one CUDA graph a frame (tracking,
+then the keyframe event as an IF node on the device flag) over a static
+carry, and multi_sequence_chunk one for any number of lanes. On the CPU
+the same functions run eagerly, as the graph's plain version: these
+tests hold them to make_frame_body and make_batched_frame_body (the
+eager steps, graphs=False) exactly, through
 a keyframe-ring cull and a carry re-seeded from the host between chunks,
 and show that the captured functions read nothing back to the host and
 upload nothing. tests/test_torch_cuda.py holds the replayed graphs to
@@ -143,8 +144,9 @@ def guard(monkeypatch):
 
 @pytest.mark.parametrize("method", METHODS)
 def test_captured_functions_read_nothing_back(images, guard, method):
-    """(c) Graph A's and graph B's functions, after one warm-up call (the
-    engine's first chunk), run with no host read or upload."""
+    """(c) The frame graph's two halves (tracking; the keyframe event, its
+    IF body), after one warm-up call (the engine's first chunk), run with
+    no host read or upload."""
     eng = ChunkedSlamEngine(_cfg(method), chunk_size=4, device="cpu")
     eng.process_chunk(images[:5])
     run = eng._chunk
@@ -158,8 +160,8 @@ def test_captured_functions_read_nothing_back(images, guard, method):
 
 
 def test_batched_captured_functions_read_nothing_back(images, guard):
-    """(c) The batched graph A and the one batched graph B (the keyframe
-    event over both lanes, the flags as its mask) the same way."""
+    """(c) The batched frame graph's halves (the keyframe event over both
+    lanes, the flags as its mask) the same way."""
     cfg = _cfg("indirect")
     cam = StereoCamera.from_config(cfg.camera, "cpu")
     imgs = torch.from_numpy(np.stack([images[:8], images[1:9]], axis=1))

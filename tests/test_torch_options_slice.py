@@ -106,8 +106,8 @@ def test_graphed_step_is_the_eager_step(port_runs, name):
 @pytest.mark.parametrize("name", OPTIONS)
 def test_captured_functions_read_nothing_back(images, guard,  # noqa: F811
                                               name):
-    """Graph A's and graph B's functions under the option set (graph B
-    extracts the right image under O1) run with no host read or
+    """The frame graph's two halves under the option set (the keyframe
+    event extracts the right image under O1) run with no host read or
     upload after the first chunk's warm-up."""
     imgs, _ = images
     eng = ChunkedSlamEngine(with_option(SlamConfig.tiny(), name),
