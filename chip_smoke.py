@@ -59,10 +59,13 @@ Phases (any failure raises and the script exits non-zero):
    cached under the temporary directory),
    ChunkedSlamEngine(chunk_size=16, device="cuda"), 3 chunks, then
    trajectory_refined(). The engine runs graphed, its default
-   (scan_engine.make_chunk_fn: the frame captured once as a CUDA graph
-   in the first chunk, the keyframe event an IF node on the device
-   flag, then replayed once a frame); phases 4-8, 10, 11 (c) and 13
-   too. Every kernel's launch count is reset just before and read just
+   (scan_engine.make_chunk_fn: the chunk captured once as a CUDA graph
+   in the first chunk, its frames a WHILE node with the frame index,
+   images and rows on the device, the keyframe event an IF node on the
+   device flag inside it, then launched once a chunk); phases 4-8, 10,
+   11 (c) and 13 too. Phases 3, 4, 6-8, 13, 14 and 16 assert one launch
+   of the graph "chunk" a chunk and the WHILE body's iterations equal
+   to the frames run. Every kernel's launch count is reset just before and read just
    after (a graph adds on each replay the launches its capture recorded,
    and an IF body's once for each of its executions; the warm-up before
    the capture is set-up and not counted). Phases 3, 4, 6, 7 and 8 print
@@ -214,9 +217,10 @@ Phases (any failure raises and the script exits non-zero):
    chunk) and one lane alone's, and the device operations a frame of
    each layout (frames 2 and 3 under torch.profiler, after frame 1
    captured the graphs) are printed, and the host syncs over the rest
-   of the first chunk: the batched layout's graph (the keyframe event an
-   IF node on any lane's flag) must make none, and its IF body must run
-   once for each frame with a flagged lane. The inputs of the five batched
+   of the first chunk: the batched layout's graph (the frames a WHILE
+   node, the keyframe event an IF node on any lane's flag inside it)
+   must make none, be launched once a chunk, iterate once a frame, and
+   its IF body must run once for each frame with a flagged lane. The inputs of the five batched
    entries in the batched run are kept on the card (as phase 3's: the
    last frame that ran each); each entry is then held, lane by lane,
    against its single launch on them (exactly; the pose LM and local BA
@@ -242,9 +246,16 @@ Phases (any failure raises and the script exits non-zero):
    keyframe event an IF node for all lanes). Prints each run's frames/s,
    the captures, their seconds and the graphs' pool memory, the host
    syncs inside each run's chunks (0 graphed, 1 a frame eager) and the
-   keyframe IF body's runs against the keyframe rows, the second
-   graphed run's last chunk under torch.profiler (kernels a frame, busy
-   share), and both modes' aggregate frames/s at four lanes.
+   keyframe IF body's runs against the keyframe rows, the graph
+   launches and WHILE iterations against the chunks and frames, the
+   last chunk's device time and kernels a frame from the first eager
+   run under torch.profiler (it records one iteration of a WHILE body a
+   graph launch, and reads fewer of the eager step's kernels here than
+   profile_chunk does), the same chunk's wall in one launch from the first
+   graphed run (busy share at that device time), the host CUDA calls
+   and graph launches a chunk call from the second graphed run's last
+   chunk under the profiler a frame a call, and both modes' aggregate
+   frames/s at four lanes.
 15. The option sets (tools/bench.OPTIONS) at SlamConfig(): (a) the
    kernels at their shapes on frame 0 (frame 1 as a second lane), each
    exact against its plain version and unfold, with phase 2's columns:
@@ -300,10 +311,7 @@ Phases (any failure raises and the script exits non-zero):
    graphs and with the eager loop programs: closures, events, ATE, seam
    and launches exactly equal, the stage split of each, and the top-2
    exact against its plain version on the inputs the eager run's first
-   relative pose on the worker handed it. (b) The same run with its last 2
-   chunks under torch.profiler: each stream's busy time and the share
-   of the wall in which another stream's work overlapped the graphs'.
-   The same frames at depth 2 with the loop phases inline right after
+   relative pose on the worker handed it. (b) The same frames at depth 2 with the loop phases inline right after
    (a): its frames/s and closures, and the host syncs inside the chunks
    in both runs (0 inline; the worker's own are counted with the
    worker). (c) Without a vocabulary, phase 3's frames at
@@ -2160,14 +2168,15 @@ def dp_run(make_step, cfg, cam, first, chunks, kernels: dict, cap=None):
     bootstrap, read just after the last chunk (a photometric tracker's
     anchor added after the bootstrap, anchored()); frame 1 alone (where
     the graphs are captured, outside the profiler), frames 2 to
-    DP_PROFILED + 1 under torch.profiler (operations a frame), the rest
-    of the first chunk with its host syncs counted (act["syncs"]: syncs,
-    frames), the second chunk timed alone. Returns the chunk function
-    too."""
+    DP_PROFILED + 1 under torch.profiler (operations a frame; a call a
+    frame), the rest of the first chunk with its host syncs counted
+    (act["syncs"]: syncs, frames), the second chunk timed alone:
+    3 + DP_PROFILED calls (act["calls"]) of a chunk function of capacity
+    DP_CHUNK. Returns the chunk function too."""
     from slam_toolkit_tpu_torch.parallel import mesh
     from slam_toolkit_tpu_torch.utils.timing import (count_syncs,
                                                      device_activity)
-    step = make_step(cfg, cam)
+    step = make_step(cfg, cam, capacity=DP_CHUNK)
     for k in kernels.values():
         k.launches = 0
     try:
@@ -2175,11 +2184,20 @@ def dp_run(make_step, cfg, cam, first, chunks, kernels: dict, cap=None):
             mesh.batched_empty_map(cfg, first.shape[0], first.device),
             first[:, 0], first[:, 1]), first[:, 0], cam, cfg)
         carry, p0 = step(carry, chunks[0][:1])
-        (carry, p1), act = device_activity(step, carry,
-                                           chunks[0][1:1 + DP_PROFILED])
+
+        def frame_by_frame(carry):
+            # a call a frame: the profiler records one iteration of a
+            # WHILE body a graph launch
+            out = []
+            for k in range(1, 1 + DP_PROFILED):
+                carry, p = step(carry, chunks[0][k:k + 1])
+                out.append(p)
+            return carry, torch.cat(out)
+        (carry, p1), act = device_activity(frame_by_frame, carry)
         (carry, p2), syncs = count_syncs(step, carry,
                                          chunks[0][1 + DP_PROFILED:])
         act["syncs"] = (syncs, chunks[0].shape[0] - 1 - DP_PROFILED)
+        act["calls"] = 3 + DP_PROFILED
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         carry, p3 = step(carry, chunks[1])
@@ -2250,10 +2268,11 @@ def lanes_if_line(step, rows_v, act, what: str) -> str:
         raise AssertionError(f"{what}: {st['captures']} graphs, keyframe IF "
                              f"body runs {runs} for {n_any} frames with a "
                              f"flagged lane, {syncs} host syncs")
+    scan = scan_line(st, act["calls"], rows_v.shape[0], what)
     return (f"1 graph for {rows_v.shape[1]} lanes, the keyframe event an IF "
             f"node on any lane's flag: IF body runs {runs} = frames with a "
             f"flagged lane {n_any} of {rows_v.shape[0]}; host syncs inside "
-            f"a chunk {syncs} over {frames} frames")
+            f"a chunk {syncs} over {frames} frames; {scan}")
 
 
 def keyframe_launches(rows_v, launch_v, launch_l, what: str) -> int:
@@ -2394,7 +2413,7 @@ def phase13(cfg, frames7, loop_frames, kernels: dict, label: str) -> dict:
     print(f"[phase13] {label} batched layout: {n_any} of {n_frames} frames "
           f"with a flagged lane, {int((rows_v[..., 34] > 0.5).sum())} lane "
           f"keyframes; {lanes_if_line(step_v, rows_v, act_v, 'indirect')}")
-    print(f"[phase13] {label} lane layout (one frame graph a lane): host "
+    print(f"[phase13] {label} lane layout (one chunk graph a lane): host "
           f"syncs {act_l['syncs'][0]} over {act_l['syncs'][1]} frames of "
           f"{lanes} lanes")
     rows = [check_gather_batched(cap.args["patch_gather_batched"]),
@@ -2447,7 +2466,9 @@ def graph_line(stats) -> str:
         f"{stats['pool_bytes'] / 2 ** 20:.1f} MiB"
     return (f"{stats['captures']} captures in {stats['capture_s']:.3f} s "
             f"(warm-up included), pool {pool}, warm-up launches (not "
-            f"counted) {stats['setup_launches']}, IF nodes "
+            f"counted) {stats['setup_launches']}, graph launches "
+            f"{stats['replays']}, WHILE nodes {stats['while_nodes']}, their "
+            f"iterations {stats['while_runs']}, IF nodes "
             f"{stats['if_nodes']}, their bodies' runs {stats['if_runs']}")
 
 
@@ -2459,14 +2480,16 @@ def phase14(cfg, frames, kernels: dict, label: str, dp: dict) -> None:
     t_phase = time.perf_counter()
     runs = []
     for i, mode in enumerate(PAIRED):
-        # the second graphed run's last chunk under torch.profiler
-        prof = i == 2
+        # the first eager and the second graphed run's last chunk under
+        # torch.profiler, a frame a call (run_engine)
+        prof = i in (0, 2)
         eng, chunk_s, launches, shapes = drive(cfg, frames, 16, kernels,
                                                graphs=mode == "graphed",
                                                profile_last=prof)
         stats = eng._chunk.graph_stats() if mode == "graphed" else None
         runs.append({"rows": engine_rows(eng), "launches": launches,
-                     "shapes": shapes})
+                     "shapes": shapes, "chunk_s": chunk_s,
+                     "profile": eng.smoke_profile if prof else None})
         steady = "chunk 2 (chunk 3 profiled)" if prof else "chunks 2-3"
         print(f"[phase14] {label} {mode}: frames/s "
               f"{len(frames) / sum(chunk_s):.2f} over the 3 chunks, "
@@ -2476,16 +2499,31 @@ def phase14(cfg, frames, kernels: dict, label: str, dp: dict) -> None:
               + ("" if stats is None else f"; {graph_line(stats)}"))
         print(f"[phase14] {label} {mode}: "
               f"{if_runs_line(eng, eng.smoke_syncs, f'phase 14 {mode}')}")
-        if prof:
-            act, n = eng.smoke_profile
-            kern = "not seen" if act["kernels"] is None else \
-                f"{act['kernels'] / n:.1f}"
-            busy = "not seen" if act["busy"] is None else \
-                f"{act['busy']:.4f}"
-            kf = sum(s["kf"] for s in eng.frame_stats[-n:])
-            print(f"[phase14] {label} graphed, last chunk ({n} frames, {kf} "
-                  f"keyframes) under torch.profiler: kernels, copies and "
-                  f"fills a frame {kern}, busy share {busy}")
+    # The profiler records one iteration of a WHILE body a graph launch,
+    # and in this process it sees none of the graphed chunk's kernels (and
+    # fewer than profile_chunk's of the eager step's): the device time and
+    # kernels of the last chunk come from the eager run (the same kernels,
+    # the WHILE loop's few aside), the host CUDA calls from the graphed
+    # run, the wall of that chunk in one launch, no profiler, from the
+    # first graphed run.
+    (act_e, n), (act_g, _) = runs[0]["profile"], runs[2]["profile"]
+    wall_ms = 1000 * runs[1]["chunk_s"][2]
+    kern, busy = "not seen", "not seen"
+    if act_e["kernels"] is not None:
+        kern = f"{act_e['kernels'] / n:.1f}"
+        busy = f"{act_e['device_ms'] / wall_ms:.4f}"
+    dev_ms = "not seen" if act_e["device_ms"] is None else \
+        f"{act_e['device_ms']:.1f}"
+    print(f"[phase14] {label} last chunk ({n} frames, "
+          f"{int(runs[0]['rows'][-n:, 34].sum())} keyframes): eager under "
+          f"torch.profiler, kernels, copies and fills a frame {kern}, "
+          f"device ms {dev_ms} (as this process's profiler reads them); "
+          f"graphed in one launch, no profiler, {wall_ms:.1f} ms: busy "
+          f"share at that eager device time {busy}; "
+          f"graphed under torch.profiler as {n} chunk calls of one frame: "
+          f"host CUDA calls a chunk call {act_g['host_calls'] / n:.2f} (its "
+          f"final synchronise included), graph launches a chunk call "
+          f"{act_g['graph_launches'] / n:.2f}")
     ref = runs[0]
     for mode, r in zip(PAIRED[1:], runs[1:]):
         if not np.array_equal(r["rows"], ref["rows"]):
@@ -2506,19 +2544,23 @@ def phase14(cfg, frames, kernels: dict, label: str, dp: dict) -> None:
     for method, run in (("indirect", dp), ("hybrid", dp["photo"]["hybrid"])):
         cfg_m = run.get("cfg", cfg)
         _, rows_e, secs_e, launch_e, _, _ = dp_run(
-            lambda c, cm: mesh.multi_sequence_chunk(c, cm, graphs=False),
+            lambda c, cm, capacity: mesh.multi_sequence_chunk(
+                c, cm, graphs=False),
             cfg_m, cam, first, chunks, dp["kernels"])
         fps_g = run["fps_v"] if method == "indirect" else run["fps"]["vmap"]
         stats = run["graphs_v"]
         print(f"[phase14] {label} batched {method}, {lanes} lanes: aggregate "
               f"frames/s eager {lanes * DP_CHUNK / secs_e:.2f}, graphed "
               f"{fps_g:.2f} (phase 13; chunk 2); graphed "
-              f"{graph_line(stats)}; {stats['captures']} frame graph for "
-              f"{lanes} lanes, {stats['if_nodes']} IF node")
-        if stats["captures"] != 1 or stats["if_nodes"] != 1:
+              f"{graph_line(stats)}; {stats['captures']} chunk graph for "
+              f"{lanes} lanes, {stats['while_nodes']} WHILE node, "
+              f"{stats['if_nodes']} IF node")
+        if stats["captures"] != 1 or stats["if_nodes"] != 1 or \
+                stats["while_nodes"] != 1:
             raise AssertionError(f"batched {method}: {stats['captures']} "
-                                 f"graphs, {stats['if_nodes']} IF nodes "
-                                 "captured, expected 1 and 1")
+                                 f"graphs, {stats['while_nodes']} WHILE and "
+                                 f"{stats['if_nodes']} IF nodes captured, "
+                                 "expected 1, 1 and 1")
         if not np.array_equal(rows_e, run["rows_v"]):
             bad = np.flatnonzero((rows_e != run["rows_v"]).any((1, 2)))
             raise AssertionError(f"batched {method}: the graphed rows part "
@@ -2945,60 +2987,6 @@ class WorkerCounts:
         del self.eng._host._relpose, self.eng._run_job
 
 
-def _union(ivs):
-    out = []
-    for a, b in sorted(ivs):
-        if out and a <= out[-1][1]:
-            out[-1][1] = max(out[-1][1], b)
-        else:
-            out.append([a, b])
-    return out
-
-
-def _overlap_us(xs, ys) -> float:
-    i = j = 0
-    tot = 0.0
-    while i < len(xs) and j < len(ys):
-        lo, hi = max(xs[i][0], ys[j][0]), min(xs[i][1], ys[j][1])
-        tot += max(0.0, hi - lo)
-        if xs[i][1] < ys[j][1]:
-            i += 1
-        else:
-            j += 1
-    return tot
-
-
-def stream_overlap(prof, wall_ms: float) -> dict:
-    """From a torch.profiler pass: the card's busy ms on each stream
-    (kernels, copies and fills), the stream that was busiest (the
-    graphs' replays), and the ms and the share of the wall in which work
-    on another stream ran while that stream was busy."""
-    with tempfile.TemporaryDirectory() as d:
-        path = os.path.join(d, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    by_stream = {}
-    for e in events:
-        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") \
-                and "dur" in e:
-            s = (e.get("args") or {}).get("stream", e.get("tid"))
-            by_stream.setdefault(s, []).append(
-                (float(e["ts"]), float(e["ts"]) + float(e["dur"])))
-    if not by_stream:
-        return {"streams": {}, "main": None, "overlap_ms": None,
-                "share": None}
-    merged = {s: _union(v) for s, v in by_stream.items()}
-    busy = {s: sum(b - a for a, b in m) for s, m in merged.items()}
-    main = max(busy, key=busy.get)
-    other = _union([iv for s, m in merged.items() if s != main
-                    for iv in m])
-    ov = _overlap_us(merged[main], other) / 1000.0
-    return {"streams": {str(s): round(v / 1000.0, 3)
-                        for s, v in busy.items()},
-            "main": str(main), "overlap_ms": ov, "share": ov / wall_ms}
-
-
 def timed_run(eng, frames, chunk: int):
     """(chunk seconds, flush seconds) of `eng` over `frames`, each ending
     in a synchronise."""
@@ -3170,6 +3158,8 @@ def phase16(cfg, frames48, loop: dict, kernels: dict, label: str) -> dict:
         chunk_q, flush_q = timed_run(eng_q, frames, chunk)
     finally:
         syncs_q.close()
+    scan_w = scan_line(eng._chunk.graph_stats(), syncs.graphed,
+                       len(eng.frame_stats) - 1, "with the worker")
     print(f"[phase16] {label} queue depth 2, loop phases inline: frames/s "
           f"{LOOP_FRAMES / sum(chunk_q):.2f} over the chunks, "
           f"{LOOP_FRAMES / (sum(chunk_q) + flush_q):.2f} with the flush "
@@ -3180,7 +3170,8 @@ def phase16(cfg, frames48, loop: dict, kernels: dict, label: str) -> dict:
           f"with the worker (its syncs counted too) {syncs.line()}, keyframe "
           f"IF body runs "
           f"{eng._chunk.graph_stats()['if_runs'].get('keyframe', 0)} for "
-          f"{sum(s['kf'] for s in eng.frame_stats[1:])} keyframe rows")
+          f"{sum(s['kf'] for s in eng.frame_stats[1:])} keyframe rows, "
+          f"{scan_w}")
     on_worker = [(s, n) for t, s, n in spy.calls if t]
     on_main = [(s, n) for t, s, n in spy.calls if not t]
     worker_top2 = sum(n for _, n in on_worker)
@@ -3230,31 +3221,6 @@ def phase16(cfg, frames48, loop: dict, kernels: dict, label: str) -> dict:
           f"{gate_shares(t, r)}; bound {b['bound_ms']:.6f} ms "
           f"({b['bound_by']})")
 
-    # (b) the same run again, its last 2 chunks under torch.profiler:
-    # the share of their wall in which the worker's stream overlapped
-    # the graphs'
-    eng2 = pipelined()
-    starts = list(range(0, len(frames), chunk))
-    for i in starts[:-2]:
-        eng2.process_chunk(frames[i:i + chunk])
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for i in starts[-2:]:
-            eng2.process_chunk(frames[i:i + chunk])
-        torch.cuda.synchronize()
-        wall_ms = 1000.0 * (time.perf_counter() - t0)
-    eng2.flush()
-    ov = stream_overlap(prof, wall_ms)
-    share = "not measured (no device events)" if ov["share"] is None \
-        else f"{ov['share']:.4f} ({ov['overlap_ms']:.3f} ms)"
-    print(f"[phase16] {label} last 2 chunks under torch.profiler: wall "
-          f"{wall_ms:.1f} ms, busy ms by stream {ov['streams']} (graphs on "
-          f"stream {ov['main']}); another stream busy while the graphs' "
-          f"was: {share}")
-
     # (c) no vocabulary: depth 2 returns depth 0's rows bit for bit. (d)
     # The interpreter lock: a pure-Python loop on another thread ticks
     # alone, then through depth 2's chunks 2-3 (the share of the lock
@@ -3296,7 +3262,7 @@ def phase16(cfg, frames48, loop: dict, kernels: dict, label: str) -> dict:
     print(f"[phase16] {label} phase seconds "
           f"{time.perf_counter() - t_phase:.1f}")
     return {"launches": launches, "fps": fps, "ate": ate, "seam": seam,
-            "closures": len(closures), "overlap": ov["share"]}
+            "closures": len(closures)}
 
 
 # ---------------------------------------------------------------- phase 17
@@ -3547,7 +3513,9 @@ def run_engine(cfg, frames, chunk: int, device: str, ring=None,
     (read outside the chunk's time). graphs: the engine's (CUDA graphs of
     the step, the default, or the eager step); cull_graphs False runs the
     headroom culls' programs eagerly (the host's `graphs` off);
-    profile_last: the last chunk under torch.profiler, its device
+    profile_last: the last chunk under torch.profiler, graphed a frame
+    a process_chunk call (the profiler records one iteration of a WHILE
+    body a graph launch: a chunk of one frame is all of it), its device
     activity and frames kept in eng.smoke_profile."""
     from slam_toolkit_tpu_torch.pipeline.scan_engine import ChunkedSlamEngine
     from slam_toolkit_tpu_torch.utils.timing import device_activity
@@ -3560,7 +3528,13 @@ def run_engine(cfg, frames, chunk: int, device: str, ring=None,
         t0 = time.perf_counter()
         if profile_last and i == starts[-1]:
             part = frames[i:i + chunk]
-            _, act = device_activity(eng.process_chunk, part)
+            calls = [part[k:k + 1] for k in range(len(part))] if graphs \
+                else [part]
+
+            def profiled():
+                for c in calls:
+                    eng.process_chunk(c)
+            _, act = device_activity(profiled)
             eng.smoke_profile = (act, len(part))
         else:
             eng.process_chunk(frames[i:i + chunk])
@@ -3616,17 +3590,19 @@ class ChunkSyncs:
     chunk call while installed, graphed (_StaticChunk, _StaticBatchedChunk)
     or eager (make_chunk_fn(graphs=False)): (syncs, frames) a call. A
     graphed chunk's capturing call is left out (its warm-up and capture
-    synchronise). The mode is process-wide: a mapping worker's syncs
+    synchronise); `graphed` counts every graphed call, that one too. The mode is process-wide: a mapping worker's syncs
     meanwhile are counted too."""
 
     def __init__(self):
         from slam_toolkit_tpu_torch.pipeline import scan_engine as se
         from slam_toolkit_tpu_torch.utils.timing import count_syncs
-        self.se, self.calls = se, []
+        self.se, self.calls, self.graphed = se, [], 0
         self.orig = (se._StaticChunk.__call__, se._eager_chunk)
         calls, (orig_call, orig_eager) = self.calls, self.orig
 
         def call(chunk, carry, images):
+            if images.is_cuda:
+                self.graphed += 1
             if images.is_cuda and chunk.graphs is None:
                 return orig_call(chunk, carry, images)
             out, n = count_syncs(orig_call, chunk, carry, images)
@@ -3671,9 +3647,27 @@ def if_runs_line(eng, syncs: ChunkSyncs, what: str) -> str:
     if syncs.syncs or runs != kf:
         raise AssertionError(f"{what}: {syncs.line()}; keyframe IF body "
                              f"runs {runs} for {kf} keyframe rows")
-    return (f"graphed, the keyframe event an IF node: {syncs.line()}; IF "
-            f"body runs {runs} = keyframe rows {kf} of "
-            f"{len(eng.frame_stats) - 1} frames")
+    scan = scan_line(st, syncs.graphed, len(eng.frame_stats) - 1, what)
+    return (f"graphed, the frames a WHILE node, the keyframe event an IF "
+            f"node: {syncs.line()}; IF body runs {runs} = keyframe rows {kf} "
+            f"of {len(eng.frame_stats) - 1} frames; {scan}")
+
+
+def scan_line(st: dict, chunks: int, frames: int, what: str) -> str:
+    """A graphed chunk function's launches and WHILE iterations: one
+    launch of the graph "chunk" a chunk call and one iteration a frame,
+    one WHILE node; raises otherwise (nothing falls back to a replay a
+    frame)."""
+    launches = st["replays"].get("chunk", 0)
+    iters = st["while_runs"].get("frame", 0)
+    if st["while_nodes"] != 1 or launches != chunks or iters != frames or \
+            set(st["replays"]) != {"chunk"}:
+        raise AssertionError(f"{what}: graph launches {st['replays']} for "
+                             f"{chunks} chunks, {st['while_nodes']} WHILE "
+                             f"nodes, iterations {st['while_runs']} for "
+                             f"{frames} frames")
+    return (f"graph launches {launches} = chunks {chunks} (one a chunk), "
+            f"WHILE body iterations {iters} = frames {frames}")
 
 
 def drive(cfg, frames, chunk: int, kernels: dict, ring=None,

@@ -11,9 +11,9 @@ Every tracker.method runs in every layout. Three layouts run it:
 
 - lanes in turn (multi_sequence_lane_chunk, the JAX lax.map over lanes):
   each lane runs the single-sequence chunk (pipeline/scan_engine.
-  make_chunk_fn, one CUDA graph a lane) on a copy of its views t[b] of
-  the batched carry, keyframe event and all, written back after the
-  chunk; no new kernel.
+  make_chunk_fn, one CUDA graph a lane, launched once a lane a chunk) on
+  a copy of its views t[b] of the batched carry, keyframe event and all,
+  written back after the chunk; no new kernel.
 - batched lanes (multi_sequence_chunk, multi_sequence_engine, the JAX
   vmap): pipeline/scan_engine.make_batched_frame_body runs everything
   before the keyframe flag once over all B lanes, with batched entries
@@ -22,9 +22,10 @@ Every tracker.method runs in every layout. Three layouts run it:
   flags as its lane mask, with batched entries of the stereo-SAD and
   local-BA kernels (JAX lowers its vmapped lax.cond to both branches,
   masked: the same computation). multi_sequence_chunk runs it on a
-  static carry as one CUDA graph for any B, the keyframe event an IF
-  node on any lane's flag (scan_engine.
-  _StaticBatchedChunk); multi_sequence_engine's per-frame step is eager.
+  static carry as one CUDA graph for any B, launched once a chunk: the
+  frames a WHILE node, the keyframe event an IF node on any lane's flag
+  inside it (scan_engine._StaticBatchedChunk); multi_sequence_engine's
+  per-frame step is eager.
 - lanes over devices (multi_sequence_shard_chunk, the JAX shard_map): a
   mesh is a tuple of torch.devices; shard_batch splits the lanes evenly
   into one batched carry a device, and each device's lanes run the lane
@@ -204,7 +205,8 @@ def _vmapped_frame_body(cfg: SlamConfig, cam: StereoCamera):
     return make_batched_frame_body(cfg, cam)
 
 
-def _lane_chunk_body(cfg: SlamConfig, cam: StereoCamera, graphs: bool):
+def _lane_chunk_body(cfg: SlamConfig, cam: StereoCamera, graphs: bool,
+                     capacity=None):
     """One lane's chunk: (carry, b, images (C, 2, H, W)) -> packed (C, 36)
     on lane b of the batched carry, through the single-sequence chunk
     (scan_engine.make_chunk_fn, one a lane: its keyframe event runs only
@@ -215,7 +217,7 @@ def _lane_chunk_body(cfg: SlamConfig, cam: StereoCamera, graphs: bool):
 
     def run(carry: ChunkCarry, b: int, images: torch.Tensor):
         if b not in chunks:
-            chunks[b] = make_chunk_fn(cfg, cam, graphs)
+            chunks[b] = make_chunk_fn(cfg, cam, graphs, capacity)
         c, packed = chunks[b](lane(carry, b), images)
         write_lane(carry.m, b, c.m)
         for f in ChunkCarry._fields:
@@ -228,8 +230,9 @@ def _lane_chunk_body(cfg: SlamConfig, cam: StereoCamera, graphs: bool):
     return run
 
 
-def _lane_chunk(cfg: SlamConfig, cam: StereoCamera, graphs: bool):
-    run = _lane_chunk_body(cfg, cam, graphs)
+def _lane_chunk(cfg: SlamConfig, cam: StereoCamera, graphs: bool,
+                capacity=None):
+    run = _lane_chunk_body(cfg, cam, graphs, capacity)
 
     def chunk(carry: ChunkCarry, images: torch.Tensor):
         packed = [run(carry, b, images[:, b])
@@ -241,28 +244,32 @@ def _lane_chunk(cfg: SlamConfig, cam: StereoCamera, graphs: bool):
 
 
 def multi_sequence_lane_chunk(cfg: SlamConfig, cam: StereoCamera,
-                              graphs: bool = True):
+                              graphs: bool = True, capacity=None):
     """Lanes in turn: chunk(carry, images (C, B, 2, H, W)) -> (carry,
     packed (C, B, 36)). Each lane runs its C frames through the
     single-sequence chunk before the next lane starts, so a lane pays the
-    keyframe event only on its own keyframes. graphs as
-    scan_engine.make_chunk_fn's (one CUDA graph a lane)."""
-    return full_float32()(_lane_chunk(cfg, cam, graphs))
+    keyframe event only on its own keyframes. graphs and capacity as
+    scan_engine.make_chunk_fn's (one CUDA graph a lane, launched once a
+    lane a chunk; at most `capacity` frames a chunk)."""
+    return full_float32()(_lane_chunk(cfg, cam, graphs, capacity))
 
 
 def multi_sequence_chunk(cfg: SlamConfig, cam: StereoCamera,
-                         graphs: bool = True):
+                         graphs: bool = True, capacity=None):
     """Batched lanes: chunk(carry, images (C, B, 2, H, W)) -> (carry,
     packed (C, B, 36)), C steps of the batched frame body (one launch of
     each batched kernel a frame for all B lanes, the keyframe event's on
     a frame where any lane is flagged), for every tracker.method; a
     photometric one needs the carry's anchor (ValueError otherwise).
     graphs=True: the steps on a static batched carry, one CUDA graph on
-    a CUDA device for any B (scan_engine._StaticBatchedChunk);
-    graphs=False: the batched frame body eagerly. The carry returned is
-    overwritten by the next call, as JAX's donated carry is."""
+    a CUDA device for any B, launched once a chunk of at most `capacity`
+    frames (None: as many as the longest chunk yet, captured again when
+    a longer one comes; scan_engine._StaticBatchedChunk); graphs=False:
+    the batched frame body eagerly.
+    The carry returned is overwritten by the next call, as JAX's donated
+    carry is."""
     if graphs:
-        return _StaticBatchedChunk(cfg, cam)
+        return _StaticBatchedChunk(cfg, cam, capacity)
     return _eager_chunk(_vmapped_frame_body(cfg, cam))
 
 

@@ -16,13 +16,15 @@ The JAX package runs a chunk as one jitted lax.scan with the keyframe
 branch under lax.cond (make_chunk_fn). Here the step is split at the
 keyframe flag into two halves, tracking and the keyframe event.
 make_chunk_fn runs them on a static carry, captured once on a CUDA
-device as one CUDA graph a frame whose keyframe event is an IF node on
-the device flag (utils/cuda_graphs.run_if), replayed every frame with
-no host read (eagerly on the CPU, the flag read on the host);
-make_frame_body runs them eagerly on a carry rebuilt every frame, the
-branch a host `if` on the flag. A chunk's frames go up through pinned
-memory without waiting, and its packed result rows are read back once,
-when the chunk is folded.
+device as one CUDA graph a chunk: a WHILE node over the frames (the
+frame index, the chunk's images and its packed rows on the device,
+utils/cuda_graphs.run_while) whose body tracks, then runs the keyframe
+event under an IF node on the device flag (run_if); one graph launch a
+chunk, no host read inside it (eagerly on the CPU, the flags read on
+the host). make_frame_body runs the halves eagerly on a carry rebuilt
+every frame, the branch a host `if` on the flag. A chunk's frames go up
+through pinned memory without waiting, and its packed result rows are
+read back once, when the chunk is folded.
 
 ChunkedSlamEngine keeps up to queue_depth chunks run and not yet folded
 (the JAX engine's in-flight queue, SLAM_QUEUE_DEPTH; 0 by default here):
@@ -82,7 +84,8 @@ from slam_toolkit_tpu_torch.optim import direct_lm
 from slam_toolkit_tpu_torch.optim.direct_lm import DirectState
 from slam_toolkit_tpu_torch.pipeline.engine import (BOW_ROWS, SlamEngine,
                                                     full_float32, store_map)
-from slam_toolkit_tpu_torch.utils.cuda_graphs import StepGraphs, run_if
+from slam_toolkit_tpu_torch.utils.cuda_graphs import (StepGraphs, run_if,
+                                                      run_while)
 from slam_toolkit_tpu_torch.utils.device import upload
 from slam_toolkit_tpu_torch.utils.lanes import lane
 
@@ -486,12 +489,17 @@ def load_carry(static: ChunkCarry, carry: ChunkCarry) -> None:
 
 
 class _StaticChunk:
-    """make_chunk_fn's chunk: the frame step on a static carry.
+    """make_chunk_fn's chunk: lax.scan of the frame step on a static carry.
 
     The carry lives in buffers bound on the first call (static_copy) and
-    written in place, with `copy_`, by every step; images pass through
-    two static (H, W) buffers. A frame is make_frame_body's two halves,
-    each followed by the writes into the static carry:
+    written in place, with `copy_`, by every step. So do the chunk's
+    inputs and outputs: a (capacity, 2, H, W) images buffer ((capacity,
+    2, B, H, W) for lanes), a (capacity, 36) rows buffer ((capacity, B,
+    36)), and 0-dim device tensors for the frame index `i`, the chunk's
+    length `n` and the loop's flag `go`. A frame (_scan_step) takes frame
+    i's pair into the (H, W) buffers `left` and `right`, runs
+    make_frame_body's two halves, each followed by the writes into the
+    static carry:
 
     - tracking: extraction, the configured tracker, the keyframe rule,
       velocity, peak and (a, b); the frame id advanced on the device; the
@@ -500,34 +508,65 @@ class _StaticChunk:
       body's lax.cond(needs, kf_branch, no_branch)): keyframe_event, the
       new anchor (its image copied in, and "hybrid"'s pattern
       intensities), the snapshot, the slot and pose, and the packed row
-      again.
+      again;
 
-    On a CUDA device the frame is captured once, at the first call (after
-    a warm-up on a throwaway copy of the carry that runs the keyframe
-    event too), as one graph whose keyframe event is an IF node, and
-    replayed once a frame: no host read between a chunk's first and last
-    frame. On the CPU the same frame runs eagerly, as the graph's plain
-    version (the flag read on the host). Either way every row equals
-    make_frame_body's bit for bit. The carry returned is the static one;
-    the caller may change it or hand another, which the next call copies
-    in (load_carry)."""
+    then stores the row at i, advances i and sets go to i < n. The chunk
+    (_chunk_program) sets i to 0 and go to 0 < n and runs the frames
+    under run_while on go (the JAX chunk's lax.scan).
 
-    def __init__(self, cfg: SlamConfig, cam: StereoCamera):
+    On a CUDA device the chunk is captured once, at the first call
+    (after a warm-up on a throwaway copy of the carry that runs one
+    frame, its keyframe event too), as one graph "chunk" whose frames
+    are a WHILE node and whose keyframe event is an IF node inside it,
+    and launched once a chunk: no host read between a chunk's first and
+    last frame. On the CPU the same program runs eagerly, as the graph's
+    plain version (the flags read on the host). Either way every row
+    equals make_frame_body's bit for bit. A chunk holds at most
+    `capacity` frames; with capacity None the buffers grow to the
+    longest chunk yet (on a card the graph is then captured again). The
+    carry returned is the static one; the caller may change it or hand
+    another, which the next call copies in (load_carry). The rows
+    returned are the caller's."""
+
+    def __init__(self, cfg: SlamConfig, cam: StereoCamera,
+                 capacity: Optional[int] = None):
+        if capacity is not None and capacity < 1:
+            raise ValueError(f"chunk capacity {capacity} < 1")
         self.cfg, self.cam = cfg, cam
-        self.track, self.keyframe = _frame_tracker(cfg, cam)
+        self.capacity, self.grows = capacity or 0, capacity is None
+        self.track, self.keyframe = self._halves(cfg, cam)
         self.photometric = cfg.tracker.method != "indirect"
         self.static: Optional[ChunkCarry] = None
         self.graphs: Optional[StepGraphs] = None
 
-    def _bind(self, carry: ChunkCarry, frame: torch.Tensor) -> None:
-        """Static buffers for `carry`, and for images shaped as `frame`'s
-        left image ((H, W), or (B, H, W) for lanes)."""
+    @staticmethod
+    def _halves(cfg: SlamConfig, cam: StereoCamera):
+        return _frame_tracker(cfg, cam)
+
+    def _bind(self, carry: ChunkCarry, images: torch.Tensor) -> None:
+        """Static buffers for `carry`, and for chunks shaped as `images`
+        ((C, 2, H, W), or (C, B, 2, H, W) for lanes) of at most
+        `capacity` frames."""
         self.static = static_copy(carry)
-        self.left = torch.empty_like(frame, dtype=torch.float32,
-                                     memory_format=torch.contiguous_format)
-        self.right = torch.empty_like(self.left)
-        self.row = self.left.new_empty(frame.shape[:-2] + (PACK_WIDTH,))
-        self.fid = torch.empty((), dtype=torch.int32, device=frame.device)
+        pair = (2,) + tuple(images.shape[1:-3]) + tuple(images.shape[-2:])
+        # frame i's pair: index_select writes the left and right buffers
+        self.pair = images.new_empty((1,) + pair, dtype=torch.float32)
+        self.left, self.right = self.pair[0, 0], self.pair[0, 1]
+        self.row = self.left.new_empty(pair[1:-2] + (PACK_WIDTH,))
+        self._chunk_buffers(images.shape[0] if self.grows
+                            else self.capacity)
+        dev = images.device
+        self.fid = torch.empty((), dtype=torch.int32, device=dev)
+        self.i = torch.zeros((), dtype=torch.int64, device=dev)
+        self.n = torch.zeros((), dtype=torch.int64, device=dev)
+        self.go = torch.zeros((), dtype=torch.bool, device=dev)
+
+    def _chunk_buffers(self, capacity: int) -> None:
+        """The images and rows buffers for chunks of `capacity` frames; a
+        graph captured on the old ones is dropped."""
+        self.capacity, self.graphs = capacity, None
+        self.images = self.pair.new_empty((capacity,) + self.pair.shape[1:])
+        self.rows = self.row.new_empty((capacity,) + self.row.shape)
 
     def _flag(self, t: Tracked) -> torch.Tensor:
         """The keyframe event's flag, on the device."""
@@ -567,51 +606,73 @@ class _StaticChunk:
         t = self._track_step(S)
         run_if(self._flag(t), self._keyframe_step, S, t, name="keyframe")
 
+    def _scan_step(self, S: ChunkCarry) -> None:
+        """The WHILE body: frame i of the images buffer, its row stored at
+        i, then i advanced and go = i < n, all on the device."""
+        torch.index_select(self.images, 0, self.i, out=self.pair)
+        self._frame_step(S)
+        self.rows.index_copy_(0, self.i, self.row[None])
+        self.i.add_(1)
+        torch.lt(self.i, self.n, out=self.go)
+
+    def _chunk_program(self, S: ChunkCarry) -> None:
+        """The chunk: frames 0 to n - 1 (the JAX chunk's lax.scan)."""
+        self.i.zero_()
+        torch.gt(self.n, 0, out=self.go)
+        run_while(self.go, self._scan_step, S, name="frame")
+
     def _capture(self) -> None:
         g = StepGraphs(self.left.device)
-        g.warm_up(self._frame_step, static_copy(self.static))
-        g.capture("frame", self._frame_step, self.static)
+        g.warm_up(self._chunk_program, static_copy(self.static))
+        g.capture("chunk", self._chunk_program, self.static)
         self.graphs = g
 
     def graph_stats(self) -> Optional[dict]:
-        """Captures, capture seconds, pool bytes and set-up launches; None
-        where nothing was captured (the CPU)."""
+        """Captures, capture seconds, pool bytes, set-up launches, graph
+        launches and the WHILE and IF bodies' runs; None where nothing
+        was captured (the CPU)."""
         return None if self.graphs is None else self.graphs.stats()
 
     @full_float32()
     def __call__(self, carry: ChunkCarry, images: torch.Tensor):
-        """images (C, 2, H, W), or (C, B, 2, H, W) for lanes -> (the
-        static carry, packed (C, 36) or (C, B, 36))."""
+        """images (C, 2, H, W), or (C, B, 2, H, W) for lanes, C at most
+        the capacity -> (the static carry, packed (C, 36) or (C, B, 36))."""
         if self.static is None:
-            self._bind(carry, images[0].select(-3, 0))
+            self._bind(carry, images)
         elif carry is not self.static:
             load_carry(self.static, carry)
-        S = self.static
-        rows = self.row.new_empty((images.shape[0],) + tuple(self.row.shape))
-        for i in range(images.shape[0]):
-            self.left.copy_(images[i].select(-3, 0))
-            self.right.copy_(images[i].select(-3, 1))
-            if images.is_cuda and self.graphs is None:
-                self._capture()
-            if self.graphs is None:
-                self._frame_step(S)
-            else:
-                self.graphs.replay("frame")
-            rows[i].copy_(self.row)
-        return S, rows
+        C = images.shape[0]
+        if C > self.capacity and self.grows:
+            self._chunk_buffers(C)
+        elif C > self.capacity:
+            raise ValueError(f"a chunk of {C} frames; this chunk function "
+                             f"holds at most {self.capacity}")
+        self.images[:C].copy_(images.movedim(-3, 1))
+        self.n.fill_(C)
+        if images.is_cuda and self.graphs is None:
+            self._capture()
+        if self.graphs is None:
+            self._chunk_program(self.static)
+        else:
+            self.graphs.replay("chunk")
+        return self.static, self.rows[:C].clone()
 
 
-def make_chunk_fn(cfg: SlamConfig, cam: StereoCamera, graphs: bool = True):
+def make_chunk_fn(cfg: SlamConfig, cam: StereoCamera, graphs: bool = True,
+                  capacity: Optional[int] = None):
     """chunk(carry, images (C, 2, H, W)) -> (carry, packed (C, 36)), the
     JAX make_chunk_fn (a jitted lax.scan of make_frame_body with a donated
-    carry). graphs=True: the step on a static carry (_StaticChunk), CUDA
-    graphs on a CUDA device; the carry handed in is copied into the
-    static buffers unless it is the one the last call returned, and that
-    one is overwritten by the next call, as JAX's donated carry is.
-    graphs=False: make_frame_body frame by frame, eagerly (the JAX engine
-    under jax.disable_jit()), for comparisons."""
+    carry). graphs=True: the scan on a static carry (_StaticChunk), one
+    CUDA graph launch a chunk on a CUDA device, for chunks of at most
+    `capacity` frames (None: as many as the longest chunk yet, captured
+    again when a longer one comes); the carry handed
+    in is copied into the static buffers unless it is the one the last
+    call returned, and that one is overwritten by the next call, as JAX's
+    donated carry is. graphs=False: make_frame_body frame by frame,
+    eagerly (the JAX engine under jax.disable_jit()), for comparisons,
+    any length."""
     if graphs:
-        return _StaticChunk(cfg, cam)
+        return _StaticChunk(cfg, cam, capacity)
     return _eager_chunk(make_frame_body(cfg, cam))
 
 
@@ -630,21 +691,18 @@ def _eager_chunk(body):
 
 class _StaticBatchedChunk(_StaticChunk):
     """mesh.multi_sequence_chunk's chunk: make_batched_frame_body's halves
-    on a static batched carry. Tracking runs over all B lanes (images
-    through static (B, H, W) buffers) with the configured tracker and
-    packs every lane's row as a frame that is no keyframe; where any of
-    the B flags is set (computed on the device: the IF node's flag), the
-    keyframe event runs once over all lanes with the flags as its lane
-    mask (the flagged lanes' maps, snapshots, slots, poses, anchors and
-    rows). One graph for any B, captured once."""
+    on a static batched carry, scanned as _StaticChunk's. Tracking runs
+    over all B lanes (images through static (B, H, W) buffers) with the
+    configured tracker and packs every lane's row as a frame that is no
+    keyframe; where any of the B flags is set (computed on the device:
+    the IF node's flag), the keyframe event runs once over all lanes with
+    the flags as its lane mask (the flagged lanes' maps, snapshots,
+    slots, poses, anchors and rows). One graph for any B, captured once
+    and launched once a chunk."""
 
-    def __init__(self, cfg: SlamConfig, cam: StereoCamera):
-        self.cfg, self.cam = cfg, cam
-        self.track = _batched_tracker(cfg, cam)
-        self.keyframe = _batched_keyframe(cfg, cam)
-        self.photometric = cfg.tracker.method != "indirect"
-        self.static = None
-        self.graphs = None
+    @staticmethod
+    def _halves(cfg: SlamConfig, cam: StereoCamera):
+        return _batched_tracker(cfg, cam), _batched_keyframe(cfg, cam)
 
     def _flag(self, t: Tracked) -> torch.Tensor:
         """Any lane flagged, on the device."""
@@ -890,16 +948,16 @@ class ChunkedSlamEngine:
     already on `device`) defaults to the one cfg.camera describes;
     `vocab` (a loop.vocab.Vocabulary) turns on loop closing and
     relocalization. Chunks run through make_chunk_fn: with graphs=True
-    (the default) the step on a static carry, replayed as two CUDA
-    graphs on a CUDA device, captured at the first chunk and never
-    again, and the loop programs on static buffers
+    (the default) the scan on a static carry, one CUDA graph launch a
+    chunk on a CUDA device (captured at the first chunk and never
+    again), and the loop programs on static buffers
     (pipeline/engine._LoopPrograms), replayed as CUDA graphs captured
     right after the first chunk, before any mapping job: for the static
     carry's map and, with the mapping worker, its two published copies.
     Every change the host makes to the carry (a cull, a closure, a
     relocalization) is copied into the static carry, so those maps keep
     their addresses. A chunk then has at most chunk_size frames (the
-    bootstrap frame aside). graphs=False runs make_frame_body and the
+    bootstrap frame aside; more raise ValueError). graphs=False runs make_frame_body and the
     loop programs eagerly (the same rows, events and map bit for bit),
     for comparisons.
 
@@ -946,7 +1004,8 @@ class ChunkedSlamEngine:
             raise ValueError(f"queue_depth {self.queue_depth} < 0")
         self.loop_thread = vocab is not None and \
             _knob(loop_thread, "SLAM_LOOP_THREAD", "0") == "1"
-        self._chunk = make_chunk_fn(self.cfg, self.cam, graphs)
+        self._chunk = make_chunk_fn(self.cfg, self.cam, graphs,
+                                    capacity=chunk_size)
         self.carry: Optional[ChunkCarry] = None
         self.n_keyframes = 0          # keyframes inserted, culled ones too
         self.n_culls = 0
@@ -1175,6 +1234,8 @@ class ChunkedSlamEngine:
             packed = host
         self._pending.append({"packed": packed, "ready": ready, "t0": t0,
                               "n": len(imgs), "sc": sc,
+                              # the caller's image: the chunk's static
+                              # images buffer is the next chunk's
                               "last_img": imgs[-1]})
 
     def _prepare_loop_graphs(self) -> None:

@@ -894,10 +894,14 @@ def dp_record(cfg, lanes: int = 4, mode: str = "lane", n_frames: int = 160,
     for i, c in enumerate(chunks[:WARMUP_CHUNKS]):
         if device.type == "cuda" and i == WARMUP_CHUNKS - 1:
             # the first DP_PROFILED frames of the last warm-up chunk under
-            # the profiler (it slows the host several times over)
-            (carry, packed), act = device_activity(step, carry,
-                                                   c[:DP_PROFILED])
-            packs.append(packed)
+            # the profiler (it slows the host several times over), a call
+            # a frame: it records one iteration of a WHILE body a launch
+            def frame_by_frame(carry):
+                for k in range(DP_PROFILED):
+                    carry, packed = step(carry, c[k:k + 1])
+                    packs.append(packed)
+                return carry
+            carry, act = device_activity(frame_by_frame, carry)
             c = c[DP_PROFILED:]
         carry, packed = step(carry, c)
         packs.append(packed)

@@ -38,9 +38,21 @@ executions; its kernels' launches are counted per execution when a count
 is read (utils/cuda_lib.settle), and its capture's are taken back. A
 warm-up runs every body whatever its flag holds.
 
+run_while is the JAX programs' lax.while_loop(cond, body) over state
+written in place, and with it lax.scan over a chunk's frames (the frame
+index a device counter the body advances, the inputs indexed by it and
+the outputs written at it, pipeline/scan_engine._StaticChunk). Inside a
+capture it is a CUDA-graph WHILE node (csrc/graph_cond.cu: the kernel
+that sets the node's condition from the flag before the node, and again
+as the body's last node), its body captured as an IF body is; a replay
+then runs every iteration with no host call between them. A body's
+execution count is its iterations. A body may hold IF nodes (the chunk's
+keyframe event), up to MAX_DEPTH deep. Its plain version reads the flag
+on the host before each iteration; a warm-up runs the body once.
+
 A failed capture or replay raises, as does a refused conditional node
-(CUDA before 12.4); nothing falls back to eager launches or to a flag
-read on the host.
+(CUDA before 12.4); nothing falls back to eager launches, to a replay an
+iteration or to a flag read on the host.
 """
 
 from __future__ import annotations
@@ -60,10 +72,11 @@ import torch
 from slam_toolkit_tpu_torch.utils import cuda_lib
 
 _LOCAL = threading.local()   # .capturing: the StepGraphs capturing, .warming
-MAX_BODIES = 64              # IF nodes in one graph
-MAX_DEPTH = 4                # IF nodes nested in IF nodes
+MAX_BODIES = 64              # conditional nodes in one graph
+MAX_DEPTH = 4                # conditional nodes nested in their bodies
 _RUNS_LOCK = threading.Lock()
-# plain-version executions of run_if's bodies, by name (callers reset it)
+# plain-version executions of run_if's and run_while's bodies, by name
+# (callers reset it)
 plain_runs: collections.Counter = collections.Counter()
 
 
@@ -76,10 +89,16 @@ def taken(pred: torch.Tensor) -> bool:
 @functools.lru_cache(maxsize=None)
 def _entries() -> dict:
     """The library's slam_if_begin(flag, body stream, stream),
-    slam_if_end(body stream) and slam_stream_create(&stream)."""
+    slam_if_end(body stream), slam_while_begin(flag, body stream, stream,
+    &handle), slam_while_end(flag, handle, body stream) and
+    slam_stream_create(&stream)."""
     lib = cuda_lib.library().cdll
     args = {"slam_if_begin": [cuda_lib.PTR] * 3,
             "slam_if_end": [cuda_lib.PTR],
+            "slam_while_begin": [cuda_lib.PTR] * 3 + [
+                ctypes.POINTER(ctypes.c_ulonglong)],
+            "slam_while_end": [cuda_lib.PTR, ctypes.c_ulonglong,
+                               cuda_lib.PTR],
             "slam_stream_create": [ctypes.POINTER(ctypes.c_void_p)]}
     out = {}
     for name, types in args.items():
@@ -90,10 +109,10 @@ def _entries() -> dict:
 
 
 def _body_streams(device: torch.device) -> list:
-    """This thread's streams on `device` for IF bodies, one a nesting
-    depth (MAX_DEPTH): streams of their own, as one of torch's pool may
-    be the very stream that captures; made once, before a capture (a
-    thread captures one graph at a time)."""
+    """This thread's streams on `device` for conditional bodies, one a
+    nesting depth (MAX_DEPTH): streams of their own, as one of torch's
+    pool may be the very stream that captures; made once, before a
+    capture (a thread captures one graph at a time)."""
     made = _LOCAL.__dict__.setdefault("streams", {})
     if device not in made:
         create = _entries()["slam_stream_create"]
@@ -138,8 +157,9 @@ def _release(holds) -> None:
 
 @contextlib.contextmanager
 def warming():
-    """A warm-up: every run_if body inside runs whatever its flag holds
-    (its first-call constants and handles made outside any capture)."""
+    """A warm-up: every run_if body inside runs whatever its flag holds,
+    and every run_while body once (its first-call constants and handles
+    made outside any capture)."""
     prev = getattr(_LOCAL, "warming", False)
     _LOCAL.warming = True
     try:
@@ -168,6 +188,38 @@ def run_if(pred: torch.Tensor, fn: Callable, *args, name: str = "if"
         fn(*args)
 
 
+def run_while(cond: torch.Tensor, fn: Callable, *args, name: str = "while"
+              ) -> None:
+    """fn(*args) for as long as the 0-dim bool tensor `cond` is set, as
+    lax.while_loop(cond, fn, state) for an fn that writes its results,
+    and the next value of `cond`, in place and returns nothing. Inside a
+    StepGraphs capture, a WHILE node on `cond` whose body is fn
+    (iterations counted under `name`); in a StepGraphs warm-up, fn once
+    whatever `cond` holds; otherwise the plain version: fn while `cond`,
+    read on the host before each iteration, is set (each iteration
+    counted in plain_runs[name]).
+
+    A graph launch runs all the iterations, so whatever the body draws
+    from torch's generator (its graph-safe offset advances once a
+    launch) would repeat every iteration: the bodies draw none (the
+    engine's RANSAC draws are utils/threefry hashes of device counts)."""
+    if not (torch.is_tensor(cond) and cond.dtype == torch.bool
+            and cond.dim() == 0):
+        raise ValueError(f"a WHILE node's flag is a 0-dim bool tensor, got "
+                         f"{getattr(cond, 'dtype', type(cond).__name__)} "
+                         f"{tuple(getattr(cond, 'shape', ()))}")
+    g = getattr(_LOCAL, "capturing", None)
+    if g is not None:
+        g._while_node(cond, fn, args, name)
+    elif getattr(_LOCAL, "warming", False):
+        fn(*args)
+    else:
+        while taken(cond):
+            with _RUNS_LOCK:
+                plain_runs[name] += 1
+            fn(*args)
+
+
 class StepGraphs:
     """Named CUDA graphs on one device, captured once on one shared memory
     pool (or, with shared_pool=False, a pool each) and replayed by name.
@@ -189,7 +241,9 @@ class StepGraphs:
         self._warm_s = 0.0
         self.setup_launches: Dict[str, int] = {}
         self.capture_threads: set = set()
-        # run_if bodies: (name, executions, flag, {LaunchCount: n})
+        self.replays: collections.Counter = collections.Counter()
+        # conditional bodies: (name, executions, flag, {LaunchCount: n},
+        # "if" or "while")
         self._bodies: List[tuple] = []
         # a memory pool for each nesting depth of bodies, held (its
         # begins counted) until this object is gone
@@ -280,31 +334,50 @@ class StepGraphs:
 
     def _if_node(self, pred: torch.Tensor, fn: Callable, args,
                  name: str) -> None:
-        """run_if inside a capture: an IF node on `pred` (csrc/
-        graph_cond.cu), fn captured into its body on a stream of this
-        nesting depth, its allocations routed to a pool of that depth,
-        with one add to the body's execution count; the body's launches
-        kept apart (cuda_lib.defer after the capture). The count is a slot
-        of a buffer allocated before the capture."""
+        self._node("if", pred, fn, args, name)
+
+    def _while_node(self, cond: torch.Tensor, fn: Callable, args,
+                    name: str) -> None:
+        self._node("while", cond, fn, args, name)
+
+    def _node(self, kind: str, pred: torch.Tensor, fn: Callable, args,
+              name: str) -> None:
+        """run_if ("if") or run_while ("while") inside a capture: an IF or
+        WHILE node on `pred` (csrc/graph_cond.cu), fn captured into its
+        body on a stream of this nesting depth, its allocations routed to
+        a pool of that depth, with one add to the body's execution count
+        (an iteration's, for a WHILE node); the body's launches kept
+        apart (cuda_lib.defer after the capture). The count is a slot of
+        a buffer allocated before the capture."""
+        what = kind.upper()
         if not (pred.is_cuda and pred.dtype == torch.bool
                 and pred.numel() == 1):
-            raise ValueError(f"an IF node's flag is a one-element bool "
+            raise ValueError(f"an {what} node's flag is a one-element bool "
                              f"CUDA tensor, got {pred.dtype} "
                              f"{tuple(pred.shape)} on {pred.device}")
         lib, d = _entries(), self._depth
         if d == MAX_DEPTH:
-            raise RuntimeError(f"IF nodes nested deeper than {MAX_DEPTH}")
+            raise RuntimeError(f"conditional nodes nested deeper than "
+                               f"{MAX_DEPTH}")
         if d == len(self._body_pools):
             self._body_pools.append(torch.cuda.graph_pool_handle())
             self._pools.append(self._body_pools[d])
         body, pool = self._streams[d], self._body_pools[d]
         if self._n_runs == MAX_BODIES:
-            raise RuntimeError(f"more than {MAX_BODIES} IF nodes in a graph")
+            raise RuntimeError(f"more than {MAX_BODIES} conditional nodes "
+                               "in a graph")
         runs = self._runs[self._n_runs]        # a slot of its own
         self._n_runs += 1
         stream = torch.cuda.current_stream(self.device)
-        _check(lib["slam_if_begin"](pred.data_ptr(), body.cuda_stream,
-                                    stream.cuda_stream), "slam_if_begin")
+        handle = ctypes.c_ulonglong()
+        if kind == "if":
+            err = lib["slam_if_begin"](pred.data_ptr(), body.cuda_stream,
+                                       stream.cuda_stream)
+        else:
+            err = lib["slam_while_begin"](pred.data_ptr(), body.cuda_stream,
+                                          stream.cuda_stream,
+                                          ctypes.byref(handle))
+        _check(err, f"slam_{kind}_begin")
         self._depth += 1
         try:
             with torch.cuda.stream(body), _allocating_to(self, pool):
@@ -313,30 +386,36 @@ class StepGraphs:
                 runs.add_(1)
         finally:
             self._depth -= 1
-            err = lib["slam_if_end"](body.cuda_stream)
-        _check(err, "slam_if_end")
+            if kind == "if":
+                err = lib["slam_if_end"](body.cuda_stream)
+            else:                  # the flag's kernel: the body's last node
+                err = lib["slam_while_end"](pred.data_ptr(), handle.value,
+                                            body.cuda_stream)
+        _check(err, f"slam_{kind}_end")
         # the flag lives as long as the graph
-        self._bodies.append((name, runs, pred, dict(delta)))
+        self._bodies.append((name, runs, pred, dict(delta), kind))
 
     def replay(self, name: str) -> None:
         graph, delta, bodies = self._graphs[name]
         graph.replay()
+        self.replays[name] += 1
         for c, n in delta.items():
             c.add(n)
         if bodies:
             cuda_lib.mark_unsettled(self)
 
-    def executions(self) -> Dict[str, int]:
+    def executions(self) -> Dict[str, Dict[str, int]]:
         """Executions of the graphs' conditional bodies since their
-        capture, by run_if name (bodies of one name summed): one
-        synchronise and one readback."""
+        capture (a WHILE body's iterations), by kind ("if", "while") and
+        name (bodies of one name summed): one synchronise and one
+        readback."""
+        out: Dict[str, Dict[str, int]] = {"if": {}, "while": {}}
         if not self._bodies:
-            return {}
+            return out
         torch.cuda.synchronize(self.device)
         got = torch.stack([b[1] for b in self._bodies]).tolist()
-        out: Dict[str, int] = {}
         for b, n in zip(self._bodies, got):
-            out[b[0]] = out.get(b[0], 0) + n
+            out[b[4]][b[0]] = out[b[4]].get(b[0], 0) + n
         return out
 
     def pool_bytes(self, names=None) -> Optional[int]:
@@ -355,37 +434,42 @@ class StepGraphs:
 
     def stats(self) -> dict:
         """Captures, capture seconds, pool bytes, set-up launches,
-        capturing threads, and IF nodes ("if_nodes") with their bodies'
-        executions by name ("if_runs")."""
+        capturing threads, graph launches by graph name ("replays"), IF
+        nodes ("if_nodes") with their bodies' executions by name
+        ("if_runs"), and WHILE nodes ("while_nodes") with their bodies'
+        iterations by name ("while_runs")."""
+        runs = self.executions()
         return {"captures": self.captures, "capture_s": self.capture_s,
                 "pool_bytes": self.pool_bytes(),
                 "setup_launches": dict(self.setup_launches),
                 "capture_threads": sorted(self.capture_threads),
-                "if_nodes": len(self._bodies),
-                "if_runs": self.executions()}
+                "replays": dict(self.replays),
+                "if_nodes": sum(b[4] == "if" for b in self._bodies),
+                "if_runs": runs["if"],
+                "while_nodes": sum(b[4] == "while" for b in self._bodies),
+                "while_runs": runs["while"]}
 
 
 def merged_stats(graphs) -> Optional[dict]:
     """One stats dict over several StepGraphs (None entries and sets with
-    no capture left out): captures, seconds and pool bytes summed (None if
-    any is unknown), set-up launches and capturing threads merged; None
-    where nothing was captured."""
+    no capture left out): captures, seconds, pool bytes and nodes summed
+    (pool bytes None if any is unknown), set-up launches, replays, body
+    runs and capturing threads merged; None where nothing was
+    captured."""
     parts = [g.stats() for g in graphs if g is not None and g.captures]
     if not parts:
         return None
     pools = [p["pool_bytes"] for p in parts]
-    setup: Dict[str, int] = {}
-    runs: Dict[str, int] = {}
+    merged = {k: collections.Counter() for k in
+              ("setup_launches", "replays", "if_runs", "while_runs")}
     for p in parts:
-        for k, n in p["setup_launches"].items():
-            setup[k] = setup.get(k, 0) + n
-        for k, n in p["if_runs"].items():
-            runs[k] = runs.get(k, 0) + n
+        for k, c in merged.items():
+            c.update(p[k])
     return {"captures": sum(p["captures"] for p in parts),
             "capture_s": sum(p["capture_s"] for p in parts),
             "pool_bytes": None if None in pools else sum(pools),
-            "setup_launches": setup,
+            **{k: dict(c) for k, c in merged.items()},
             "capture_threads": sorted({t for p in parts
                                        for t in p["capture_threads"]}),
             "if_nodes": sum(p["if_nodes"] for p in parts),
-            "if_runs": runs}
+            "while_nodes": sum(p["while_nodes"] for p in parts)}

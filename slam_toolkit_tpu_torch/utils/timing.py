@@ -7,6 +7,8 @@ for the card (torch.cuda.synchronize on every device its result's
 tensors live on), so a stage's wall-clock time includes its queued
 device work; device_trace records a torch.profiler trace of a block. StreamStages
 times stages on any thread and stream without synchronising them.
+device_activity reads one block's kernels, busy share and host CUDA
+calls (graph launches among them) from torch.profiler.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import contextlib
 import os
 import threading
 import time
-from collections import defaultdict
+from collections import Counter, defaultdict
 from typing import Dict, List
 
 import torch
@@ -165,12 +167,32 @@ def count_syncs(fn, *args, **kw):
                     for w in seen)
 
 
+# the host's CUDA runtime calls that put work on the card or wait for it
+API_KINDS = (("graph launches", ("cudaGraphLaunch",)),
+             ("kernel launches", ("cudaLaunchKernel", "cuLaunchKernel",
+                                  "cudaLaunchCooperativeKernel")),
+             ("copies", ("cudaMemcpy", "cudaMemset", "cuMemcpy")),
+             ("syncs", ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                        "cudaEventSynchronize")))
+
+
+def api_kind(name: str):
+    """The API_KINDS kind of a host event's name, or None."""
+    for kind, prefixes in API_KINDS:
+        if name.startswith(prefixes):
+            return kind
+    return None
+
+
 def device_activity(fn, *args, **kw):
-    """(fn's result, {"kernels", "device_ms", "wall_ms", "busy"}): the
-    card's work in one torch.profiler pass over fn (kernels, copies and
-    fills), their summed device time, the host wall time of the pass
-    (ending in a synchronise) and the busy share device_ms / wall_ms.
-    The counts are None where the profiler saw no device activity."""
+    """(fn's result, {"kernels", "device_ms", "wall_ms", "busy",
+    "host_calls", "graph_launches"}): the card's work in one
+    torch.profiler pass over fn (kernels, copies and fills), their summed
+    device time, the host wall time of the pass (ending in a
+    synchronise), the busy share device_ms / wall_ms, and the host's CUDA
+    calls of API_KINDS in the pass (the final synchronise included), CUDA
+    graph launches among them. The device counts are None where the
+    profiler saw no device activity."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -179,11 +201,17 @@ def device_activity(fn, *args, **kw):
         out = fn(*args, **kw)
         torch.cuda.synchronize()
         wall = 1000.0 * (time.perf_counter() - t0)
-    dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev, api = [], Counter()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            dev.append(e)
+        else:
+            api[api_kind(e.name)] += 1
+    calls = {"host_calls": sum(n for k, n in api.items() if k),
+             "graph_launches": api["graph launches"]}
     if not dev:
         return out, {"kernels": None, "device_ms": None, "wall_ms": wall,
-                     "busy": None}
+                     "busy": None, **calls}
     busy = sum(e.time_range.elapsed_us() for e in dev) / 1000.0
     return out, {"kernels": len(dev), "device_ms": busy, "wall_ms": wall,
-                 "busy": busy / wall}
+                 "busy": busy / wall, **calls}

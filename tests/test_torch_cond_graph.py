@@ -1,7 +1,7 @@
 """The JAX programs' lax.cond as utils/cuda_graphs.run_if, on the CPU.
 
 On a card run_if is a CUDA-graph IF node inside a capture: the chunk's
-frame graph runs its keyframe event under one on the device flag, and
+graph runs each frame's keyframe event under one on the device flag, and
 the cluster step's skip gate and RANSAC rounds under one each. Off a
 capture it is its plain version, which reads the flag on the host; a
 warm-up runs every body. These tests hold the plain version and the

@@ -20,6 +20,22 @@ pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
 
 
+# seconds a test may take on the card, its kernels' first build included
+TIME_LIMIT_S = 300
+
+
+@pytest.fixture(autouse=True)
+def time_limit():
+    """A hard time limit on every test: a chunk's CUDA graph whose WHILE
+    flag went stale would loop on the card for ever, and the host would
+    wait on it in a synchronise that no signal interrupts. faulthandler's
+    watchdog thread prints every thread's stack and ends the process."""
+    import faulthandler
+    faulthandler.dump_traceback_later(TIME_LIMIT_S, exit=True)
+    yield
+    faulthandler.cancel_dump_traceback_later()
+
+
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
@@ -860,6 +876,158 @@ def test_graphed_chunks_match_eager(dev, method, monkeypatch):
     assert st["captures"] == 1 and st["if_nodes"] == 1
     assert st["if_runs"]["keyframe"] == int((g_rows[:, 34] > 0.5).sum())
     assert syncs == [0, 0, 0]
+
+
+def test_while_node_cuda(dev):
+    """run_while captured as a WHILE node: one graph launch runs the body
+    n times with no host call between (0 when the flag is false at
+    entry), an IF node inside the body runs on the iterations its flag
+    is set, the body's kernels' launches are counted once an iteration,
+    and the graph's launches and the bodies' runs are in its stats."""
+    from slam_toolkit_tpu_torch.utils import cuda_graphs, cuda_lib
+    i = torch.zeros((), dtype=torch.int64, device=dev)
+    n = torch.zeros((), dtype=torch.int64, device=dev)
+    go = torch.zeros((), dtype=torch.bool, device=dev)
+    odd = torch.zeros((), dtype=torch.bool, device=dev)
+    seen = torch.zeros(16, dtype=torch.int64, device=dev)
+    count = cuda_lib.LaunchCount()
+
+    def tick():
+        seen.index_add_(0, i.view(1), torch.full_like(i, 10).view(1))
+        count.add(1)
+
+    def body():
+        seen.index_add_(0, i.view(1), torch.ones_like(i).view(1))
+        count.add(1)
+        torch.eq(torch.remainder(i, 2), 1, out=odd)
+        cuda_graphs.run_if(odd, tick, name="odd")
+        i.add_(1)
+        torch.lt(i, n, out=go)
+
+    def program():
+        i.zero_()
+        torch.gt(n, 0, out=go)
+        cuda_graphs.run_while(go, body, name="loop")
+
+    g = cuda_graphs.StepGraphs(dev)
+    g.warm_up(program)
+    seen.zero_()
+    g.capture("loop", program)
+    total = 0
+    for k in (3, 0, 7):
+        n.fill_(k)
+        count.launches = 0
+        g.replay("loop")
+        torch.cuda.synchronize()
+        want = torch.zeros(16, dtype=torch.int64)
+        want[:k] += 1
+        want[1:k:2] += 10
+        assert torch.equal(seen.cpu(), want), k
+        assert count.launches == k + k // 2
+        seen.zero_()
+        total += k
+    st = g.stats()
+    assert st["replays"] == {"loop": 3} and st["captures"] == 1
+    assert st["while_nodes"] == 1 and st["if_nodes"] == 1
+    assert st["while_runs"] == {"loop": total}
+    assert st["if_runs"] == {"odd": 3 // 2 + 7 // 2}
+
+
+def _chunk_launches(before) -> dict:
+    from slam_toolkit_tpu_torch.utils import cuda_lib
+    return {c.symbol: c.launches - before.get(c, 0)
+            for c in cuda_lib.launch_counts()
+            if isinstance(c, cuda_lib.CudaKernel)}
+
+
+@pytest.mark.parametrize("method", ["indirect", "hybrid"])
+def test_graphed_scan_chunk_one_launch(dev, method, monkeypatch):
+    """The chunk as one graph on the card: ChunkedSlamEngine (capacity
+    chunk_size 4) over 15 frames in chunks of 4, 4, 4 and a short last 2
+    against the eager chunk: rows and map bit-equal, launches equal
+    kernel by kernel, one launch of graph "chunk" a chunk, the WHILE
+    body's iterations the frames, the keyframe IF body's runs the
+    keyframe rows, no host sync inside a chunk."""
+    import dataclasses
+
+    from slam_toolkit_tpu_torch.config import SlamConfig
+    from slam_toolkit_tpu_torch.pipeline.scan_engine import ChunkedSlamEngine
+    from slam_toolkit_tpu_torch.utils import cuda_lib
+    cfg = SlamConfig.tiny()
+    cfg = dataclasses.replace(
+        cfg, tracker=dataclasses.replace(cfg.tracker, method=method),
+        keyframe=dataclasses.replace(cfg.keyframe, decay_ratio=0.95))
+    imgs = _tiny_images(15)
+    bounds = ((0, 5), (5, 9), (9, 13), (13, 15))
+    syncs = _chunk_syncs(monkeypatch)
+    out = {}
+    for graphs in (False, True):
+        before = {c: c.launches for c in cuda_lib.launch_counts()}
+        eng = ChunkedSlamEngine(cfg, chunk_size=4, device=dev, graphs=graphs)
+        rows = [eng.process_chunk(imgs[a:b]) for a, b in bounds]
+        torch.cuda.synchronize()
+        out[graphs] = (eng, rows, _chunk_launches(before))
+    (e_eng, e_rows, e_l), (g_eng, g_rows, g_l) = out[False], out[True]
+    assert [len(r) for r in g_rows] == [4, 4, 4, 2]
+    for a, b in zip(g_rows, e_rows):
+        np.testing.assert_array_equal(a, b)
+    for f in e_eng.map._fields:
+        assert torch.equal(getattr(g_eng.map, f), getattr(e_eng.map, f)), f
+    assert g_l == e_l and e_l["slam_pose_lm"] == 14
+    rows = np.concatenate(g_rows)
+    st = g_eng._chunk.graph_stats()
+    assert st["captures"] == 1 and st["replays"] == {"chunk": 4}
+    assert st["while_nodes"] == 1 and st["if_nodes"] == 1
+    assert st["while_runs"] == {"frame": 14}
+    assert st["if_runs"] == {"keyframe": int((rows[:, 34] > 0.5).sum())}
+    assert syncs == [0, 0, 0]
+    with pytest.raises(ValueError, match="at most 4"):
+        g_eng._chunk(g_eng.carry, torch.from_numpy(imgs[:5]).to(dev))
+
+
+def test_graphed_scan_batched_one_launch(dev, monkeypatch):
+    """The batched chunk as one graph on the card, B = 2 lanes of
+    distinct sequences, capacity 5, chunks of 5, 5 and a short last 2:
+    rows and maps bit-equal to the eager batched step, launches equal,
+    one graph launch a chunk, the WHILE body's iterations the frames,
+    the keyframe IF body's runs the frames with a flagged lane, no host
+    sync inside a chunk."""
+    from slam_toolkit_tpu_torch.config import SlamConfig
+    from slam_toolkit_tpu_torch.geometry.camera import StereoCamera
+    from slam_toolkit_tpu_torch.parallel import mesh
+    from slam_toolkit_tpu_torch.utils import cuda_lib
+    cfg = SlamConfig.tiny()
+    cam = StereoCamera.from_config(cfg.camera, dev)
+    imgs = torch.from_numpy(np.stack([_tiny_images(13, seed=3 + b)
+                                      for b in range(2)], axis=1)).to(dev)
+    syncs = _chunk_syncs(monkeypatch)
+    out = {}
+    for graphs in (False, True):
+        before = {c: c.launches for c in cuda_lib.launch_counts()}
+        carry = mesh.batched_bootstrap(cfg, cam)(
+            mesh.batched_empty_map(cfg, 2, dev), imgs[0, :, 0],
+            imgs[0, :, 1])
+        chunk = mesh.multi_sequence_chunk(cfg, cam, graphs=graphs,
+                                          capacity=5)
+        rows = []
+        for a, b in ((1, 6), (6, 11), (11, 13)):
+            carry, p = chunk(carry, imgs[a:b])
+            rows.append(p)
+        torch.cuda.synchronize()
+        out[graphs] = (carry, torch.cat(rows).cpu().numpy(),
+                       _chunk_launches(before), chunk)
+    (c_e, r_e, l_e, _), (c_g, r_g, l_g, chunk) = out[False], out[True]
+    np.testing.assert_array_equal(r_g, r_e)
+    for f in c_e.m._fields:
+        assert torch.equal(getattr(c_g.m, f), getattr(c_e.m, f)), f
+    assert l_g == l_e and l_e["slam_pose_lm_batched"] == 12
+    n_any = int((r_e[..., 34] > 0.5).any(1).sum())
+    assert n_any >= 1
+    st = chunk.graph_stats()
+    assert st["captures"] == 1 and st["replays"] == {"chunk": 3}
+    assert st["while_runs"] == {"frame": 12}
+    assert st["if_runs"] == {"keyframe": n_any}
+    assert syncs == [0, 0]
 
 
 @pytest.mark.parametrize("method", ["indirect", "hybrid", "direct"])

@@ -1,9 +1,10 @@
 """The static-carry step that scan_engine.make_chunk_fn captures as CUDA
 graphs, on the CPU: against the eager step, bit for bit.
 
-On a CUDA device make_chunk_fn replays one CUDA graph a frame (tracking,
-then the keyframe event as an IF node on the device flag) over a static
-carry, and multi_sequence_chunk one for any number of lanes. On the CPU
+On a CUDA device make_chunk_fn launches one CUDA graph a chunk (its
+frames a WHILE node; each frame tracking, then the keyframe event as an
+IF node on the device flag) over a static carry, and
+multi_sequence_chunk one for any number of lanes. On the CPU
 the same functions run eagerly, as the graph's plain version: these
 tests hold them to make_frame_body and make_batched_frame_body (the
 eager steps, graphs=False) exactly, through
