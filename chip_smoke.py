@@ -170,9 +170,15 @@ Phases (any failure raises and the script exits non-zero):
    as 8-bit PNGs in KITTI layout (sequences/00/image_{0,1}, and
    poses/00.txt from the ground truth) under a temporary directory, then
    slam_toolkit_tpu_torch.run_kitti.main(["--root", ..., "--device",
-   "cuda", "--out", ...]) with --classic and chunked: 32 frames, a finite
-   ATE <= 0.138 m, a finite 32x12 poses file and stats.json (the plots
-   are written where matplotlib is installed).
+   "cuda", "--out", ...]) with --classic, chunked, and chunked with
+   --train-vocab: 32 frames, a finite ATE <= 0.138 m, a finite 32x12
+   poses file and stats.json (the plots are written where matplotlib is
+   installed). The vocabulary (vocab_phase): run_kitti.VocabExtract over
+   the sampled frames graphed (one CUDA graph, the default) and eager,
+   ms a frame of each printed, the corpora bit-equal, the CLI's
+   vocabulary equal to one trained on the eager corpus (nodes,
+   children, word ids, weights) and its extract's gather launches one a
+   sampled frame.
 12. The dense motion-clustering workload (cluster/) at 1241x376 with
    DenseConfig(max_points=18688), on make_cluster_scene's 60 frames:
    (a) the bench's run, tools/bench.cluster_record (BENCH_CLUSTER=1):
@@ -191,11 +197,18 @@ Phases (any failure raises and the script exits non-zero):
    on the CPU, to the JAX parity bars (validity, disparity within 1e-3
    px and the Sobel mask on >= 99.9% of pixels, flow within 1e-3 px on
    >= 99.9%, flow_p95 within 1e-3): the guard against TF32 filters.
-   (c) The stepwise tracker (DenseTracker) against the fused one on the
-   card over frames 0-7: labels equal. (d) The first 8 frames written as
-   KITTI PNGs, then slam_toolkit_tpu_torch.run_cluster.main([...,
-   "--device", "cuda", "--out", ...]): stats.json for 8 frames, at least
-   6 processed, one mask PNG a processed frame, clusters found.
+   (c) The stepwise tracker (DenseTracker, stepwise_phase) over the 60
+   frames graphed (its frame, track and round programs CUDA graphs, the
+   default) and eager (graphs=False): frames/s over frames 5-39, host
+   syncs over 40-59 (sync debug mode; graphed at most one a program run
+   there, the readbacks), captures and pool bytes; every result
+   (labels, skip flags, new-cluster counts, each cluster's slot, size
+   and T) equal between the two, and the labels equal the fused
+   tracker's. (d) The first 8 frames written as KITTI PNGs, then
+   slam_toolkit_tpu_torch.run_cluster.main([..., "--device", "cuda",
+   "--out", ...]): stats.json for 8 frames, at least 6 processed, one
+   mask PNG a processed frame, clusters found, its DenseTracker graphed
+   (a capture a program it ran, a replay a run).
 13. Multi-sequence lanes (parallel/mesh) at SlamConfig(): four distinct
    sequences of 33 frames (phase 3's straight track, and phase 10's
    clothoid from frames 0, 48 and 96), frame 0 bootstrapping every lane
@@ -1695,31 +1708,124 @@ def phase11(cfg, frames, gt, kernels: dict, label: str, main: dict) -> dict:
         stage_kitti(root, frames, gt, CLI_FRAMES)
         print(f"[phase11] {label} (c) wrote {CLI_FRAMES} stereo PNG pairs "
               f"in {time.perf_counter() - t0:.1f} s")
-        for mode in (["--classic"], []):
-            out = os.path.join(root, "out" + "".join(mode))
-            with contextlib.redirect_stdout(io.StringIO()) as printed:
-                stats = run_kitti.main(["--root", root, "--seq", "00",
-                                        "--device", "cuda", "--out", out]
-                                       + mode)
-            if json.loads(printed.getvalue()) != stats:
-                raise AssertionError(f"run_kitti printed "
-                                     f"{printed.getvalue()!r}")
-            poses = np.loadtxt(os.path.join(out, "00.txt"))
-            name = "classic" if mode else "chunked"
-            print(f"[phase11] {label} (c) run_kitti {name}: {stats}, poses "
-                  f"{poses.shape}, files {sorted(os.listdir(out))}")
-            if stats["frames"] != CLI_FRAMES or \
-                    poses.shape != (CLI_FRAMES, 12) or \
-                    not np.isfinite(poses).all() or \
-                    not stats["ate_rmse_m"] <= 0.138:
-                raise AssertionError(f"run_kitti {name}: {stats}, poses "
-                                     f"{poses.shape}")
+        # the chunked run with --train-vocab: its _get_vocab's vocabulary
+        # and gather launches kept
+        vocab_run, get_vocab = {}, run_kitti._get_vocab
+
+        def kept_vocab(*a):
+            g0 = kernels["patch_gather"].launches
+            vocab_run["voc"] = get_vocab(*a)
+            vocab_run["gathers"] = kernels["patch_gather"].launches - g0
+            return vocab_run["voc"]
+        run_kitti._get_vocab = kept_vocab
+        try:
+            for mode in (["--classic"], [], ["--train-vocab"]):
+                out = os.path.join(root, "out" + "".join(mode))
+                with contextlib.redirect_stdout(io.StringIO()) as printed:
+                    stats = run_kitti.main(["--root", root, "--seq", "00",
+                                            "--device", "cuda", "--out",
+                                            out] + mode)
+                if json.loads(printed.getvalue()) != stats:
+                    raise AssertionError(f"run_kitti printed "
+                                         f"{printed.getvalue()!r}")
+                poses = np.loadtxt(os.path.join(out, "00.txt"))
+                name = {"--classic": "classic",
+                        "--train-vocab": "chunked --train-vocab"}.get(
+                            "".join(mode), "chunked")
+                print(f"[phase11] {label} (c) run_kitti {name}: {stats}, "
+                      f"poses {poses.shape}, files "
+                      f"{sorted(os.listdir(out))}")
+                if stats["frames"] != CLI_FRAMES or \
+                        poses.shape != (CLI_FRAMES, 12) or \
+                        not np.isfinite(poses).all() or \
+                        not stats["ate_rmse_m"] <= 0.138:
+                    raise AssertionError(f"run_kitti {name}: {stats}, "
+                                         f"poses {poses.shape}")
+        finally:
+            run_kitti._get_vocab = get_vocab
+        vocab_phase(root, vocab_run, label)
     return launches
+
+
+def replay_ms(graphs, name: str, reps: int = 10) -> float:
+    """Device ms of one replay of graph `name`: CUDA events around `reps`
+    replays queued after a synchronise (counted as replays)."""
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(reps):
+        graphs.replay(name)
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def vocab_phase(root: str, vocab_run: dict, label: str) -> None:
+    """Phase 11 (c)'s vocabulary: run_kitti.VocabExtract over the sampled
+    frames graphed and eager (ms a frame, its first call apart), the
+    corpora bit-equal, and the CLI run's vocabulary equal to one trained
+    on the eager corpus, its gather launches one a sampled frame."""
+    from slam_toolkit_tpu_torch import run_kitti
+    from slam_toolkit_tpu_torch.data.kitti import KittiDataset
+    from slam_toolkit_tpu_torch.loop import vocab as V
+    ds = KittiDataset("00", root=root)
+    imgs = [ds[i][0] for i in run_kitti.vocab_frames(len(ds))]
+    ext_cfg = run_kitti._auto_config(imgs[0].shape).extractor
+    corpora = {}
+    for mode in ("graphed", "eager"):
+        ex = run_kitti.VocabExtract(ext_cfg, "cuda",
+                                    graphs=mode == "graphed")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        corpus = [ex(imgs[0])]
+        first_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        corpus += [ex(im) for im in imgs[1:]]
+        ms = 1000.0 * (time.perf_counter() - t0) / (len(imgs) - 1)
+        corpora[mode] = corpus
+        st = ex.graph_stats()
+        print(f"[phase11] {label} (c) vocabulary extract {mode}: "
+              f"{ms:.3f} ms a frame over sampled frames 1-{len(imgs) - 1} "
+              f"(image copied in, descriptors read back), the first "
+              f"{first_s:.3f} s"
+              + ("" if st is None else
+                 f"; a replay alone {replay_ms(ex.graphs, 'extract'):.3f} "
+                 f"ms (device); {graph_line(st)}"))
+        if mode == "graphed" and (st["captures"] != 1 or st["replays"] !=
+                                  {"extract": len(imgs)}):
+            raise AssertionError(f"vocabulary extract: {st}")
+    bad = [i for i, (a, b) in enumerate(zip(corpora["graphed"],
+                                            corpora["eager"]))
+           if not np.array_equal(a, b)]
+    if bad:
+        raise AssertionError(f"vocabulary extract: graphed and eager "
+                             f"descriptors part on sampled frames {bad}")
+    eager_voc = V.train(np.concatenate(corpora["eager"]), k=10, levels=3,
+                        seed=0)
+    cli_voc = vocab_run["voc"]
+    parts = [n for n, a, b in zip(("nodes", "children", "word_id",
+                                   "weights"), V.to_numpy(cli_voc),
+                                  V.to_numpy(eager_voc))
+             if not np.array_equal(a, b)]
+    print(f"[phase11] {label} (c) --train-vocab: {cli_voc.num_words} words "
+          f"from {len(imgs)} sampled frames ({sum(map(len, corpora['eager']))}"
+          f" descriptors), the CLI's vocabulary and the eager corpus's "
+          f"equal: {not parts}; gather launches in the CLI's extract "
+          f"{vocab_run['gathers']}")
+    if parts or (cli_voc.k, cli_voc.levels) != (eager_voc.k,
+                                                eager_voc.levels):
+        raise AssertionError(f"--train-vocab: the graphed vocabulary parts "
+                             f"from the eager one in {parts}")
+    if vocab_run["gathers"] != len(imgs):
+        raise AssertionError(f"--train-vocab: {vocab_run['gathers']} gather "
+                             f"launches for {len(imgs)} sampled frames")
 
 
 # ---------------------------------------------------------------- phase 12
 CLUSTER_FRAMES = 60        # make_cluster_scene's frames (bench.py's 60)
 CLUSTER_CLI_FRAMES = 8     # the PNG frames run_cluster reads
+CLUSTER_WARMUP_SW = 5      # phase 12 (c): frames before the timed ones
+SW_SYNCS = 40              # phase 12 (c): syncs counted from this frame
 
 
 def phase12(kernels: dict, label: str):
@@ -1748,8 +1854,6 @@ def phase12(kernels: dict, label: str):
 
     scene = make_cluster_scene(n_frames=CLUSTER_FRAMES)
     cfg = trk.DenseConfig(max_points=bench.CLUSTER_MAX_POINTS)
-    staged = [tuple(torch.from_numpy(a).to(dev) for a in fr)
-              for fr in scene.frames[:8]]
 
     # (b) dense_frame on the card against the plain run on the CPU
     t0 = time.perf_counter()
@@ -1763,26 +1867,8 @@ def phase12(kernels: dict, label: str):
     print(f"[phase12] {label} (b) dense_frame card against CPU: {par}; "
           f"{time.perf_counter() - t0:.1f} s")
 
-    # (c) the stepwise tracker against the fused one on the card
-    t0 = time.perf_counter()
-    st = trk.DenseTracker(scene.cam, cfg, device=dev)
-    ft = trk.FusedDenseTracker(scene.cam, cfg, queue_depth=2, device=dev)
-    so, fo = [], [None]
-    for gl, gr in staged:
-        so.append(st.track(gl, gr))
-        o = ft.process(gl, gr)
-        if o is not None:
-            fo.append(o)
-    fo += ft.flush()
-    for t in range(1, 8):
-        if so[t]["skipped"] != fo[t]["skipped"] or (
-                not so[t]["skipped"]
-                and not np.array_equal(so[t]["labels"], fo[t]["labels"])):
-            raise AssertionError(f"cluster: fused and stepwise part at "
-                                 f"frame {t}")
-    print(f"[phase12] {label} (c) stepwise and fused labels equal over "
-          f"frames 0-7 ({sum(not o['skipped'] for o in so[1:])} live); "
-          f"{time.perf_counter() - t0:.1f} s")
+    # (c) the stepwise tracker graphed and eager, and the fused one
+    stepwise_phase(scene, cfg, label)
 
     # (d) run_cluster over the scene written as KITTI PNGs
     with tempfile.TemporaryDirectory() as root:
@@ -1791,17 +1877,34 @@ def phase12(kernels: dict, label: str):
         stage_kitti(root, np.clip(np.rint(frames), 0, 255).astype(np.uint8),
                     [np.eye(4)] * n, n)
         out = os.path.join(root, "out")
-        with contextlib.redirect_stdout(io.StringIO()):
-            stats = run_cluster.main(["--root", root, "--seq", "00",
-                                      "--out", out, "--device", "cuda"])
+        made, tracker_cls = [], trk.DenseTracker
+
+        class Kept(tracker_cls):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                made.append(self)
+        trk.DenseTracker = Kept
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                stats = run_cluster.main(["--root", root, "--seq", "00",
+                                          "--out", out, "--device", "cuda"])
+        finally:
+            trk.DenseTracker = tracker_cls
         with open(os.path.join(out, "stats.json")) as f:
             written = json.load(f)
         masks = sorted(f for f in os.listdir(out) if f.startswith("mask_"))
     done = [d for d in written["frames_detail"] if not d["skipped"]]
+    st = made[0].graph_stats()
     print(f"[phase12] {label} (d) run_cluster over {n} PNG frames: "
           f"{ {k: v for k, v in stats.items() if k != 'frames_detail'} }, "
           f"{len(masks)} masks, clusters a frame "
-          f"{[len(d['clusters']) for d in done]}")
+          f"{[len(d['clusters']) for d in done]}; its DenseTracker graphed "
+          f"{made[0].graphed}, runs {made[0].runs}, "
+          f"{None if st is None else graph_line(st)}")
+    if st is None or st["replays"] != made[0].runs or \
+            st["captures"] != sum(v > 0 for v in made[0].runs.values()):
+        raise AssertionError(f"run_cluster's tracker did not replay its "
+                             f"graphs: {st}, runs {made[0].runs}")
     if written["frames"] != n or len(done) < n - 2 or \
             len(masks) != len(done) or not any(d["clusters"] for d in done):
         raise AssertionError(f"run_cluster: {written['processed']} of "
@@ -1809,6 +1912,95 @@ def phase12(kernels: dict, label: str):
     print(f"[phase12] {label} phase seconds "
           f"{time.perf_counter() - t_phase:.1f}")
     return launches, rec
+
+
+def stepwise_phase(scene, cfg, label: str) -> None:
+    """Phase 12 (c): the stepwise DenseTracker over the scene's frames
+    graphed (its frame, track and round programs CUDA graphs, the
+    default) and eager (graphs=False): frames/s over frames
+    CLUSTER_WARMUP_SW to SW_SYNCS - 1, host syncs over the rest against the
+    programs' readbacks there, captures and pool bytes; the two runs'
+    results (labels, skip flags, new-cluster counts, every cluster's T)
+    equal, and their labels equal the fused tracker's."""
+    from slam_toolkit_tpu_torch.cluster import tracker as trk
+    from slam_toolkit_tpu_torch.utils.timing import count_syncs
+    t_phase = time.perf_counter()
+    staged = [tuple(torch.from_numpy(a).to("cuda") for a in fr)
+              for fr in scene.frames]
+    n, warm = len(staged), CLUSTER_WARMUP_SW
+    runs = {}
+    for mode in ("graphed", "eager"):
+        t0 = time.perf_counter()
+        st = trk.DenseTracker(scene.cam, cfg, device="cuda",
+                              graphs=mode == "graphed")
+        outs = [st.track(gl, gr) for gl, gr in staged[:warm]]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        outs += [st.track(gl, gr) for gl, gr in staged[warm:SW_SYNCS]]
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        before = dict(st.runs)
+        rest, syncs = count_syncs(
+            lambda: [st.track(gl, gr) for gl, gr in staged[SW_SYNCS:]])
+        outs += rest
+        ran = {k: v - before[k] for k, v in st.runs.items()}
+        live = sum(not o["skipped"] for o in rest)
+        stats = st.graph_stats()
+        runs[mode] = outs
+        print(f"[phase12] {label} (c) stepwise {mode}: frames/s "
+              f"{(SW_SYNCS - warm) / secs:.2f} over frames {warm}-"
+              f"{SW_SYNCS - 1}; host syncs {syncs} over frames {SW_SYNCS}-"
+              f"{n - 1} ({live} live: {syncs / max(live, 1):.2f} a live "
+              f"frame), programs run there {ran} (a readback each); runs "
+              f"{st.runs}; {time.perf_counter() - t0:.1f} s"
+              + ("" if stats is None else f"; {graph_line(stats)}"))
+        if mode == "graphed":
+            if stats["captures"] != 3 or stats["replays"] != st.runs:
+                raise AssertionError(f"stepwise graphed: {stats}, runs "
+                                     f"{st.runs}")
+            if syncs > sum(ran.values()):
+                raise AssertionError(f"stepwise graphed: {syncs} host syncs "
+                                     f"for {ran} program runs")
+            dev = {p: replay_ms(st.graphs, p) for p in st.PROGRAMS}
+            print(f"[phase12] {label} (c) stepwise graphed, a replay alone "
+                  f"(device ms, on the last frame's buffers): "
+                  f"{ {p: round(v, 3) for p, v in dev.items()} }; a live "
+                  f"frame of frames {SW_SYNCS}-{n - 1} at its mean runs: "
+                  f"{sum(dev[p] * ran[p] for p in dev) / max(live, 1):.3f} "
+                  f"ms")
+    # the fused tracker over the same frames
+    ft = trk.FusedDenseTracker(scene.cam, cfg, queue_depth=2, device="cuda")
+    fused = [None]
+    for gl, gr in staged:
+        o = ft.process(gl, gr)
+        if o is not None:
+            fused.append(o)
+    fused += ft.flush()
+    g, e = runs["graphed"], runs["eager"]
+    for t in range(n):
+        a, b = g[t], e[t]
+        same = a.keys() == b.keys() and all(
+            np.array_equal(a[k], b[k]) for k in a if k != "clusters") and \
+            [(c["id"], c["size"], c["tracked"], c["is_ground"])
+             for c in a.get("clusters", ())] == \
+            [(c["id"], c["size"], c["tracked"], c["is_ground"])
+             for c in b.get("clusters", ())] and \
+            all(np.array_equal(c["T"], d["T"]) for c, d in
+                zip(a.get("clusters", ()), b.get("clusters", ())))
+        if not same:
+            raise AssertionError(f"stepwise: graphed and eager part at "
+                                 f"frame {t}")
+        if t and (a["skipped"] != fused[t]["skipped"] or (
+                not a["skipped"] and
+                not np.array_equal(a["labels"], fused[t]["labels"]))):
+            raise AssertionError(f"stepwise and fused part at frame {t}")
+    live = sum(not o["skipped"] for o in g[1:])
+    print(f"[phase12] {label} (c) stepwise graphed and eager equal over "
+          f"{n} frames ({live} live, "
+          f"{sum(o.get('n_new_clusters', 0) for o in g)} clusters made): "
+          f"labels, skip flags, new-cluster counts, every cluster's slot, "
+          f"size and T; labels equal the fused tracker's; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
 
 
 # ---------------------------------------------------------------- phase 13

@@ -19,13 +19,16 @@ against the previous frame (:130-145), a p95 flow-magnitude skip gate
 
 Radius queries are stencils over the regular sample grid (the grid is
 the label mask of ref MakeMask :394-409). Two trackers: `DenseTracker`,
-stepwise with host-side slot allocation (what run_cluster uses), and
-`FusedDenseTracker`, which allocates slots on the device by rank over
-the free slots and reads back one packed row a frame; both give the same
-labels. The fused step (`fused_step`) branches as the JAX program's
-lax.cond and lax.scan do: the skip gate's two sides and each RANSAC
-round are utils/cuda_graphs.run_if bodies on device flags, writing the
-state in place; every PnP-RANSAC draws from uniforms uploaded ahead
+stepwise with host-side slot allocation (what run_cluster uses), its
+three programs (frame, track, round: the JAX tracker's jitted _frame,
+_track, _round) run on static buffers, a CUDA graph each on a card, one
+packed row read back a run; and `FusedDenseTracker`, which allocates
+slots on the device by rank over the free slots and reads back one
+packed row a frame; both give the same labels. The fused step
+(`fused_step`) branches as the JAX program's lax.cond and lax.scan do:
+the skip gate's two sides and each RANSAC round are
+utils/cuda_graphs.run_if bodies on device flags, writing the state in
+place; every PnP-RANSAC draws from uniforms uploaded ahead
 (`frame_draws`), and optim/pose_lm.optimize_pose's damping is a device
 fill. With fixed shapes, FusedDenseTracker captures the step as one CUDA
 graph on a card, the branches as IF nodes, and replays it; the one host
@@ -818,16 +821,52 @@ class FusedDenseTracker:
         return None if self.graphs is None else self.graphs.stats()
 
 
+def _read(row: torch.Tensor) -> np.ndarray:
+    """A static row's values on the host, copied (the next run overwrites
+    the row): on a card one synchronising readback."""
+    return row.to("cpu", copy=True).numpy()
+
+
 class DenseTracker:
     """Stepwise host loop holding the previous frame and the cluster
     labels: `labels` is the sample-grid form of mask0_ (ref
     tracker.cpp:747), `is_ground`/`alive` the cluster_ground_/clusters_
     maps, `prev_depth` depth0_ (:750) and `prev_gray` gray0_ (:751).
     Cluster ids are slots bounded at cfg.max_clusters; dead ids are
-    recycled."""
+    recycled.
+
+    The device work is the JAX tracker's three jitted programs, on
+    static buffers allocated at the first frame, host inputs copied in
+    through pinned memory without a wait (utils/device.upload):
+    - frame: dense_frame of the image buffers against `prev_gray` into a
+      static DenseFrame, and (flow_p95, valid samples) into a small row;
+      the seed frame is the same program with `prev_gray` a copy of its
+      left image;
+    - track: track_clusters on the static frame; the host's labels,
+      ground and alive flags copied in as one int32 row, the uniforms the
+      track part of frame_draws' row, uploaded once a live frame; out
+      one packed row (labels, accepted flags, inliers, motions);
+    - round: ransac_round on the static frame; the residual mask and the
+      round's ground flag copied in as one row, round r's uniforms copied
+      from the frame's row; out one packed row (components, their sizes,
+      surviving inliers, the motion).
+    Each packed row is read back once: the host syncs a live frame are
+    the frame's, the track's (when a cluster is alive) and one a round
+    run, as the JAX tracker's host loop reads back. The host gates the
+    rounds and allocates the slots (_alloc_cluster). `prev_gray` and `prev_depth`
+    are static device buffers copied in from the frame's only when a
+    frame is not skipped (ref :722-724, :750-752); `prev_frame` is a
+    device copy of the last live frame. graphs=True (the default) on a
+    CUDA device: each program is a CUDA graph (utils/cuda_graphs
+    .StepGraphs, one pool: every output is a static buffer outside it),
+    captured at its first run after a warm-up, then replayed; a capture
+    failure raises. graphs=False, and the CPU, run the same programs
+    eagerly on the same buffers. `runs` counts each program's runs."""
+
+    PROGRAMS = ("frame", "track", "round")
 
     def __init__(self, cam: CameraConfig, cfg: Optional[DenseConfig] = None,
-                 device="cuda"):
+                 device="cuda", graphs: bool = True):
         self.cam = cam
         self.cfg = cfg or DenseConfig()
         self.device = _check_device(device)
@@ -840,6 +879,77 @@ class DenseTracker:
         self.alive = np.zeros(self.cfg.max_clusters, bool)
         self.ever_created = False
         self._grid_shape = None
+        self.graphed = graphs and self.device.type == "cuda"
+        self.graphs = StepGraphs(self.device) if self.graphed else None
+        self.runs = {n: 0 for n in self.PROGRAMS}
+
+    def _alloc(self, h: int, w: int) -> None:
+        """The programs' static buffers, and prev_gray / prev_depth."""
+        cfg, dev = self.cfg, self.device
+        P, C = cfg.max_points, cfg.max_clusters
+
+        def z(*shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+        self._gl, self._gr = z(h, w), z(h, w)
+        self.prev_gray, self.prev_depth = z(h, w), z(h, w)
+        self._f = DenseFrame(
+            disparity=z(h, w), depth=z(h, w), flow=z(h, w, 2),
+            edge_mask=z(h, w, dtype=torch.bool), pts_uv=z(P, 2),
+            pts_xyz=z(P, 3), pts_valid=z(P, dtype=torch.bool), flow_p95=z())
+        self._frame_row = z(2)
+        self._draws = z(C * TRACK_HYPOTHESES * SAMPLE + cfg.max_ransac_rounds
+                        * ROUND_HYPOTHESES * SAMPLE)
+        self._track_in = z(P + 2 * C, dtype=torch.int32)
+        self._track_row = z(P + 2 * C + 16 * C)
+        self._round_in = z(P + 1, dtype=torch.bool)
+        self._round_u = z(ROUND_HYPOTHESES * SAMPLE)
+        self._round_row = z(2 * P + 17)
+        self._pts_uv = _sample_grid(h, w, cfg.sample_stride,
+                                    cfg.max_points)[0].astype(np.float32)
+
+    def _frame_program(self) -> None:
+        """dense_frame of the image buffers against prev_gray, written
+        into the static frame; (flow_p95, valid samples) into its row."""
+        f = dense_frame(self._gl, self._gr, self.prev_gray, self.cam,
+                        self.cfg)
+        for dst, src in zip(self._f, f):
+            dst.copy_(src)
+        self._frame_row.copy_(torch.stack([f.flow_p95.float(),
+                                           torch.sum(f.pts_valid).float()]))
+
+    def _track_program(self) -> None:
+        """track_clusters on the static frame, its row written."""
+        cfg = self.cfg
+        P, C = cfg.max_points, cfg.max_clusters
+        st = self._track_in
+        out = track_clusters(
+            self._f, st[:P], self.prev_depth, st[P:P + C] != 0,
+            st[P + C:] != 0, None, self.cam, cfg, self._grid_shape,
+            draws=self._draws[:C * TRACK_HYPOTHESES * SAMPLE].reshape(C, -1))
+        self._track_row.copy_(torch.cat([
+            out.labels.float(), out.cluster_ok.float(),
+            out.cluster_inl.float(), out.cluster_T.reshape(-1)]))
+
+    def _round_program(self) -> None:
+        """ransac_round on the static frame, its row written."""
+        P = self.cfg.max_points
+        rout = ransac_round(self._f, self._round_in[:P], self.prev_depth,
+                            self._round_in[P], None, self.cam, self.cfg,
+                            self._grid_shape, draws=self._round_u)
+        self._round_row.copy_(torch.cat([
+            rout.comp.float(), rout.comp_size.float(),
+            rout.n_step1.float().reshape(1), rout.T_cw.reshape(-1)]))
+
+    def _run(self, name: str, fn) -> None:
+        """Program `name`: eagerly, or its graph (captured at first run)."""
+        self.runs[name] += 1
+        if self.graphs is None:
+            fn()
+            return
+        if name not in self.graphs:
+            self.graphs.warm_up(fn)
+            self.graphs.capture(name, fn)
+        self.graphs.replay(name)
 
     def _alloc_cluster(self, ground: bool) -> int:
         """Allocate a cluster id slot; -1 when capacity is exhausted."""
@@ -861,36 +971,45 @@ class DenseTracker:
                                _as_image(gray_r, self.device))
 
     def _track(self, gl: torch.Tensor, gr: torch.Tensor) -> dict:
-        cfg, cam, dev = self.cfg, self.cam, self.device
+        cfg = self.cfg
+        P, C = cfg.max_points, cfg.max_clusters
         self.frame_idx += 1
         if self._grid_shape is None:
             _, _, self._grid_shape = _sample_grid(
                 gl.shape[0], gl.shape[1], cfg.sample_stride, cfg.max_points)
-        if self.prev_gray is None:                        # ref :710-714
-            self.prev_gray = gl
-            self.prev_depth = dense_frame(gl, gr, gl, cam, cfg).depth
+        seed = self.prev_gray is None
+        if seed:
+            self._alloc(*gl.shape)
+        self._gl.copy_(gl)
+        self._gr.copy_(gr)
+        if seed:                                          # ref :710-714
+            self.prev_gray.copy_(self._gl)
+            self._run("frame", self._frame_program)
+            self.prev_depth.copy_(self._f.depth)
             return {"skipped": True, "reason": "first frame"}
 
-        f = dense_frame(gl, gr, self.prev_gray, cam, cfg)
-        p95 = float(f.flow_p95)
+        self._run("frame", self._frame_program)
+        p95, n_points = _read(self._frame_row)
+        p95 = float(p95)
         if p95 < cfg.min_flow_p95:
             return {"skipped": True, "reason": "low motion",
                     "flow_p95": p95}
 
-        key = threefry.prng_key(self.frame_idx)
-        P = int(f.pts_uv.shape[0])
+        self._draws.copy_(upload(frame_draws(
+            threefry.prng_key(self.frame_idx), cfg), self.device))
         clusters = []
 
         # ---- 1) TrackCluster: propagate previous labels (ref :740-741)
         if self.labels is not None and self.alive.any():
-            out = track_clusters(
-                f, upload(self.labels, dev), self.prev_depth,
-                upload(self.is_ground, dev), upload(self.alive, dev), key,
-                cam, cfg, self._grid_shape)
-            labels = out.labels.cpu().numpy().copy()
-            ok = out.cluster_ok.cpu().numpy()
-            inl = out.cluster_inl.cpu().numpy()
-            Ts = out.cluster_T.cpu().numpy()
+            self._track_in.copy_(upload(np.concatenate(
+                [self.labels, self.is_ground, self.alive]).astype(np.int32),
+                self.device))
+            self._run("track", self._track_program)
+            v = _read(self._track_row)
+            labels = v[:P].astype(np.int32)
+            ok = v[P:P + C] > 0.5
+            inl = v[P + C:P + 2 * C].astype(np.int32)
+            Ts = v[P + 2 * C:].reshape(C, 4, 4)
             for cid in np.flatnonzero(ok):
                 clusters.append({
                     "id": int(cid), "tracked": True,
@@ -904,23 +1023,24 @@ class DenseTracker:
         # ---- 2) RansacCluster on the residual pool (ref :743-744) ----
         residual = labels < 0
         n_new = 0
+        nt, nr = C * TRACK_HYPOTHESES * SAMPLE, ROUND_HYPOTHESES * SAMPLE
         for rnd in range(cfg.max_ransac_rounds):
             if int(residual.sum()) < 10:                  # ref :239
                 break
             ground_round = not self.ever_created          # ref :315
-            rout = ransac_round(
-                f, upload(residual, dev), self.prev_depth,
-                torch.full((), ground_round, device=dev),
-                threefry.fold_in(key, 100 + rnd), cam, cfg,
-                self._grid_shape)
-            comp = rout.comp.cpu().numpy()
-            size = rout.comp_size.cpu().numpy()
-            if int(rout.n_step1) < cfg.min_cluster_size:  # ref :297
+            self._round_in.copy_(upload(np.append(residual, ground_round),
+                                        self.device))
+            self._round_u.copy_(self._draws[nt + rnd * nr:nt + (rnd + 1) * nr])
+            self._run("round", self._round_program)
+            v = _read(self._round_row)
+            comp = v[:P].astype(np.int32)
+            size = v[P:2 * P].astype(np.int32)
+            if int(v[2 * P]) < cfg.min_cluster_size:      # ref :297
                 break
             big_roots = np.unique(comp[(comp >= 0)
                                        & (size >= cfg.min_cluster_size)])
             assigned = 0
-            T_round = rout.T_cw.cpu().numpy()
+            T_round = v[2 * P + 1:].reshape(4, 4)
             for root in big_roots:
                 cid = self._alloc_cluster(ground_round)
                 if cid < 0:
@@ -941,15 +1061,21 @@ class DenseTracker:
                 break
 
         # ---- 3) persist state: the label grid is the new mask0_ ------
-        self.alive = np.isin(np.arange(cfg.max_clusters), labels)
+        self.alive = np.isin(np.arange(C), labels)
         self.labels = labels
-        self.prev_gray = gl
-        self.prev_depth = f.depth
-        self.prev_frame = f
+        self.prev_gray.copy_(self._gl)
+        self.prev_depth.copy_(self._f.depth)
+        self.prev_frame = DenseFrame(*(t.clone() for t in self._f))
         return {"skipped": False, "flow_p95": p95,
-                "n_points": int(f.pts_valid.sum()),
+                "n_points": int(n_points),
                 "n_tracked": int((labels >= 0).sum()),
                 "n_new_clusters": n_new,
                 "labels": labels,
-                "pts_uv": f.pts_uv.cpu().numpy(),
+                "pts_uv": self._pts_uv.copy(),
                 "clusters": clusters}
+
+    def graph_stats(self) -> Optional[dict]:
+        """Captures, capture seconds, pool bytes; None where nothing was
+        captured."""
+        return None if self.graphs is None or not self.graphs.captures \
+            else self.graphs.stats()

@@ -29,8 +29,10 @@ import json
 import os
 import sys
 import time
+from typing import Optional
 
 import numpy as np
+import torch
 
 
 def _auto_config(shape):
@@ -47,23 +49,78 @@ def _auto_config(shape):
         f"1241x376 — pass frames at that size or extend _auto_config")
 
 
+def vocab_frames(n: int) -> range:
+    """The frames of an n-frame sequence whose left images make the
+    vocabulary's training corpus: every (n // 40)-th, as the JAX
+    runner samples."""
+    return range(0, n, max(1, n // 40))
+
+
+class VocabExtract:
+    """The corpus's extract(image, cfg) on a static image buffer: the JAX
+    runner's jax.jit(lambda im: extract(im, cfg.extractor)). On a card
+    the program is one CUDA graph (utils/cuda_graphs.StepGraphs),
+    captured at the first image after a warm-up and replayed for each
+    later one; a capture failure raises. graphs=False, and the CPU, run
+    the same program eagerly. A call copies the image into the buffer,
+    runs the program, reads the descriptors and their validity back in
+    one packed copy (as the JAX runner's np.asarray of both) and returns
+    the valid descriptors, (n, 8) int32, picked on the host."""
+
+    def __init__(self, cfg, device="cuda", graphs: bool = True):
+        from slam_toolkit_tpu_torch.utils.cuda_graphs import StepGraphs
+        self.cfg = cfg
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("device 'cuda' requested but CUDA is not "
+                               "available")
+        self.graphs = StepGraphs(self.device) \
+            if graphs and self.device.type == "cuda" else None
+        self._img: Optional[torch.Tensor] = None
+        self._packed: Optional[torch.Tensor] = None
+
+    def _program(self) -> torch.Tensor:
+        """extract on the image buffer: (K, 9) int32, the packed
+        descriptor words and the validity."""
+        from slam_toolkit_tpu_torch.ops.extractor import extract
+        f = extract(self._img, self.cfg)
+        return torch.cat([f.desc, f.valid[:, None].int()], dim=1)
+
+    def __call__(self, image: np.ndarray) -> np.ndarray:
+        from slam_toolkit_tpu_torch.pipeline.engine import full_float32
+        from slam_toolkit_tpu_torch.utils.device import upload
+        with torch.no_grad(), full_float32():
+            img = upload(np.asarray(image, np.float32), self.device)
+            if self._img is None:
+                self._img = torch.empty_like(img)
+            self._img.copy_(img)
+            if self.graphs is None:
+                packed = self._program()
+            else:
+                if self._packed is None:
+                    self.graphs.warm_up(self._program)
+                    self._packed = self.graphs.capture("extract",
+                                                       self._program)
+                self.graphs.replay("extract")
+                packed = self._packed
+            v = packed.to("cpu", copy=True).numpy()
+        return v[v[:, 8] != 0, :8]
+
+    def graph_stats(self) -> Optional[dict]:
+        """Captures, capture seconds, pool bytes; None where nothing was
+        captured."""
+        return None if self.graphs is None or not self.graphs.captures \
+            else self.graphs.stats()
+
+
 def _get_vocab(args, ds, cfg):
     from slam_toolkit_tpu_torch.loop import vocab as V
     if args.vocab:
         return V.load_dbow2_text(args.vocab)
     if not args.train_vocab:
         return None
-    import torch
-
-    from slam_toolkit_tpu_torch.ops.extractor import extract
-    from slam_toolkit_tpu_torch.pipeline.engine import full_float32
-    corpus = []
-    step = max(1, len(ds) // 40)
-    with full_float32():
-        for i in range(0, len(ds), step):
-            f = extract(torch.from_numpy(ds[i][0]).to(args.device),
-                        cfg.extractor)
-            corpus.append(f.desc[f.valid].cpu().numpy())
+    ex = VocabExtract(cfg.extractor, args.device)
+    corpus = [ex(ds[i][0]) for i in vocab_frames(len(ds))]
     voc = V.train(np.concatenate(corpus), k=10, levels=3, seed=args.seed)
     sys.stderr.write(f"[run_kitti] trained {voc.num_words}-word vocab "
                      f"from {len(corpus)} frames\n")

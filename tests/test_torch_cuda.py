@@ -1129,6 +1129,97 @@ def test_graphed_fused_tracker_matches_eager(dev):
     assert runs[False]["run"] == sum(not x["skipped"] for x in eo)
 
 
+def _same_result(a, b):
+    """Two DenseTracker result dicts equal value for value."""
+    assert a.keys() == b.keys()
+    for k in a:
+        if k == "clusters":
+            assert len(a[k]) == len(b[k])
+            for x, y in zip(a[k], b[k]):
+                assert x.keys() == y.keys()
+                for f in x:
+                    np.testing.assert_array_equal(x[f], y[f])
+        else:
+            np.testing.assert_array_equal(a[k], b[k])
+
+
+def test_graphed_stepwise_tracker_matches_eager(dev):
+    """The stepwise DenseTracker's three programs (frame, track, round)
+    replayed as CUDA graphs against graphs=False on the card, over 8
+    frames of tests/test_dense_tracker.py's tiny scene with frame 3's
+    pair given twice (a skipped frame): every result (labels, skip flags,
+    new-cluster counts, each cluster's slot, size and motion T) equal,
+    the same programs run, 3 captures, and once captured no host sync but
+    one readback a program run."""
+    from slam_toolkit_tpu_torch.cluster.tracker import (DenseConfig,
+                                                        DenseTracker)
+    from slam_toolkit_tpu_torch.utils.timing import count_syncs
+    from torch_cluster_scene import make_scene, tracker_args
+    cam, kw = tracker_args()
+    cfg = DenseConfig(**kw)
+    frames = [make_scene(t) for t in (0, 1, 2, 3, 3, 4, 5, 6)]
+    outs, syncs, trackers, runs = {}, {}, {}, {}
+    for graphs in (False, True):
+        tr = DenseTracker(cam, cfg, device=dev, graphs=graphs)
+        first = [tr.track(left, right) for left, right in frames[:3]]
+        before = dict(tr.runs)
+
+        def run(rest, tr=tr):
+            return [tr.track(left, right) for left, right in rest]
+        rest, syncs[graphs] = count_syncs(run, frames[3:])
+        outs[graphs], trackers[graphs] = first + rest, tr
+        runs[graphs] = {k: n - before[k] for k, n in tr.runs.items()}
+    assert any(o["skipped"] for o in outs[True][1:])
+    assert any(o.get("n_new_clusters") for o in outs[True])
+    for a, b in zip(outs[True], outs[False]):
+        _same_result(a, b)
+    g, e = trackers[True], trackers[False]
+    assert g.runs == e.runs and g.runs["round"] > 0 and g.runs["track"] > 0
+    st = g.graph_stats()
+    assert st["captures"] == 3 and e.graph_stats() is None
+    assert st["replays"] == g.runs
+    assert syncs[True] <= sum(runs[True].values()), (syncs, runs)
+    assert torch.equal(g.prev_gray, e.prev_gray)
+    assert torch.equal(g.prev_depth, e.prev_depth)
+
+
+def test_graphed_vocab_extract_matches_eager(dev):
+    """run_kitti --train-vocab's extract as one CUDA graph against the
+    eager extract on the card, over tests/fixtures/kitti_mini/'s six
+    frames (SlamConfig.tiny()): each frame's valid descriptors equal,
+    one capture replayed a frame, one gather launch a frame, and one
+    host sync (the readback) a frame once captured."""
+    import dataclasses
+    import os
+
+    from slam_toolkit_tpu_torch import run_kitti
+    from slam_toolkit_tpu_torch.data.kitti import KittiDataset
+    from slam_toolkit_tpu_torch.ops import fast_kernel, patches
+    from slam_toolkit_tpu_torch.utils.timing import count_syncs
+    ds = KittiDataset("00", root=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "fixtures",
+        "kitti_mini"))
+    imgs = [ds[i][0] for i in range(len(ds))]
+    cfg = run_kitti._auto_config(imgs[0].shape).extractor
+    for fused in (False, True):
+        c = dataclasses.replace(cfg, fused_fast=fused)
+        eager = run_kitti.VocabExtract(c, dev, graphs=False)
+        want = [eager(im) for im in imgs]
+        ex = run_kitti.VocabExtract(c, dev)
+        ex(imgs[0])
+        g0, f0 = patches.KERNEL.launches, fast_kernel.KERNEL.launches
+        got, syncs = count_syncs(lambda: [ex(im) for im in imgs[1:]])
+        for a, b in zip([ex(imgs[0])] + got, want):
+            np.testing.assert_array_equal(a, b)
+        st = ex.graph_stats()
+        assert st["captures"] == 1 and st["replays"] == {
+            "extract": len(imgs) + 1}
+        assert patches.KERNEL.launches - g0 == len(imgs)
+        assert fast_kernel.KERNEL.launches - f0 == (len(imgs) if fused
+                                                    else 0)
+        assert syncs == len(imgs) - 1, syncs
+
+
 @pytest.mark.parametrize("thread", [False, True])
 def test_graphed_pipelined_engine_cuda(dev, thread):
     """The pipelined schedule on the card, graphed, tiny config, 17
