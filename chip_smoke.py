@@ -324,7 +324,14 @@ Phases (any failure raises and the script exits non-zero):
    graphs and with the eager loop programs: closures, events, ATE, seam
    and launches exactly equal, the stage split of each, and the top-2
    exact against its plain version on the inputs the eager run's first
-   relative pose on the worker handed it. (b) The same frames at depth 2 with the loop phases inline right after
+   relative pose on the worker handed it. The free-running run is held
+   to the lockstep run with the loop graphs: the rows returned before
+   the first closure landed bit-equal, every closure one that lockstep
+   took (slot and candidate), ATE and seam finite and within the loop
+   cell's limits (LOOP_ATE_LIMIT_M, LOOP_SEAM_LIMIT_M); a line sets both
+   runs' closures, landings, ATE and seam side by side. No profiler
+   pass runs over a one-launch chunk while the worker runs (PERF.md
+   §7). (b) The same frames at depth 2 with the loop phases inline right after
    (a): its frames/s and closures, and the host syncs inside the chunks
    in both runs (0 inline; the worker's own are counted with the
    worker). (c) Without a vocabulary, phase 3's frames at
@@ -1139,6 +1146,10 @@ def phase2(dev) -> list:
 
 # ---------------------------------------------------------------- phase 10
 LOOP_FRAMES = 192          # lap 160 + revisit 32 in chunks of 16
+# the loop cell's limits (PERF.md §2: the loop bench's ATE and seam, m);
+# the bench is bimodal, so a run that takes another closure than its
+# reference is held to these, not to the reference's reading
+LOOP_ATE_LIMIT_M, LOOP_SEAM_LIMIT_M = 0.885, 1.311
 CLOSER_SITES = ("relative_pose", "merge_mappoints", "relocalize_frame")
 
 
@@ -3180,18 +3191,18 @@ class WorkerCounts:
 
 
 def timed_run(eng, frames, chunk: int):
-    """(chunk seconds, flush seconds) of `eng` over `frames`, each ending
-    in a synchronise."""
-    chunk_s = []
+    """(chunk seconds, flush seconds, the rows returned) of `eng` over
+    `frames`, each ending in a synchronise."""
+    chunk_s, rows = [], []
     for i in range(0, len(frames), chunk):
         t0 = time.perf_counter()
-        eng.process_chunk(frames[i:i + chunk])
+        rows.append(eng.process_chunk(frames[i:i + chunk]))
         torch.cuda.synchronize()
         chunk_s.append(time.perf_counter() - t0)
     t0 = time.perf_counter()
-    eng.flush()
+    rows.append(eng.flush())
     torch.cuda.synchronize()
-    return chunk_s, time.perf_counter() - t0
+    return chunk_s, time.perf_counter() - t0, np.concatenate(rows)
 
 
 def gil_ticks(seconds: float = None, until=None) -> float:
@@ -3215,12 +3226,12 @@ def gil_ticks(seconds: float = None, until=None) -> float:
     return t, out
 
 
-def lockstep_run(eng, frames, chunk: int) -> None:
+def lockstep_run(eng, frames, chunk: int) -> np.ndarray:
     """`eng` over `frames` with its mapping worker in lockstep: after each
     chunk the worker's jobs finish and the closures they decide land
     (drain) before the next chunk, and each relative pose is waited for
     where it is measured (so its event has completed when a job asks),
-    so that the schedule depends on no timing."""
+    so that the schedule depends on no timing. The rows returned."""
     measure = eng._measure
 
     def waited(*args):
@@ -3228,11 +3239,51 @@ def lockstep_run(eng, frames, chunk: int) -> None:
         torch.cuda.current_stream(eng.device).synchronize()
         return out
     eng._measure = waited
+    rows = []
     for i in range(0, len(frames), chunk):
-        eng.process_chunk(frames[i:i + chunk])
+        rows.append(eng.process_chunk(frames[i:i + chunk]))
         eng._worker.drain()
-    eng.flush()
+    rows.append(eng.flush())
     torch.cuda.synchronize()
+    return np.concatenate(rows)
+
+
+def closure_keys(events) -> list:
+    """A run's closures as (frame, candidate's frame, slot, candidate)."""
+    return [(e["frame"], e["fid_cand"], e["kf_slot"], e["cand"])
+            for e in events if "cand" in e]
+
+
+def free_against_lockstep(free: dict, lock: dict, label: str) -> None:
+    """The free-running schedule held to lockstep: the rows returned
+    before the first closure landed (in either run) bit-equal, every
+    closure (slot, candidate) one that lockstep took, ATE and seam finite
+    and within the loop cell's limits. Each dict: the run's outcome
+    (loop_outcome), its rows and its landings."""
+    first = min(free["landed"][:1] + lock["landed"][:1]
+                + [LOOP_FRAMES + 1])
+    n = first - 1                     # the bootstrap frame has no row
+    same_rows = np.array_equal(free["rows"][:n], lock["rows"][:n])
+    fc, lc = closure_keys(free["events"]), closure_keys(lock["events"])
+    print(f"[phase16] {label} free-running / lockstep (loop graphs): "
+          f"closures {fc} / {lc}, landed with {free['landed']} / "
+          f"{lock['landed']} frames run, ATE {free['ate']:.4f} / "
+          f"{lock['ate']:.4f} m, seam {free['seam']:.4f} / "
+          f"{lock['seam']:.4f} m; rows before the first landing "
+          f"{n} of {len(lock['rows'])}, bit-equal {same_rows}")
+    if len(free["rows"]) != len(lock["rows"]) or not same_rows:
+        raise AssertionError("phase 16: the free-running run's rows before "
+                             "the first closure landed part from "
+                             "lockstep's")
+    extra = {c[2:] for c in fc} - {c[2:] for c in lc}
+    if extra:
+        raise AssertionError(f"phase 16: the free-running run took closures "
+                             f"(slot, candidate) {sorted(extra)} that "
+                             f"lockstep did not")
+    for k, limit in (("ate", LOOP_ATE_LIMIT_M), ("seam", LOOP_SEAM_LIMIT_M)):
+        if not np.isfinite(free[k]) or free[k] > limit:
+            raise AssertionError(f"phase 16: the free-running run's {k} "
+                                 f"{free[k]} m is not within {limit} m")
 
 
 def phase16(cfg, frames48, loop: dict, kernels: dict, label: str) -> dict:
@@ -3271,7 +3322,7 @@ def phase16(cfg, frames48, loop: dict, kernels: dict, label: str) -> dict:
         k.launches = 0
     try:
         with cuda_lib.counting() as main_counts:
-            chunk_s, flush_s = timed_run(eng, frames, chunk)
+            chunk_s, flush_s, free_rows = timed_run(eng, frames, chunk)
     finally:
         spy.close()
         syncs.close()
@@ -3309,12 +3360,15 @@ def phase16(cfg, frames48, loop: dict, kernels: dict, label: str) -> dict:
             k.launches = 0
         t0 = time.perf_counter()
         try:
-            lockstep_run(e, frames, chunk)
+            lock_rows = lockstep_run(e, frames, chunk)
         finally:
             if sp is not None:
                 sp.close()
         wall = time.perf_counter() - t0
-        lock[loop_graphs] = (loop_outcome(e, gt, lap, revisit, LOOP_FRAMES),
+        lock[loop_graphs] = (dict(loop_outcome(e, gt, lap, revisit,
+                                               LOOP_FRAMES),
+                                  rows=lock_rows,
+                                  landed=list(e.closures_landed)),
                              {n: k.launches for n, k in kernels.items()}, sp)
         if loop_graphs:
             st_l = e._host.loop_graph_stats()
@@ -3331,6 +3385,12 @@ def phase16(cfg, frames48, loop: dict, kernels: dict, label: str) -> dict:
                                  "behind")
     same_outcome(lock[True][0], lock[False][0], "phase 16 lockstep, loop "
                  "graphs against the eager loop programs")
+    if not np.array_equal(lock[True][0]["rows"], lock[False][0]["rows"]):
+        raise AssertionError("phase 16 lockstep rows differ, loop graphs "
+                             "against the eager loop programs")
+    free_against_lockstep(dict(out, rows=free_rows,
+                               landed=list(eng.closures_landed)),
+                          lock[True][0], label)
     if lock[True][1] != lock[False][1]:
         raise AssertionError(f"phase 16 lockstep launches differ: "
                              f"{lock[True][1]} against {lock[False][1]}")
@@ -3347,7 +3407,7 @@ def phase16(cfg, frames48, loop: dict, kernels: dict, label: str) -> dict:
                               loop_thread=False)
     syncs_q = ChunkSyncs()
     try:
-        chunk_q, flush_q = timed_run(eng_q, frames, chunk)
+        chunk_q, flush_q, _ = timed_run(eng_q, frames, chunk)
     finally:
         syncs_q.close()
     scan_w = scan_line(eng._chunk.graph_stats(), syncs.graphed,

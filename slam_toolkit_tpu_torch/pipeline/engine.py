@@ -1272,14 +1272,16 @@ class SlamEngine:
 
     def _detect_accept(self, slot: int, cand_mask: np.ndarray,
                        scores: np.ndarray, covis_of: Optional[dict],
-                       fid: int, m: Optional[MapState] = None) -> list:
+                       fid: int, n_keyframes: int,
+                       m: Optional[MapState] = None) -> list:
         """accScore groups + consistency for one new keyframe: the
-        accepted candidate slots, strongest first ([] = none). Missing
-        covisibility rows are read from `m` (default the engine's map)."""
+        accepted candidate slots, strongest first ([] = none), gated on
+        the keyframe count n_keyframes. Missing covisibility rows are
+        read from `m` (default the engine's map)."""
         loop = self.cfg.loop
-        if self.n_keyframes < 3:
+        if n_keyframes < 3:
             return []
-        if self.n_keyframes - self._last_closure_nkf \
+        if n_keyframes - self._last_closure_nkf \
                 < loop.closure_cooldown_kfs or not cand_mask.any():
             self.consistency.update([])
             return []
@@ -1319,11 +1321,13 @@ class SlamEngine:
                    and n_new <= n_old for fj, fi, n_old in self._closed_pairs)
 
     def _dispatch_close(self, slot: int, cand: int, rel, fid: int,
-                        fid_cand: int, vals: np.ndarray) -> None:
+                        fid_cand: int, vals: np.ndarray,
+                        n_keyframes: int) -> None:
         """Close an accepted, measured loop: the close program (and seam
         BA when on and the closure moved the current keyframe by at
         least seam_ba_min_corr_m), the ring, the bookkeeping and the
-        event. vals: the host copy of _relpose's packed row."""
+        event. vals: the host copy of _relpose's packed row; n_keyframes:
+        the keyframe count the cooldown starts from."""
         n_new = int(vals[16])
         k = self.n_closed % MAX_CLOSED_LOOPS
         tier = self._close_tier()
@@ -1342,7 +1346,7 @@ class SlamEngine:
             self.map = self._seam_ba(self.map, slot, cand)
         self.n_closed += 1
         self.close_tiers.append(tier)
-        self._last_closure_nkf = self.n_keyframes
+        self._last_closure_nkf = n_keyframes
         self._closed_pairs.append((fid, fid_cand, n_new))
         self.consistency.reset()
         self._loop_events.append({
@@ -1359,7 +1363,7 @@ class SlamEngine:
         ok and is no duplicate, the closure, synchronously."""
         fid = self.frame_id if frame_id is None else frame_id
         for cand in self._detect_accept(slot, cand_mask, scores, covis_of,
-                                        fid):
+                                        fid, self.n_keyframes):
             rel, pk = self._relpose(self.map, slot, cand)
             with self._stage("relpose readback"):
                 vals = pk.cpu().numpy()
@@ -1368,5 +1372,6 @@ class SlamEngine:
             fid_cand = int(self.map.kf_frame_id[cand])
             if self._closure_is_dup(fid, fid_cand, int(vals[16])):
                 continue
-            self._dispatch_close(slot, cand, rel, fid, fid_cand, vals)
+            self._dispatch_close(slot, cand, rel, fid, fid_cand, vals,
+                                 self.n_keyframes)
             break

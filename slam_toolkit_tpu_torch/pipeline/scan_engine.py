@@ -759,7 +759,9 @@ def _worker_main(ref, w: "_MappingWorker") -> None:
             if w.error is None:
                 w.error = e
         finally:
-            del eng
+            # the job's arguments (a chunk's scores among them) go here,
+            # on this thread, after its reads of them have completed
+            del eng, job
             with w.cv:
                 w.outstanding -= 1
                 w.cv.notify_all()
@@ -786,11 +788,47 @@ class _MappingWorker:
       waits for that and reads on from the new copy. Relocalization and
       the keyframe culls stay on the main thread, as do all host
       counters (the JAX single-writer rule); the job owns the detection
-      stash, the pending measurements and the consistency groups;
-    - the BoW database, written by the main thread's registration at
-      dispatch and by a job's registration of keyframe rows beyond
-      BOW_ROWS, is read and replaced under bow_lock, each stream ordered
-      after the last writer's (bow_event).
+      stash, the pending measurements and the consistency groups.
+
+    Every hand-off between the two threads and their streams, and what
+    orders it (tests/test_torch_worker_handoff.py holds each on the CPU):
+
+    - the published map: ready[i] (main stream, after the copy) before a
+      job reads buffer i; done[i] (worker stream, after its reads) before
+      the main stream writes buffer i again; the lock picks a buffer no
+      job holds (publish, _acquire, _release);
+    - a chunk's scores (`sc`, cloned on the main stream at dispatch): the
+      job's stream waits for a ready event recorded after that clone, and
+      reads them with .cpu(), which returns once the copy is done; so
+      when the job drops them (on this thread, _worker_main), no read is
+      queued and the block may go back to the main stream's pool;
+    - the BoW database (registered by the main thread at dispatch, by a
+      job beyond BOW_ROWS keyframe rows, read by a relocalization): one
+      buffer written in place, never replaced, so no tensor of it is
+      freed while a stream reads it; bow_lock and bow_event order its
+      users (_bow_guard);
+    - a relative pose measured by a job (`rel`, `pk`, cloned on the worker
+      stream): the job reads `pk` with .cpu(); a closure hands `rel` to
+      the main thread, whose stream waits for the worker's (serve) and
+      marks `rel` as used by it (record_stream, _apply_close), so its
+      blocks outlive the close's reads wherever the job drops them;
+    - the host mirrors (frame ids, keyframe counts): written by the main
+      thread at each fold; a job reads only the copy taken when it was
+      submitted (`seen`, _loop_fold), as the JAX engine's single-writer
+      rule asks, and writes none;
+    - a closure: decided by a job, run by the main thread while the job
+      waits in request_close (or at a flush, the worker idle), after
+      serve's wait for the worker's stream; a close captured then (its
+      tier's first) is captured in thread_local mode, and the capture's
+      synchronise finds the worker's stream drained;
+    - the CUDA graphs: every capture (the chunk's, with its WHILE and IF
+      bodies' pools and execution counts, and the loop programs') is made
+      on the main thread, the chunk's and the loop programs' before the
+      first job (_submit refuses one earlier); a job only replays loop
+      programs, which have no conditional bodies, so it never reaches
+      the bodies' pools, their counts or cuda_lib.settle;
+    - the thread's end: when the engine goes, or at the interpreter's
+      exit, stop() ends the thread and joins it.
     """
 
     def __init__(self, eng: "ChunkedSlamEngine"):
@@ -815,10 +853,38 @@ class _MappingWorker:
             target=_worker_main, args=(weakref.ref(eng), self), daemon=True,
             name="slam-mapping")
         self.thread.start()
-        weakref.finalize(eng, self.jobs.put, None)
+        self.stopped = False
+        # when the engine goes, and at the interpreter's exit if it is
+        # still alive then (finalize's atexit), before finalization
+        weakref.finalize(eng, self.stop)
 
     def on_thread(self) -> bool:
         return threading.current_thread() is self.thread
+
+    def stop(self) -> None:
+        """The engine is gone or the interpreter exits: end the thread and,
+        unless this is that thread, wait for it. A thread that ran torch
+        work and is still alive when the interpreter finalizes aborts the
+        process (std::terminate), so it is joined first: the jobs queued
+        are dropped, a closure the running job asks for is refused (the
+        job then raises, and nobody reads it), and the running job
+        ends."""
+        with self.cv:
+            self.stopped = True
+            reqs = self.requests[:]
+            self.requests.clear()
+        for req in reqs:
+            req["done"].set()              # "ran" stays False
+        while True:
+            try:
+                self.jobs.get_nowait()
+            except queue.Empty:
+                break
+            with self.cv:
+                self.outstanding -= 1
+        self.jobs.put(None)
+        if not self.on_thread():
+            self.thread.join()
 
     def submit(self, kind: str, args: tuple) -> None:
         with self.cv:
@@ -890,18 +956,21 @@ class _MappingWorker:
         boundary, and wait until it has."""
         req = {"fn": fn, "done": threading.Event(), "ran": False}
         with self.cv:
+            if self.stopped:
+                raise RuntimeError("the mapping worker is stopping")
             self.requests.append(req)
             self.cv.notify_all()
         req["done"].wait()
         if not req["ran"]:
             raise RuntimeError("a closure decided on the mapping worker "
-                               "failed on the main thread")
+                               "failed or was refused on the main thread")
 
     def serve(self) -> None:
         """Main thread, at a chunk boundary: run the closures the worker
         handed over, after everything the worker's stream has queued."""
         with self.cv:
-            reqs, self.requests = self.requests, []
+            reqs = self.requests[:]
+            self.requests.clear()
         if reqs and self.cuda:
             torch.cuda.current_stream(self.device).wait_stream(self.stream)
         for req in reqs:
@@ -978,7 +1047,10 @@ class ChunkedSlamEngine:
       while that chunk is replayed, so a closure can reach the chunk
       after it: up to chunk_size frames more than JAX's one fold of lag.
       Which fold a closure lands in depends on timing, as under the JAX
-      engine's thread.
+      engine's thread. Start and stop torch.profiler's CUDA activity
+      with the worker idle (_worker.drain(), or after flush()): its
+      stop, racing a CUDA-graph launch on the worker's thread,
+      deadlocked the process on an H100 (torch 2.11, CUDA 12.8).
 
     The defaults differ from the JAX engine's (2 and "1"): 0 and "0", the
     JAX engine's deterministic schedule, in which each chunk is folded
@@ -1219,7 +1291,8 @@ class ChunkedSlamEngine:
             h = self._host
             self._prepare_loop_graphs()
             with self._bow_guard():
-                h.bow_db, sc = h._bow_register(self.carry.m, h.bow_db, packed)
+                # the database is written in place (no assignment back)
+                _, sc = h._bow_register(self.carry.m, h.bow_db, packed)
         if self._worker is not None:
             self._worker.publish(self.carry.m)
         ready = None
@@ -1310,30 +1383,30 @@ class ChunkedSlamEngine:
             if self._worker is not None:
                 self._worker.drain()
             self._host.map = self.carry.m
+            seen = self._mirrors()
             if self._loop_stash:
-                self._loop_phase2(force=True)
-            self._finish_pending_closures()
+                self._loop_phase2(True, seen)
+            self._finish_pending_closures(False, seen)
         return rows
 
     # ---- loop closing and relocalization between chunks ---------------
     @contextlib.contextmanager
     def _bow_guard(self):
-        """A read-and-replace of the BoW database: with the mapping worker,
-        under its lock, the current stream ordered after the last one that
-        wrote the database, and the database's tensors marked as used by
-        it (the caching allocator then keeps them until its reads end)."""
+        """A read or write of the BoW database (one buffer that the register
+        programs write in place and nothing replaces, so no tensor of it
+        is freed while a stream reads it): with the mapping worker, under
+        its lock, the current stream ordered after the last one that used
+        the database (bow_event), and this use recorded for the next."""
         w = self._worker
         if w is None:
             yield
             return
         with w.bow_lock:
+            cur = None
             if w.cuda:
                 cur = torch.cuda.current_stream(self.device)
                 if w.bow_event is not None:
                     cur.wait_event(w.bow_event)
-                db = self._host.bow_db
-                for t in (db if isinstance(db, tuple) else (db,)):
-                    t.record_stream(cur)
             yield
             if w.cuda:
                 w.bow_event = torch.cuda.Event()
@@ -1352,7 +1425,7 @@ class ChunkedSlamEngine:
             if kind == "p1":
                 self._loop_phase1(*args)
             else:
-                self._loop_phase2()
+                self._loop_phase2(*args)
 
     def _rebuild_carry(self, **changes) -> None:
         """The carry as the JAX engine rebuilds it after the host moved
@@ -1396,12 +1469,22 @@ class ChunkedSlamEngine:
             # which is the chunks in flight ahead of this fold
             head = self._pending[-1] if self._pending else p
             self._try_chunked_reloc(head["last_img"])
+        seen = self._mirrors()
         if self._worker is not None:
-            self._submit("p2", ())
-            self._submit("p1", (p["sc"], packed_np, base_fid))
+            self._submit("p2", (False, seen))
+            self._submit("p1", (p["sc"], packed_np, base_fid, seen))
         else:
-            self._loop_phase2()
-            self._loop_phase1(p["sc"], packed_np, base_fid)
+            self._loop_phase2(False, seen)
+            self._loop_phase1(p["sc"], packed_np, base_fid, seen)
+
+    def _mirrors(self) -> dict:
+        """The host mirrors the loop phases read (keyframe count, keyframe
+        frame ids), copied as of this fold: the main thread writes them at
+        every fold, and a job of the mapping worker reads only the copy
+        taken when it was submitted (the JAX engine's single-writer
+        rule)."""
+        return {"n_keyframes": self._host.n_keyframes,
+                "kf_fid": self._kf_fid_host.copy()}
 
     def _submit(self, kind: str, args: tuple) -> None:
         """Queue a job for the mapping worker. The CUDA graphs (the
@@ -1436,12 +1519,15 @@ class ChunkedSlamEngine:
         while self._pending:
             self._owed_rows.append(self._fold_one())
 
-    def _loop_phase1(self, sc, packed_np: np.ndarray, base_fid: int) -> None:
+    def _loop_phase1(self, sc, packed_np: np.ndarray, base_fid: int,
+                     seen: dict) -> None:
         """Read this chunk's scores, register and score its keyframe rows
         beyond BOW_ROWS, take the candidates' covisibility rows, measure
         each keyframe's top candidate speculatively when a consistency
-        group is one step from acceptance, and stash the detection."""
+        group is one step from acceptance, and stash the detection.
+        `seen`: the fold's copy of the host mirrors (_mirrors)."""
         h = self._host
+        n_kf = seen["n_keyframes"]
         kf_rows = np.flatnonzero(packed_np[:, 34] > 0.5)
         if len(kf_rows) == 0:
             return
@@ -1458,9 +1544,8 @@ class ChunkedSlamEngine:
                 pad = np.zeros(BOW_ROWS, np.int64)
                 pad[:len(batch)] = batch
                 vmask = np.arange(BOW_ROWS) < len(batch)
-                with self._bow_guard():
-                    h.bow_db, sc2 = h._bow_register_only(m, h.bow_db, pad,
-                                                         vmask)
+                with self._bow_guard():     # the database in place
+                    _, sc2 = h._bow_register_only(m, h.bow_db, pad, vmask)
                 with h._stage("scores readback"):
                     ex_c.append(sc2.candidates[:len(batch)].cpu().numpy())
                     ex_s.append(sc2.scores[:len(batch)].cpu().numpy())
@@ -1468,7 +1553,7 @@ class ChunkedSlamEngine:
             scores_np = np.concatenate(ex_s, axis=0)
         slots = packed_np[kf_rows, 32].astype(np.int64)
         covis_rows, cand_all, spec = None, None, {}
-        if h.n_keyframes >= 3:
+        if n_kf >= 3:
             cand_all = np.unique(np.concatenate(
                 [np.flatnonzero(cand_np[i]) for i in range(len(kf_rows))]))
             if len(cand_all):
@@ -1498,15 +1583,17 @@ class ChunkedSlamEngine:
             ev.record(torch.cuda.current_stream(self.device))
         return rel, pk, ev
 
-    def _loop_phase2(self, force: bool = False) -> None:
+    def _loop_phase2(self, force: bool, seen: dict) -> None:
         """Close the measurements pending from the last fold, age the
         stash, and consume the detections two folds old (all of them
         with force): detection and consistency per keyframe, then the
         accepted candidates' relative poses (the speculative one first
         when it is the top candidate, else up to three measured now),
-        pending one fold; a speculative hit closes in this fold."""
+        pending one fold; a speculative hit closes in this fold. `seen`:
+        the fold's copy of the host mirrors (_mirrors)."""
         h = self._host
-        self._finish_pending_closures()
+        n_kf = seen["n_keyframes"]
+        self._finish_pending_closures(False, seen)
         for st in self._loop_stash:
             st["age"] += 1
         while self._loop_stash and (force or self._loop_stash[0]["age"] >= 2):
@@ -1520,7 +1607,7 @@ class ChunkedSlamEngine:
                 fid = st["base_fid"] + int(r)
                 cands = h._detect_accept(int(s), st["cand_np"][i],
                                          st["scores_np"][i], covis_of, fid,
-                                         m)
+                                         n_kf, m)
                 if not cands:
                     continue
                 spec = st["spec"].get(int(s))
@@ -1531,9 +1618,10 @@ class ChunkedSlamEngine:
                                                           int(cand))))
                 self._closure_pend.append({"slot": int(s), "fid": fid,
                                            "rels": rels, "ready": hit})
-        self._finish_pending_closures(ready_only=True)
+        self._finish_pending_closures(True, seen)
 
-    def _finish_pending_closures(self, ready_only: bool = False) -> None:
+    def _finish_pending_closures(self, ready_only: bool,
+                                 seen: dict) -> None:
         """Close the pending measurements (with ready_only, only those a
         fold old whose results have landed, or 4 folds old; speculative
         hits are born a fold old): past the cooldown, the first candidate
@@ -1545,8 +1633,10 @@ class ChunkedSlamEngine:
         every result has landed): the fold reads a result back once it
         is a fold old, whatever the device's progress, so that the
         inline schedule depends on no timing (a replayed graph returns
-        before its work is done, an eager program after most of it)."""
+        before its work is done, an eager program after most of it).
+        `seen`: the fold's copy of the host mirrors (_mirrors)."""
         h = self._host
+        n_kf, kf_fid = seen["n_keyframes"], seen["kf_fid"]
         remaining = []
         while self._closure_pend:
             pc = self._closure_pend.pop(0)
@@ -1560,7 +1650,7 @@ class ChunkedSlamEngine:
                 if not landed:
                     remaining.append(pc)
                     continue
-            if h.n_keyframes - h._last_closure_nkf \
+            if n_kf - h._last_closure_nkf \
                     < self.cfg.loop.closure_cooldown_kfs:
                 continue
             for cand, (rel, pk, _) in pc["rels"]:
@@ -1568,11 +1658,11 @@ class ChunkedSlamEngine:
                     vals = pk.cpu().numpy()
                 if not vals[17] > 0.5:
                     continue
-                fid_cand = int(self._kf_fid_host[cand])
+                fid_cand = int(kf_fid[cand])
                 if h._closure_is_dup(pc["fid"], fid_cand, int(vals[16])):
                     continue
                 self._land_closure(pc["slot"], cand, rel, pc["fid"],
-                                   fid_cand, vals)
+                                   fid_cand, vals, n_kf)
                 m = self._read_map()
                 for later in self._loop_stash:
                     ca = later["cand_all"]
@@ -1582,20 +1672,22 @@ class ChunkedSlamEngine:
         self._closure_pend = remaining
 
     def _land_closure(self, slot: int, cand: int, rel, fid: int,
-                      fid_cand: int, vals: np.ndarray) -> None:
+                      fid_cand: int, vals: np.ndarray, n_kf: int) -> None:
         """Close on the live carry: here on the main thread, or from the
         mapping worker through the main thread at its next chunk
-        boundary (the job then reads on from the corrected map)."""
+        boundary (the job then reads on from the corrected map). n_kf:
+        the keyframe count the deciding fold saw, which starts the
+        cooldown."""
         w = self._worker
         if w is None or not w.on_thread():
-            self._apply_close(slot, cand, rel, fid, fid_cand, vals)
+            self._apply_close(slot, cand, rel, fid, fid_cand, vals, n_kf)
             return
         w.request_close(lambda: self._apply_close(slot, cand, rel, fid,
-                                                  fid_cand, vals))
+                                                  fid_cand, vals, n_kf))
         w.reacquire()
 
     def _apply_close(self, slot: int, cand: int, rel, fid: int,
-                     fid_cand: int, vals: np.ndarray) -> None:
+                     fid_cand: int, vals: np.ndarray, n_kf: int) -> None:
         """Main thread, between chunks: the close (pose graph, merge, seam
         BA) on the live map, the landmark snapshot rebuilt from it and the
         head re-seeded through the latest keyframe. The pose-graph tier
@@ -1614,7 +1706,8 @@ class ChunkedSlamEngine:
         h.map = self.carry.m
         h._n_kf_valid_host = int(h.map.kf_valid.sum())
         latest_T_old = self.carry.latest_T
-        h._dispatch_close(slot, cand, rel, fid, fid_cand, vals)
+        h._dispatch_close(slot, cand, rel, fid, fid_cand, vals,
+                          n_keyframes=n_kf)
         with h._stage("snapshot"):
             lm, latest_T, counts = h._take_snapshot(h.map)
             self._rebuild_carry(

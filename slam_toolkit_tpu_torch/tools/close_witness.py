@@ -169,7 +169,7 @@ def witness(dump: str, cache: str, device="cuda") -> dict:
                         n_near=t(d["vals"][19]))
     slot, cand = int(d["slot"]), int(d["cand"])
     h._dispatch_close(slot, cand, rel, int(d["fid"]), int(d["fid_cand"]),
-                      np.asarray(d["vals"]))
+                      np.asarray(d["vals"]), h.n_keyframes)
     closed = compare_maps(_numpy_map(h.map), post_m)
 
     # the carry as the port's chunked engine rebuilds it after a closure

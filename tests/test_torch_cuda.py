@@ -1887,3 +1887,125 @@ def test_graphed_chunked_culls_match_eager(dev):
     assert runs["cull"] >= 2 and not any(e._mapper._kf.runs.values())
     assert g._mapper.graph_stats()["captures"] == sum(
         1 for v in runs.values() if v)
+
+
+def _threaded_run(cfg, arr, voc, lockstep: bool = False,
+                  profile_last: int = 0):
+    """A ChunkedSlamEngine at queue depth 2 with the mapping worker over
+    `arr` in chunks of 8 on the card (graphed, the loop graphs on): (the
+    engine, the rows returned, the jobs the profiled chunks' folds
+    submitted to the worker). lockstep: the worker drained after
+    each chunk and each relative pose waited for where it is measured.
+    profile_last: that many last chunks under torch.profiler (CPU and
+    CUDA activity), the worker drained just before the profiler starts
+    and just before it stops (the profiler's stop racing a graph launch
+    on the worker's thread deadlocked it, PERF.md section 7); the
+    worker's jobs run between, beside the profiled chunks' graphs."""
+    from slam_toolkit_tpu_torch.pipeline.scan_engine import ChunkedSlamEngine
+    eng = ChunkedSlamEngine(cfg, vocab=voc, chunk_size=8, device="cuda",
+                            queue_depth=2, loop_thread=True)
+    if lockstep:
+        measure = eng._measure
+
+        def waited(*args):
+            out = measure(*args)
+            torch.cuda.synchronize()
+            return out
+        eng._measure = waited
+    jobs = {"on": False, "queued": 0}
+    submit = eng._worker.submit
+
+    def counted(kind, args):
+        jobs["queued"] += jobs["on"]
+        submit(kind, args)
+    eng._worker.submit = counted
+    starts = list(range(0, len(arr), 8))
+    rows, prof = [], None
+    for k, i in enumerate(starts):
+        if profile_last and k == len(starts) - profile_last:
+            eng._worker.drain()
+            prof = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA])
+            prof.__enter__()
+            jobs["on"] = True
+        rows.append(eng.process_chunk(arr[i:i + 8]))
+        if lockstep:
+            eng._worker.drain()
+    if prof is not None:
+        eng._worker.drain()
+        jobs["on"] = False
+        torch.cuda.synchronize()
+        prof.__exit__(None, None, None)
+        prof.events()
+    rows.append(eng.flush())
+    torch.cuda.synchronize()
+    return eng, np.concatenate(rows), jobs["queued"]
+
+
+def test_free_running_profiled_pipeline_cuda(dev):
+    """The threaded schedule free-running on the card with torch.profiler
+    over its last two one-launch chunks, the worker's jobs running beside
+    them (what chip_smoke's phase 16 (b) did at full width when it once
+    ended in an illegal memory access; the profiler starts and stops with
+    the worker drained, see _threaded_run), three times against one
+    lockstep run, tiny config on _loop_world: no CUDA error (each run
+    ends in a synchronise), the rows returned before the first closure
+    landed bit-equal to lockstep's, every closure one that lockstep took
+    (slot, candidate), and the worker ends with no error and no work
+    left."""
+    cfg, arr, voc = _loop_world()
+    lock, lock_rows, _ = _threaded_run(cfg, arr, voc, lockstep=True)
+    lock_closures = {(e["kf_slot"], e["cand"]) for e in lock.loop_events
+                     if "cand" in e}
+    assert lock_closures
+    for _ in range(3):
+        eng, rows, queued = _threaded_run(cfg, arr, voc, profile_last=2)
+        assert queued > 0      # jobs ran beside the profiled chunks
+        first = min(eng.closures_landed[:1] + lock.closures_landed[:1]
+                    + [len(arr) + 1])
+        np.testing.assert_array_equal(rows[:first - 1],
+                                      lock_rows[:first - 1])
+        closures = {(e["kf_slot"], e["cand"]) for e in eng.loop_events
+                    if "cand" in e}
+        assert closures and closures <= lock_closures
+        w = eng._worker
+        assert w.error is None and w.outstanding == 0 and not w.requests
+        assert eng._closure_pend == [] and eng._loop_stash == []
+        assert all(np.isfinite(T).all() for T in eng.trajectory_refined())
+
+
+def test_threaded_engine_alive_at_exit_cuda(dev):
+    """A threaded engine on the card still alive when the interpreter
+    exits, in three processes: its worker is stopped and joined at exit,
+    before finalization, and each process ends with code 0 (a mapping
+    thread that ran torch work and outlived the interpreter's
+    finalization aborted 2 of 5 such processes on an H100,
+    std::terminate; PERF.md section 7)."""
+    import pathlib
+    import subprocess
+    import sys
+    import textwrap
+    code = textwrap.dedent("""
+        import numpy as np
+        from slam_toolkit_tpu_torch.config import SlamConfig
+        from slam_toolkit_tpu_torch.loop import vocab as V
+        from slam_toolkit_tpu_torch.pipeline.scan_engine import \\
+            ChunkedSlamEngine
+        cfg = SlamConfig.tiny()
+        rng = np.random.default_rng(0)
+        imgs = rng.uniform(0, 255, (9, 2, cfg.camera.height,
+                                    cfg.camera.width)).astype(np.float32)
+        eng = ChunkedSlamEngine(cfg, vocab=V.synthesize(4, 3, seed=0),
+                                chunk_size=4, device="cuda", queue_depth=2,
+                                loop_thread=True)
+        eng.process_chunk(imgs[:5])
+        eng.process_chunk(imgs[5:])
+        eng.flush()
+        print("ran", flush=True)
+    """)
+    for _ in range(3):
+        p = subprocess.run(
+            [sys.executable, "-c", code], capture_output=True, text=True,
+            timeout=80, cwd=str(pathlib.Path(__file__).resolve().parents[1]))
+        assert p.returncode == 0 and "ran" in p.stdout, p.stderr[-2000:]
