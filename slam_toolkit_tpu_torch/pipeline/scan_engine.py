@@ -86,10 +86,22 @@ from slam_toolkit_tpu_torch.pipeline.engine import (BOW_ROWS, SlamEngine,
                                                     full_float32, store_map)
 from slam_toolkit_tpu_torch.utils.cuda_graphs import (StepGraphs, run_if,
                                                       run_while)
+from slam_toolkit_tpu_torch.utils import timing
 from slam_toolkit_tpu_torch.utils.device import upload
 from slam_toolkit_tpu_torch.utils.lanes import lane
 
 PACK_WIDTH = 16 + 16 + 4  # T, T_rel, [slot, ok, kf, n_inliers]
+# a traced chunk's device stamps (_StaticChunk with a tracer), a row a
+# frame, in the order a frame writes them: its start (before the fetch),
+# after extraction (build_frame), after tracking (the tracker, keyframe
+# rule, carry writes and pack), then inside the keyframe IF body (its
+# start, after stereo, after insert and weak-mappoint cull, after local
+# BA, its end), and after the row store; the keyframe slots stay 0 on a
+# frame with no keyframe event
+FRAME_STAMPS = ("start", "extracted", "tracked", "kf_start", "kf_stereo",
+                "kf_inserted", "kf_ba", "kf_end", "stored")
+_SLOT = {name: k for k, name in enumerate(FRAME_STAMPS)}
+_NO_SPAN = contextlib.nullcontext()
 
 
 class ChunkCarry(NamedTuple):
@@ -127,7 +139,7 @@ def _camera_center(T: torch.Tensor) -> torch.Tensor:
 
 def keyframe_event(carry: ChunkCarry, frame, left, right, T_new,
                    res: TrackResult, cam: StereoCamera, cfg: SlamConfig,
-                   lanes=None):
+                   lanes=None, stamp=None):
     """The keyframe branch (JAX scan_engine kf_branch): SAD stereo, insert,
     weak-mappoint cull, local BA and the landmark snapshot. Returns (map,
     slot, snapshot, the keyframe's pose after BA).
@@ -141,15 +153,25 @@ def keyframe_event(carry: ChunkCarry, frame, left, right, T_new,
     and pose come back for every lane and hold for the flagged ones
     (_batched_keyframe keeps the others'). Each flagged lane's result is
     its single event's bit for bit. Descriptor stereo and the BRIEF gate
-    also run once over the lanes (frontend/frame.add_stereo)."""
+    also run once over the lanes (frontend/frame.add_stereo).
+
+    stamp: None, or stamp(name) to stamp the device clock after stereo
+    ("kf_stereo"), after insert and cull ("kf_inserted") and after local
+    BA ("kf_ba") (a traced chunk's FRAME_STAMPS)."""
     kw = {} if lanes is None else {"lanes": lanes}
     fr2 = add_stereo(frame, left, right, cam, cfg, **kw)
+    if stamp is not None:
+        stamp("kf_stereo")
     m, slot = insert_keyframe(
         carry.m, fr2, T_new, carry.frame_id, carry.lm_ids, res.mp_kpt,
         res.mp_inlier, cfg, lm_snapshot=(carry.lm_Xw, carry.lm_valid), **kw)
     m = cull_weak_mappoints(m, carry.frame_id, cfg.map.mp_cull_grace_frames,
                             cfg.map.mp_cull_min_obs, **kw)
+    if stamp is not None:
+        stamp("kf_inserted")
     m = local_ba_step(m, cam, cfg, **kw)
+    if stamp is not None:
+        stamp("kf_ba")
     if m.kf_valid.dim() == 2:
         latest_T = m.kf_T_cw[torch.arange(slot.shape[0],
                                           device=slot.device), slot]
@@ -239,8 +261,11 @@ def _batched_tracker(cfg: SlamConfig, cam: StereoCamera):
         return res0._replace(T_cw=torch.where(okp[:, None, None], T_dir,
                                               res0.T_cw)), ab
 
-    def track(carry: ChunkCarry, lefts: torch.Tensor) -> Tracked:
+    def track(carry: ChunkCarry, lefts: torch.Tensor,
+              stamp=None) -> Tracked:
         frame = build_frame(lefts, cam, cfg)
+        if stamp is not None:
+            stamp("extracted")
         T_pred = se3.per_lane(se3.compose, carry.velocity, carry.T_cw)
         ab_new = None
         if method == "direct":
@@ -355,7 +380,8 @@ def _frame_tracker(cfg: SlamConfig, cam: StereoCamera):
     """(track, keyframe), the two halves of make_frame_body's step:
     track(carry, left) -> Tracked; keyframe(carry, tracked, left, right)
     -> (map, slot, snapshot, the keyframe's pose, "hybrid"'s anchor
-    pattern intensities or None)."""
+    pattern intensities or None). Either takes an optional `stamp` (a
+    traced chunk's, keyframe_event's)."""
     method = cfg.tracker.method
     if method not in ("indirect", "direct", "hybrid"):
         raise NotImplementedError(f"tracker.method={method!r}")
@@ -376,8 +402,11 @@ def _frame_tracker(cfg: SlamConfig, cam: StereoCamera):
                          carry.kf_ab)
         return res0._replace(T_cw=torch.where(okp, T_dir, res0.T_cw)), ab
 
-    def track(carry: ChunkCarry, left: torch.Tensor) -> Tracked:
+    def track(carry: ChunkCarry, left: torch.Tensor,
+              stamp=None) -> Tracked:
         frame = build_frame(left, cam, cfg)
+        if stamp is not None:
+            stamp("extracted")
         T_pred = se3.compose(carry.velocity, carry.T_cw)
         ab_new = None
         if method == "direct":
@@ -395,9 +424,10 @@ def _frame_tracker(cfg: SlamConfig, cam: StereoCamera):
         return Tracked(frame, res, needs, T_new,
                        _velocity(T_new, carry.T_cw), peak, ab_new)
 
-    def keyframe(carry: ChunkCarry, t: Tracked, left, right):
+    def keyframe(carry: ChunkCarry, t: Tracked, left, right, stamp=None):
         m, slot, lm, latest_T = keyframe_event(
-            carry, t.frame, left, right, t.T_new, t.res, cam, cfg)
+            carry, t.frame, left, right, t.T_new, t.res, cam, cfg,
+            stamp=stamp)
         refvals = direct_lm.reference_values(
             DirectState(T_cw=latest_T, a=t.ab[0], b=t.ab[1]), left,
             cam.left, lm[0], lm[3], 1.0) if method == "hybrid" else None
@@ -526,10 +556,21 @@ class _StaticChunk:
     longest chunk yet (on a card the graph is then captured again). The
     carry returned is the static one; the caller may change it or hand
     another, which the next call copies in (load_carry). The rows
-    returned are the caller's."""
+    returned are the caller's.
+
+    With a tracer (utils/timing.StreamStages) the chunk also stamps the
+    device clock (timing.stamp) into `stamp_buf`, a flat int64 buffer of
+    (capacity, len(FRAME_STAMPS)) frame rows, indexed by the device frame
+    index as the rows are, and the chunk graph's start and end after
+    them: cleared at the chunk's start, each frame's FRAME_STAMPS, and
+    the two chunk-level stamps before and after the WHILE node; on a
+    card each stamp is a kernel node of the graph. The
+    capture is a span ("capture") of the tracer. Without one no stamp is
+    made: the graph, its launches and the rows are the untraced ones."""
 
     def __init__(self, cfg: SlamConfig, cam: StereoCamera,
-                 capacity: Optional[int] = None):
+                 capacity: Optional[int] = None,
+                 tracer: Optional[timing.StreamStages] = None):
         if capacity is not None and capacity < 1:
             raise ValueError(f"chunk capacity {capacity} < 1")
         self.cfg, self.cam = cfg, cam
@@ -538,6 +579,8 @@ class _StaticChunk:
         self.photometric = cfg.tracker.method != "indirect"
         self.static: Optional[ChunkCarry] = None
         self.graphs: Optional[StepGraphs] = None
+        self.tracer = tracer
+        self.stamp_buf: Optional[torch.Tensor] = None
 
     @staticmethod
     def _halves(cfg: SlamConfig, cam: StereoCamera):
@@ -567,13 +610,26 @@ class _StaticChunk:
         self.capacity, self.graphs = capacity, None
         self.images = self.pair.new_empty((capacity,) + self.pair.shape[1:])
         self.rows = self.row.new_empty((capacity,) + self.row.shape)
+        if self.tracer is not None:
+            self.stamp_buf = torch.zeros(
+                capacity * len(FRAME_STAMPS) + 2, dtype=torch.int64,
+                device=self.images.device)
+
+    @property
+    def _stamp(self):
+        """The halves' stamp hook: None untraced, so nothing stamps."""
+        return None if self.tracer is None else self._frame_stamp
+
+    def _frame_stamp(self, name: str) -> None:
+        """Stamp frame i's slot `name`."""
+        timing.stamp(self.stamp_buf, _SLOT[name], self.i, len(FRAME_STAMPS))
 
     def _flag(self, t: Tracked) -> torch.Tensor:
         """The keyframe event's flag, on the device."""
         return t.needs
 
     def _track_step(self, S: ChunkCarry) -> Tracked:
-        t = self.track(S, self.left)
+        t = self.track(S, self.left, self._stamp)
         self.fid.copy_(S.frame_id)           # the frame a keyframe inserts
         S.frame_id.add_(1)
         S.T_cw.copy_(t.T_new)
@@ -583,11 +639,16 @@ class _StaticChunk:
             S.kf_ab.copy_(t.ab)
         self.row.copy_(_pack(t.T_new, _relative(t.T_new, S.latest_T),
                              S.latest_slot, t.res, t.needs))
+        if self._stamp is not None:
+            self._stamp("tracked")
         return t
 
     def _keyframe_step(self, S: ChunkCarry, t: Tracked) -> None:
+        if self._stamp is not None:
+            self._stamp("kf_start")
         m, slot, lm, latest_T, refvals = self.keyframe(
-            S._replace(frame_id=self.fid), t, self.left, self.right)
+            S._replace(frame_id=self.fid), t, self.left, self.right,
+            self._stamp)
         store_map(S.m, m)
         for dst, src in zip((S.lm_Xw, S.lm_desc, S.lm_ids, S.lm_valid), lm):
             dst.copy_(src)
@@ -600,6 +661,8 @@ class _StaticChunk:
             S.kf_refvals.copy_(refvals)
         self.row.copy_(_pack(latest_T, _relative(latest_T, latest_T), slot,
                              t.res, t.needs))
+        if self._stamp is not None:
+            self._stamp("kf_end")
 
     def _frame_step(self, S: ChunkCarry) -> None:
         """One frame: tracking, then the keyframe event where flagged."""
@@ -609,17 +672,28 @@ class _StaticChunk:
     def _scan_step(self, S: ChunkCarry) -> None:
         """The WHILE body: frame i of the images buffer, its row stored at
         i, then i advanced and go = i < n, all on the device."""
+        if self._stamp is not None:
+            self._stamp("start")
         torch.index_select(self.images, 0, self.i, out=self.pair)
         self._frame_step(S)
         self.rows.index_copy_(0, self.i, self.row[None])
+        if self._stamp is not None:
+            self._stamp("stored")
         self.i.add_(1)
         torch.lt(self.i, self.n, out=self.go)
 
     def _chunk_program(self, S: ChunkCarry) -> None:
-        """The chunk: frames 0 to n - 1 (the JAX chunk's lax.scan)."""
+        """The chunk: frames 0 to n - 1 (the JAX chunk's lax.scan); traced,
+        the stamps cleared and the chunk-level stamps around the frames."""
+        traced = self.stamp_buf is not None
+        if traced:
+            self.stamp_buf.zero_()
+            timing.stamp(self.stamp_buf, self.stamp_buf.numel() - 2)
         self.i.zero_()
         torch.gt(self.n, 0, out=self.go)
         run_while(self.go, self._scan_step, S, name="frame")
+        if traced:
+            timing.stamp(self.stamp_buf, self.stamp_buf.numel() - 1)
 
     def _capture(self) -> None:
         g = StepGraphs(self.left.device)
@@ -650,7 +724,9 @@ class _StaticChunk:
         self.images[:C].copy_(images.movedim(-3, 1))
         self.n.fill_(C)
         if images.is_cuda and self.graphs is None:
-            self._capture()
+            with _NO_SPAN if self.tracer is None else \
+                    self.tracer.stage("capture"):
+                self._capture()
         if self.graphs is None:
             self._chunk_program(self.static)
         else:
@@ -659,7 +735,8 @@ class _StaticChunk:
 
 
 def make_chunk_fn(cfg: SlamConfig, cam: StereoCamera, graphs: bool = True,
-                  capacity: Optional[int] = None):
+                  capacity: Optional[int] = None,
+                  tracer: Optional[timing.StreamStages] = None):
     """chunk(carry, images (C, 2, H, W)) -> (carry, packed (C, 36)), the
     JAX make_chunk_fn (a jitted lax.scan of make_frame_body with a donated
     carry). graphs=True: the scan on a static carry (_StaticChunk), one
@@ -670,9 +747,10 @@ def make_chunk_fn(cfg: SlamConfig, cam: StereoCamera, graphs: bool = True,
     call returned, and that one is overwritten by the next call, as JAX's
     donated carry is. graphs=False: make_frame_body frame by frame,
     eagerly (the JAX engine under jax.disable_jit()), for comparisons,
-    any length."""
+    any length. tracer: the static chunk's device stamps (_StaticChunk);
+    the eager chunk has none."""
     if graphs:
-        return _StaticChunk(cfg, cam, capacity)
+        return _StaticChunk(cfg, cam, capacity, tracer)
     return _eager_chunk(make_frame_body(cfg, cam))
 
 
@@ -698,7 +776,9 @@ class _StaticBatchedChunk(_StaticChunk):
     the IF node's flag), the keyframe event runs once over all lanes with
     the flags as its lane mask (the flagged lanes' maps, snapshots,
     slots, poses, anchors and rows). One graph for any B, captured once
-    and launched once a chunk."""
+    and launched once a chunk. Traced, it stamps the frame-level slots
+    (start, extracted, tracked, stored) and the chunk's; the keyframe
+    slots stay 0."""
 
     @staticmethod
     def _halves(cfg: SlamConfig, cam: StereoCamera):
@@ -709,7 +789,7 @@ class _StaticBatchedChunk(_StaticChunk):
         return t.needs.any()
 
     def _track_step(self, S: ChunkCarry) -> Tracked:
-        t = self.track(S, self.left)
+        t = self.track(S, self.left, self._stamp)
         self.fid.copy_(S.frame_id)
         S.frame_id.add_(1)
         S.T_cw.copy_(t.T_new)
@@ -720,6 +800,8 @@ class _StaticBatchedChunk(_StaticChunk):
         self.row.copy_(_pack(t.T_new, se3.per_lane(_relative, t.T_new,
                                                    S.latest_T),
                              S.latest_slot, t.res, t.needs))
+        if self._stamp is not None:
+            self._stamp("tracked")
         return t
 
     def _keyframe_step(self, S: ChunkCarry, t: Tracked) -> None:
@@ -1055,13 +1137,29 @@ class ChunkedSlamEngine:
     The defaults differ from the JAX engine's (2 and "1"): 0 and "0", the
     JAX engine's deterministic schedule, in which each chunk is folded
     as soon as it ran and the loop phases run inline.
+
+    trace=True keeps the engine's spans and the chunk graph's device
+    stamps in `tracer` (a utils.timing.StreamStages, on one clock; None
+    untraced, and then a span costs one None check and no stamp is
+    captured). Each process_chunk is a span "chunk" whose children are
+    "upload", "bootstrap" (the first call), "headroom" (a "cull" each
+    keyframe cull, its readbacks inside), "dispatch" ("launch" inside:
+    load_carry, the images' copy, the replay's enqueue, and at the first
+    chunk "capture", the warm-up and capture) and "fold"
+    ("readback_wait", "rows", and with a vocabulary the loop's stages,
+    SlamEngine.stages, on the same tracer; a mapping worker's job is a
+    span "job p1" or "job p2" caused by its fold). A chunk's stamps
+    (FRAME_STAMPS, and its graph's start and end) come back with its
+    rows, beside them in pinned memory under the same event, and are
+    kept at its fold (StreamStages.add_stamps) under its "dispatch"
+    span. The clock's offset is measured again at each flush.
     """
 
     def __init__(self, cfg: Optional[SlamConfig] = None,
                  cam: Optional[StereoCamera] = None, vocab=None,
                  chunk_size: int = 8, device="cuda", graphs: bool = True,
                  queue_depth: Optional[int] = None,
-                 loop_thread: Optional[bool] = None):
+                 loop_thread: Optional[bool] = None, trace: bool = False):
         self.cfg = cfg or SlamConfig()
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -1076,8 +1174,9 @@ class ChunkedSlamEngine:
             raise ValueError(f"queue_depth {self.queue_depth} < 0")
         self.loop_thread = vocab is not None and \
             _knob(loop_thread, "SLAM_LOOP_THREAD", "0") == "1"
+        self.tracer = timing.StreamStages(self.device) if trace else None
         self._chunk = make_chunk_fn(self.cfg, self.cam, graphs,
-                                    capacity=chunk_size)
+                                    capacity=chunk_size, tracer=self.tracer)
         self.carry: Optional[ChunkCarry] = None
         self.n_keyframes = 0          # keyframes inserted, culled ones too
         self.n_culls = 0
@@ -1102,6 +1201,7 @@ class ChunkedSlamEngine:
         if vocab is not None:
             self._host = SlamEngine(self.cfg, self.cam, vocab, self.device,
                                     own_map=False, graphs=graphs)
+            self._host.stages = self.tracer
         # the host engine whose keyframe programs cull the carry's map (the
         # loop host, or one of its own without a vocabulary)
         self._mapper = self._host if vocab is not None else SlamEngine(
@@ -1125,6 +1225,12 @@ class ChunkedSlamEngine:
         scale, T_meas, T_cand_pre) and relocalizations (frame, reloc_to,
         inliers), as the JAX engine logs them."""
         return [] if self._host is None else self._host.loop_events
+
+    def _span(self, name: str, cause: Optional[int] = None):
+        """A span of the tracer around a block (a shared null context
+        untraced)."""
+        return _NO_SPAN if self.tracer is None else \
+            self.tracer.stage(name, cause=cause)
 
     def warmup(self) -> None:
         """Nothing to compile ahead: the kernels build at first use, and
@@ -1219,19 +1325,20 @@ class ChunkedSlamEngine:
         m = self.carry.m
         latest = None
         while self._n_kf_valid >= cap - n_next - 2:
-            kf_T_pre = m.kf_T_cw.cpu().numpy().copy()
-            s = self._mapper._cull_slot(m, "cull")
-            if s < 0:
-                s = self._mapper._cull_slot(m, "cull_any")
-            if s < 0:
-                raise RuntimeError(
-                    f"keyframe capacity {cap} exhausted (all protected)")
-            self.n_culls += 1
-            fid = torch.where(m.kf_valid, m.kf_frame_id,
-                              torch.full_like(m.kf_frame_id, -1))
-            latest = torch.argmax(fid)
-            slot_np, self._n_kf_valid = (int(v) for v in torch.stack(
-                [latest, torch.sum(m.kf_valid)]).cpu())
+            with self._span("cull"):
+                kf_T_pre = m.kf_T_cw.cpu().numpy().copy()
+                s = self._mapper._cull_slot(m, "cull")
+                if s < 0:
+                    s = self._mapper._cull_slot(m, "cull_any")
+                if s < 0:
+                    raise RuntimeError(
+                        f"keyframe capacity {cap} exhausted (all protected)")
+                self.n_culls += 1
+                fid = torch.where(m.kf_valid, m.kf_frame_id,
+                                  torch.full_like(m.kf_frame_id, -1))
+                latest = torch.argmax(fid)
+                slot_np, self._n_kf_valid = (int(v) for v in torch.stack(
+                    [latest, torch.sum(m.kf_valid)]).cpu())
             T_new_inv = np.linalg.inv(kf_T_pre[slot_np])
             for i, (sl, rel) in enumerate(self._traj_anchor):
                 if sl == s:
@@ -1260,23 +1367,31 @@ class ChunkedSlamEngine:
         ok, kf, n_inliers] in frame order (none while the queue fills;
         flush() returns the rest; the bootstrap frame has no row). The
         engine's work runs in full float32; the caller's TF32 flags are
-        restored on return."""
+        restored on return. Traced, a span "chunk" (see the class)."""
+        with self._span("chunk"):
+            return self._process_chunk(images)
+
+    def _process_chunk(self, images) -> np.ndarray:
         t0 = time.perf_counter()
         # host frames go up through pinned memory, without waiting
-        imgs = images.to(self.device, torch.float32) if \
-            torch.is_tensor(images) and \
-            images.device.type == self.device.type else \
-            upload(np.asarray(images, np.float32), self.device)
+        with self._span("upload"):
+            imgs = images.to(self.device, torch.float32) if \
+                torch.is_tensor(images) and \
+                images.device.type == self.device.type else \
+                upload(np.asarray(images, np.float32), self.device)
         if self.carry is None:
-            self._bootstrap(imgs[0, 0], imgs[0, 1], t0)
+            with self._span("bootstrap"):
+                self._bootstrap(imgs[0, 0], imgs[0, 1], t0)
             self._n_dispatched = 1
             imgs = imgs[1:]
         if len(imgs) == 0:
             return np.zeros((0, PACK_WIDTH), np.float32)
         if self._worker is not None:
             self._worker.serve()      # closures the worker decided land here
-        self._ensure_headroom(len(imgs))
-        self._dispatch(imgs, t0)
+        with self._span("headroom"):
+            self._ensure_headroom(len(imgs))
+        with self._span("dispatch"):
+            self._dispatch(imgs, t0)
         owed, self._owed_rows = self._owed_rows, []
         return _rows(owed + self._fold_down_to(self.queue_depth))
 
@@ -1284,7 +1399,8 @@ class ChunkedSlamEngine:
         """Run one chunk; register and score its keyframes' BoW rows on
         the device right after it (JAX _loop_dispatch), publish the map
         for the mapping worker, and queue the chunk for its fold."""
-        self.carry, packed = self._chunk(self.carry, imgs)
+        with self._span("launch"):
+            self.carry, packed = self._chunk(self.carry, imgs)
         self._n_dispatched += len(imgs)
         sc = None
         if self._host is not None:
@@ -1295,6 +1411,8 @@ class ChunkedSlamEngine:
                 _, sc = h._bow_register(self.carry.m, h.bow_db, packed)
         if self._worker is not None:
             self._worker.publish(self.carry.m)
+        # a traced static chunk's stamps, read back beside the rows
+        stamps = getattr(self._chunk, "stamp_buf", None)
         ready = None
         if packed.is_cuda:
             # the rows to pinned memory without a wait, and an event the
@@ -1302,14 +1420,22 @@ class ChunkedSlamEngine:
             host = torch.empty(packed.shape, dtype=packed.dtype,
                                pin_memory=True)
             host.copy_(packed, non_blocking=True)
+            if stamps is not None:
+                st = torch.empty(stamps.shape, dtype=stamps.dtype,
+                                 pin_memory=True)
+                stamps = st.copy_(stamps, non_blocking=True)
             ready = torch.cuda.Event()
             ready.record()
             packed = host
+        elif stamps is not None:
+            stamps = stamps.clone()
         self._pending.append({"packed": packed, "ready": ready, "t0": t0,
                               "n": len(imgs), "sc": sc,
                               # the caller's image: the chunk's static
                               # images buffer is the next chunk's
-                              "last_img": imgs[-1]})
+                              "last_img": imgs[-1], "stamps": stamps,
+                              "span": None if self.tracer is None
+                              else self.tracer.current()})
 
     def _prepare_loop_graphs(self) -> None:
         """Once, on the main thread, before any mapping job: the loop
@@ -1346,15 +1472,24 @@ class ChunkedSlamEngine:
         """Fold the oldest chunk in flight: its one readback of packed
         rows (on a card a wait for their copy to pinned memory alone, not
         for the chunks queued after it), the host rows and mirrors, and
-        with a vocabulary the loop work of the fold (JAX _fold_one)."""
-        p = self._pending.pop(0)
-        if p["ready"] is not None:
-            p["ready"].synchronize()                     # one readback
-        packed_np = p["packed"].numpy()
-        self._fold(packed_np, p["t0"])
-        if self._host is not None:
-            self._loop_fold(packed_np, p)
-        return packed_np
+        with a vocabulary the loop work of the fold (JAX _fold_one);
+        traced, the chunk's stamps kept by the tracer."""
+        with self._span("fold"):
+            p = self._pending.pop(0)
+            with self._span("readback_wait"):
+                if p["ready"] is not None:
+                    p["ready"].synchronize()             # one readback
+            packed_np = p["packed"].numpy()
+            if p["stamps"] is not None:
+                st = p["stamps"].numpy()
+                k = len(FRAME_STAMPS)
+                self.tracer.add_stamps(p["span"], FRAME_STAMPS, st[-2:],
+                                       st[:p["n"] * k].reshape(p["n"], k))
+            with self._span("rows"):
+                self._fold(packed_np, p["t0"])
+            if self._host is not None:
+                self._loop_fold(packed_np, p)
+            return packed_np
 
     def _fold(self, packed_np: np.ndarray, t0: float) -> None:
         base = len(self.trajectory)
@@ -1376,7 +1511,8 @@ class ChunkedSlamEngine:
         """Fold every chunk in flight and return their rows (and any owed).
         With a vocabulary, wait for the mapping worker (raising the first
         exception a job raised), then consume the stashed detections and
-        close the measurements they start (the JAX engine's flush)."""
+        close the measurements they start (the JAX engine's flush).
+        Traced, the device clock's offset is measured again."""
         owed, self._owed_rows = self._owed_rows, []
         rows = _rows(owed + self._fold_down_to(0))
         if self._host is not None and self.carry is not None:
@@ -1387,6 +1523,8 @@ class ChunkedSlamEngine:
             if self._loop_stash:
                 self._loop_phase2(True, seen)
             self._finish_pending_closures(False, seen)
+        if self.tracer is not None:
+            self.tracer.sync_clock()
         return rows
 
     # ---- loop closing and relocalization between chunks ---------------
@@ -1420,8 +1558,11 @@ class ChunkedSlamEngine:
 
     def _run_job(self, kind: str, args: tuple) -> None:
         """A mapping-worker job (JAX _loop_worker_main): phase 2 of a fold,
-        or phase 1 of a folded chunk, on the worker's stream."""
-        with full_float32(), self._worker.reading():
+        or phase 1 of a folded chunk, on the worker's stream; traced, a
+        span caused by the fold that submitted it (its `seen`, the last
+        argument)."""
+        with full_float32(), self._worker.reading(), \
+                self._span("job " + kind, cause=args[-1]["cause"]):
             if kind == "p1":
                 self._loop_phase1(*args)
             else:
@@ -1482,9 +1623,11 @@ class ChunkedSlamEngine:
         frame ids), copied as of this fold: the main thread writes them at
         every fold, and a job of the mapping worker reads only the copy
         taken when it was submitted (the JAX engine's single-writer
-        rule)."""
+        rule); traced, the span that took them ("cause")."""
         return {"n_keyframes": self._host.n_keyframes,
-                "kf_fid": self._kf_fid_host.copy()}
+                "kf_fid": self._kf_fid_host.copy(),
+                "cause": None if self.tracer is None
+                else self.tracer.current()}
 
     def _submit(self, kind: str, args: tuple) -> None:
         """Queue a job for the mapping worker. The CUDA graphs (the

@@ -985,6 +985,77 @@ def test_graphed_scan_chunk_one_launch(dev, method, monkeypatch):
         g_eng._chunk(g_eng.carry, torch.from_numpy(imgs[:5]).to(dev))
 
 
+def test_traced_chunk_stamps_cuda(dev, monkeypatch):
+    """The chunk graph traced on the card (ChunkedSlamEngine(trace=True):
+    stamp kernel nodes inside the WHILE and IF bodies) against an
+    untraced engine, tiny config, 25 frames in chunks of 8: rows and
+    maps bit-equal, every other kernel's launches equal, and no stamp
+    launched untraced; the stamps non-decreasing in slot order within a
+    frame and frame after frame, the graph stamps around them and
+    increasing chunk after chunk; each chunk's stamped graph time within
+    2% of CUDA events recorded around its replay("chunk"), and inside
+    the host span "chunk" that ran it; the clock's error under 1 ms."""
+    import dataclasses
+
+    from slam_toolkit_tpu_torch.config import SlamConfig
+    from slam_toolkit_tpu_torch.pipeline.scan_engine import ChunkedSlamEngine
+    from slam_toolkit_tpu_torch.utils import cuda_graphs, cuda_lib, timing
+    cfg = SlamConfig.tiny()
+    cfg = dataclasses.replace(cfg, keyframe=dataclasses.replace(
+        cfg.keyframe, decay_ratio=0.95))
+    imgs = _tiny_images(25)
+    bounds = ((0, 9), (9, 17), (17, 25))
+    events = []
+    replay = cuda_graphs.StepGraphs.replay
+
+    def timed(self, name):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        replay(self, name)
+        ev[1].record()
+        if name == "chunk":
+            events.append(ev)
+    monkeypatch.setattr(cuda_graphs.StepGraphs, "replay", timed)
+    out = {}
+    for trace in (False, True):
+        events.clear()
+        before = {c: c.launches for c in cuda_lib.launch_counts()}
+        eng = ChunkedSlamEngine(cfg, chunk_size=8, device=dev, trace=trace)
+        rows = [eng.process_chunk(imgs[a:b]) for a, b in bounds]
+        torch.cuda.synchronize()
+        out[trace] = (eng, rows, _chunk_launches(before), list(events))
+    (p_eng, p_rows, p_l, _), (t_eng, t_rows, t_l, ev) = out[False], \
+        out[True]
+    for a, b in zip(p_rows, t_rows):
+        np.testing.assert_array_equal(a, b)
+    for f in p_eng.map._fields:
+        assert torch.equal(getattr(p_eng.map, f), getattr(t_eng.map, f)), f
+    assert p_l.get(timing._STAMP.symbol, 0) == 0
+    assert t_l.pop(timing._STAMP.symbol) > 0
+    assert {k: v for k, v in p_l.items() if v} == \
+        {k: v for k, v in t_l.items() if v}
+    ex = t_eng.tracer.export()
+    spans = {s["id"]: s for s in ex["spans"]}
+    err = max(c["error_ns"] for c in ex["clock"])
+    assert 0 <= err < 1_000_000
+    assert len(ex["stamps"]) == len(ev) == len(bounds)
+    last = None
+    for c, (e0, e1), r in zip(ex["stamps"], ev, t_rows):
+        assert len(c["frames"]) == len(r)
+        flat = [t for f in c["frames"] for t in f if t is not None]
+        g0, g1 = c["graph"]
+        assert flat == sorted(flat) and g0 <= flat[0] and flat[-1] <= g1
+        assert last is None or last < g0
+        last = g1
+        graph_ms, event_ms = (g1 - g0) / 1e6, e0.elapsed_time(e1)
+        assert abs(graph_ms - event_ms) <= 0.02 * event_ms, \
+            (graph_ms, event_ms)
+        root = spans[c["root"]]
+        assert root["name"] == "chunk"
+        assert root["start_ns"] - err <= g0 and g1 <= root["end_ns"] + err
+
+
 def test_graphed_scan_batched_one_launch(dev, monkeypatch):
     """The batched chunk as one graph on the card, B = 2 lanes of
     distinct sequences, capacity 5, chunks of 5, 5 and a short last 2:
