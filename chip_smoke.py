@@ -40,7 +40,7 @@ Phases (any failure raises and the script exits non-zero):
    and level 0's 434 windows alone; and as direct LM launches it, 3072
    windows 8x8 on a full-size level. The top-2 matcher is exact in every
    column, with the share of its pairs inside r and 2r. FAST+NMS is
-   timed as the fused path launches it, a frame's 8 levels in one launch
+   timed as the main path launches it, a frame's 8 levels in one launch
    (frame 0 of the track; its level 0 alone and a textured-noise frame
    beside it), bit-exact on every level in both modes; its bound counts
    the work its outputs need on the run's input (a response only for the
@@ -80,10 +80,11 @@ Phases (any failure raises and the script exits non-zero):
    graph: the last frame replayed); after the run the kernel must be
    exact against the plain version on them, and its device time there
    is printed beside the synthetic case's.
-4. The same 48 frames with extractor.fused_fast=True: counts reset
-   before and read after; FAST launches once a frame (all levels in one
-   launch), keyframe flags equal phase 3's, translations within 1e-4 m
-   of it.
+4. The same 48 frames through the plain detector
+   (fast_kernel.detect_levels swapped for detect_levels_plain, captured
+   in the chunk graph in the kernel's place): counts reset before and
+   read after; FAST never launches, every other kernel as in phase 3,
+   keyframe flags equal phase 3's, translations within 1e-4 m of it.
 5. The first 8 frames again through the port's CPU path (plain
    versions, local BA included); fails on a frame whose translation
    differs by > 0.25 m.
@@ -101,8 +102,8 @@ Phases (any failure raises and the script exits non-zero):
    gather launched at 8x8, the pose LM never.
    Phases 3-8 each set every kernel's count to 0 just before the run and
    read the counts just after.
-9. The kernel table as one JSON line (launches from phase 3, FAST's from
-   phase 4, each kernel's launches in phase 10 as `launches_loop`, in
+9. The kernel table as one JSON line (launches from phase 3, each
+   kernel's launches in phase 10 as `launches_loop`, in
    phase 11 (a) as `launches_classic`, in phase 12 (a) as
    `launches_cluster`, in phase 13's batched layout as `launches_dp`
    and in its batched hybrid and direct runs as `launches_dp_hybrid`,
@@ -277,8 +278,8 @@ Phases (any failure raises and the script exits non-zero):
    rounded to bfloat16; the float32 gather at subpixel's 11x11 and
    11x17 (2048 windows) and at ic_angle's 31x31 over the raw poly
    levels; FAST+NMS on the poly level shapes. (b) Phase 3's 48 frames
-   under O1 (steered BRIEF, bfloat16 descriptors, poly pyramid, fused
-   FAST, descriptor stereo), O2 (the SAD stereo's BRIEF gate) and O3 (O1
+   under O1 (steered BRIEF, bfloat16 descriptors, poly pyramid,
+   descriptor stereo), O2 (the SAD stereo's BRIEF gate) and O3 (O1
    with upright descriptors, the path of the gather's bfloat16 entry),
    each graphed and then eagerly: rows bit-equal and launches equal (by
    window shape too), every kernel of the path launched and none that
@@ -1072,10 +1073,10 @@ def fast_bound(levels, thr_hi, thr_lo: float, border: int):
 
 
 def check_fast_nms(dev, rng):
-    """FAST+NMS as the fused path launches it: every level of a frame in
+    """FAST+NMS as the main path launches it: every level of a frame in
     one launch (detect_levels), bit-exact against the plain detector on
     all 8 levels in both modes. The row is frame 0 of the synthetic track
-    (the fused path's input), its bound counted from the work its outputs
+    (the main path's input), its bound counted from the work its outputs
     need; level 0 alone and a textured-noise frame (more corner
     candidates) are timed beside it."""
     from slam_toolkit_tpu_torch.config import SlamConfig
@@ -1507,7 +1508,7 @@ def phase10(cfg, kernels: dict, rows: list, label: str) -> dict:
           f"{eng._host._kf.runs}")
     if kf_st["captures"] != 3:
         raise AssertionError(f"keyframe graphs of the loop host: {kf_st}")
-    missing = [n for n, v in launches.items() if v == 0 and n != "fast_nms"]
+    missing = [n for n, v in launches.items() if v == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the loop path: "
                              f"{missing}")
@@ -1677,8 +1678,7 @@ def phase11(cfg, frames, gt, kernels: dict, label: str, main: dict) -> dict:
               f"{main['fps']:.2f}, keyframes {main['n_kf']}, landmarks "
               f"{main['n_lm']}, ATE {main['ate']:.4f} m")
         print(f"[phase11] {label} (a) launches {launches}")
-        missing = [k for k, v in launches.items() if v == 0 and
-                   k != "fast_nms"]
+        missing = [k for k, v in launches.items() if v == 0]
         if missing:
             raise AssertionError(f"kernels not launched by process: "
                                  f"{missing}")
@@ -3437,7 +3437,7 @@ def phase16(cfg, frames48, loop: dict, kernels: dict, label: str) -> dict:
     if not closures or eng.n_replays < 1:
         raise AssertionError(f"pipelined: {len(closures)} closures, "
                              f"{eng.n_replays} replays")
-    missing = [n for n, v in launches.items() if v == 0 and n != "fast_nms"]
+    missing = [n for n, v in launches.items() if v == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the pipelined loop "
                              f"path: {missing}")
@@ -4001,7 +4001,7 @@ def main() -> int:
           f"{ba_kernel.max_points(8, torch.cuda.current_device())} points "
           f"at W=8, pose LM {pose_lm_kernel.max_obs()} observations")
 
-    # ---- phase 3: the main path (fused_fast off, as SlamConfig())
+    # ---- phase 3: the main path (SlamConfig(); FAST+NMS a launch a frame)
     from slam_toolkit_tpu_torch.config import SlamConfig
     from slam_toolkit_tpu_torch.evaluation.traj import ate_rmse
     from slam_toolkit_tpu_torch.ops.extractor import level_budgets
@@ -4038,7 +4038,7 @@ def main() -> int:
         raise AssertionError(f"only {n_kf} keyframes")
     if ok_frac < 0.9:
         raise AssertionError(f"tracking ok on only {ok_frac:.2f} of frames")
-    missing = [n for n, v in launches.items() if v == 0 and n != "fast_nms"]
+    missing = [n for n, v in launches.items() if v == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}")
@@ -4046,10 +4046,13 @@ def main() -> int:
         raise AssertionError(f"local BA launched {launches['local_ba']} "
                              f"times for {n_kf - 1} keyframes after the "
                              "bootstrap")
-    if launches["patch_gather"] != len(frames):
-        raise AssertionError(f"the gather launched "
-                             f"{launches['patch_gather']} times for "
-                             f"{len(frames)} frames, expected one a frame")
+    n_levels = sum(1 for b in level_budgets(cfg.extractor) if b > 0)
+    for name, what in (("patch_gather", "the gather"),
+                       ("fast_nms", f"FAST+NMS of {n_levels} levels")):
+        if launches[name] != len(frames):
+            raise AssertionError(f"{what} launched {launches[name]} times "
+                                 f"for {len(frames)} frames, expected one "
+                                 "a frame")
     if not ate <= 0.138:
         raise AssertionError(f"ATE {ate:.4f} m above 0.138 m")
     main_path = {"fps": len(frames) / sum(chunk_s), "n_kf": n_kf,
@@ -4057,35 +4060,32 @@ def main() -> int:
     check_topk2_frame(cap, next(r["ms"] for r in rows
                                 if r["name"] == "topk2_match"), label)
 
-    # ---- phase 4: the same frames with the fused FAST+NMS kernel
-    cfg_f = cfg.replace(extractor=dataclasses.replace(cfg.extractor,
-                                                      fused_fast=True))
-    eng_f, chunk_f, launches_f, _ = drive(cfg_f, frames, 16, kernels)
-    n_levels = sum(1 for b in level_budgets(cfg.extractor) if b > 0)
+    # ---- phase 4: the same frames through the plain detector
+    from slam_toolkit_tpu_torch.ops import fast_kernel
+    kernel_route = fast_kernel.detect_levels
+    fast_kernel.detect_levels = fast_kernel.detect_levels_plain
+    try:
+        eng_p, chunk_p, launches_p, _ = drive(cfg, frames, 16, kernels)
+    finally:
+        fast_kernel.detect_levels = kernel_route
     kf_main = [s["kf"] for s in eng.frame_stats]
-    kf_fused = [s["kf"] for s in eng_f.frame_stats]
-    dt_f = translations_m(eng, eng_f, len(frames))
-    print(f"[phase4] {label} fused_fast: frames/s "
-          f"{32 / sum(chunk_f[1:]):.2f} over chunks 2-3, launches "
-          f"{launches_f}, max |t_fused - t_main| {max(dt_f)} m")
+    kf_plain = [s["kf"] for s in eng_p.frame_stats]
+    dt_p = translations_m(eng, eng_p, len(frames))
+    print(f"[phase4] {label} plain FAST: frames/s "
+          f"{32 / sum(chunk_p[1:]):.2f} over chunks 2-3 (the main path "
+          f"{32 / steady:.2f}), launches {launches_p}, max |t_plain - "
+          f"t_main| {max(dt_p)} m")
     print(f"[phase4] {label} "
-          f"{if_runs_line(eng_f, eng_f.smoke_syncs, 'fused_fast')}")
-    if launches_f["fast_nms"] != len(frames):
-        raise AssertionError(f"FAST launched {launches_f['fast_nms']} "
-                             f"times for {len(frames)} frames of "
-                             f"{n_levels} levels, expected one a frame")
-    if launches_f["patch_gather"] != len(frames):
-        raise AssertionError(f"the gather launched "
-                             f"{launches_f['patch_gather']} times for "
-                             f"{len(frames)} frames, expected one a frame")
-    if [n for n, v in launches_f.items() if v == 0]:
-        raise AssertionError(f"kernels not launched on the fused path: "
-                             f"{launches_f}")
-    if kf_fused != kf_main:
-        raise AssertionError("fused_fast changed the keyframe decisions")
-    if max(dt_f) > 1e-4:
-        raise AssertionError(f"fused_fast moved a frame by {max(dt_f)} m")
-    launches["fast_nms"] = launches_f["fast_nms"]
+          f"{if_runs_line(eng_p, eng_p.smoke_syncs, 'plain FAST')}")
+    if launches_p != dict(launches, fast_nms=0):
+        raise AssertionError(f"the plain route's launches {launches_p}, "
+                             f"the main path's {launches} but FAST's")
+    if kf_plain != kf_main:
+        raise AssertionError("the plain detector changed the keyframe "
+                             "decisions")
+    if max(dt_p) > 1e-4:
+        raise AssertionError(f"the plain detector moved a frame by "
+                             f"{max(dt_p)} m")
 
     # ---- phase 5: the CPU path
     cpu_eng, _ = run_engine(cfg, frames[:8], 8, "cpu")

@@ -1,8 +1,9 @@
 """Typed configuration for the whole engine.
 
-A copy of slam_toolkit_tpu/config.py, verbatim below this docstring, so
-that the port imports nothing of the JAX package; a test holds every
-field of SlamConfig() and SlamConfig.tiny() equal to the original's.
+A copy of slam_toolkit_tpu/config.py, verbatim below this docstring
+but for the comment on ExtractorConfig.fused_fast, so that the port
+imports nothing of the JAX package; a test holds every field of
+SlamConfig() and SlamConfig.tiny() equal to the original's.
 The comments record measurements taken with the JAX package (on a TPU
 where they say so), not with this port.
 """
@@ -60,14 +61,13 @@ class ExtractorConfig:
     # ATE on the KITTI-scale bench. Keep float32; the bf16 path stays
     # available for HBM-constrained deployments.
     descriptor_dtype: str = "float32"
-    # fused FAST+NMS Pallas kernel (ops/fast_kernel.py): the whole
-    # corner chain in one VMEM pass per level, bit-exact vs the XLA
-    # formulation (probe-gated, XLA fallback off-TPU / on Mosaic
-    # failure). Default OFF: alternating bench A/B on a v5e was a
-    # statistical tie (XLA 495-523 fps over 4 runs, fused 500-523 over
-    # 3; both VPU-bound on identical arithmetic), so the simpler XLA
-    # path stays default. Kept as an option for libtpu builds where
-    # the XLA fusion regresses.
+    # In the JAX package: the fused FAST+NMS Pallas kernel, bit-exact
+    # vs the XLA formulation, default off after a v5e A/B tie. In the
+    # port it selects nothing: ops/extractor always routes FAST through
+    # ops/fast_kernel.detect_levels (one launch of the hand-written
+    # kernel a frame on the card, the plain detector on the CPU), as
+    # both routes give the same responses bit for bit. Kept so that
+    # configurations of either package load unchanged.
     fused_fast: bool = False
 
     @property

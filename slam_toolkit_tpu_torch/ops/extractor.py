@@ -6,10 +6,12 @@ intensity-centroid angle (steer_rotation); descriptors compared on the
 float32 blurred levels, or on them rounded to bfloat16
 (descriptor_dtype="bfloat16", the gather's bfloat16 entry; steered
 descriptors sample by element and never reach the gather). FAST is
-routed as the JAX package routes it: the fused FAST+NMS kernel
-(ops/fast_kernel, all levels of the frame in one call) when fused_fast
-is set and the border is at least 5, else the dual- or
-single-threshold detector of ops/fast. Output is a fixed-shape
+routed through ops/fast_kernel.detect_levels at every border (all
+levels of the frame in one call: one launch of the fused FAST+NMS
+kernel on the card, the dual- or single-threshold detector of ops/fast
+level by level on the CPU). fused_fast selects nothing here: both
+routes give the same responses bit for bit, so the flag only chose an
+implementation on the TPU. Output is a fixed-shape
 FrameFeatures; padded slots are flagged invalid. extract_batch runs B
 lanes' images with a leading lane axis on every step (the JAX package's
 vmapped extract): one op, or one kernel launch, for the B lanes, and
@@ -24,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from slam_toolkit_tpu_torch.config import ExtractorConfig
-from slam_toolkit_tpu_torch.ops import (brief, fast, fast_kernel, pyramid,
+from slam_toolkit_tpu_torch.ops import (brief, fast_kernel, pyramid,
                                         topk_grid)
 
 
@@ -85,22 +87,14 @@ def extract(image: torch.Tensor, cfg: ExtractorConfig) -> FrameFeatures:
     # dual threshold: high-threshold corners outrank low-threshold
     # fallbacks through a +1e4 rank boost
     thr_hi = float(cfg.fast_threshold_high) if cfg.dual_threshold else None
-    use_fused = cfg.fused_fast and border >= 5
-    if use_fused:
-        # the levels with a budget, up to MAX_LEVELS of them a launch
-        fused = _fused_levels(levels, [lvl for lvl, n_l in enumerate(budgets)
-                                       if n_l > 0], thr_hi, cfg, border)
+    # the levels with a budget, up to MAX_LEVELS of them a launch
+    fused = _fused_levels(levels, [lvl for lvl, n_l in enumerate(budgets)
+                                   if n_l > 0], thr_hi, cfg, border)
     parts, raw_levels, blurred_levels, xy_levels = [], [], [], []
     for lvl, (img_l, n_l) in enumerate(zip(levels, budgets)):
         if n_l == 0:
             continue
-        if use_fused:
-            eff = fused[lvl]
-        elif cfg.dual_threshold:
-            eff = fast.detect_dual(img_l, thr_hi,
-                                   float(cfg.fast_threshold_low), border)
-        else:
-            eff = fast.detect(img_l, float(cfg.fast_threshold_low), border)
+        eff = fused[lvl]
         h_l, w_l = img_l.shape[-2:]
         ncells = ((h_l + cfg.cell_size - 1) // cfg.cell_size) * \
                  ((w_l + cfg.cell_size - 1) // cfg.cell_size)

@@ -1,15 +1,17 @@
 """FAST + 3x3 NMS + rank boost + border mask of pyramid levels as one
 kernel launch.
 
-Counterpart of slam_toolkit_tpu/ops/fast_kernel.py::detect (the
-ExtractorConfig.fused_fast path). For CUDA tensors the wrappers launch
-the hand-written kernel (csrc/fast_nms.cu, replacing the Pallas
-_fast_nms_pallas); for CPU tensors they run the plain version,
+Counterpart of slam_toolkit_tpu/ops/fast_kernel.py::detect (the JAX
+package's ExtractorConfig.fused_fast path). For CUDA tensors the
+wrappers launch the hand-written kernel (csrc/fast_nms.cu, replacing
+the Pallas _fast_nms_pallas); for CPU tensors they run the plain version,
 fast.detect_dual, or fast.detect when thr_hi is None. detect_levels
 takes every level of a frame in one launch; detect is the same kernel
 with one level. The kernel is bit-exact against the plain version at
-every border; the extractor still routes here only from border 5 on, as
-the JAX package does.
+every border, and the extractor routes every frame here at every
+border, whatever fused_fast says: in the port the flag selects
+nothing, since both versions give the same responses bit for bit (it
+only chose an implementation on the TPU).
 """
 
 from __future__ import annotations

@@ -113,13 +113,13 @@ SWEEP_WARMUP_CHUNKS = 2
 SWEEP_SEEDS = (7, 11, 13, 17, 19)
 HEADLINE_SEED = 7
 # The option sets chip_smoke's phase 15 runs at full width, as {config
-# section: {field: value}}: O1 every off-default extractor option with
-# descriptor stereo; O2 the SAD stereo's BRIEF gate; O3 O1 with upright
-# descriptors. Steered descriptors sample the rotated pattern by element
+# section: {field: value}}: O1 every off-default extractor option that
+# selects something in the port (steered bfloat16 descriptors on the
+# poly pyramid) with descriptor stereo; O2 the SAD stereo's BRIEF gate;
+# O3 O1 with upright descriptors. Steered descriptors sample the rotated pattern by element
 # (brief.compute_descriptors), so bfloat16 patches reach the gather
 # kernel only with upright ones: O3 is the path of its bfloat16 entry.
-_O3 = {"extractor": {"descriptor_dtype": "bfloat16", "pyramid_mode": "poly",
-                     "fused_fast": True},
+_O3 = {"extractor": {"descriptor_dtype": "bfloat16", "pyramid_mode": "poly"},
        "matcher": {"stereo_method": "descriptor"}}
 OPTIONS = {
     "O1": {"extractor": {**_O3["extractor"], "steer_rotation": True},

@@ -1,8 +1,7 @@
 """Where a chunk's time goes on the card: torch.profiler over one steady
-chunk of the main path, of the same frames with the fused FAST kernel
-(ExtractorConfig.fused_fast) and with the hybrid tracker, each run eager
-(make_frame_body, graphs=False) and graphed (scan_engine.make_chunk_fn's
-one CUDA graph a chunk, the default).
+chunk of the main path and of the same frames with the hybrid tracker,
+each run eager (make_frame_body, graphs=False) and graphed
+(scan_engine.make_chunk_fn's one CUDA graph a chunk, the default).
 
     python -m slam_toolkit_tpu_torch.tools.profile_chunk [--frames 48]
 
@@ -120,12 +119,9 @@ def main() -> int:
     from slam_toolkit_tpu_torch.tools.bench import stage_frames
     cfg = SlamConfig()
     frames, _ = stage_frames(cfg, args.frames)
-    fused = cfg.replace(extractor=dataclasses.replace(cfg.extractor,
-                                                      fused_fast=True))
     hybrid = cfg.replace(tracker=dataclasses.replace(cfg.tracker,
                                                      method="hybrid"))
-    for name, c in (("main path", cfg), ("fused_fast", fused),
-                    ("hybrid", hybrid)):
+    for name, c in (("main path", cfg), ("hybrid", hybrid)):
         runs = {mode: profile(c, frames, chunk=CHUNK,
                               graphs=mode == "graphed")
                 for mode in ("eager", "graphed")}

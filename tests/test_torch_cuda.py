@@ -1258,8 +1258,10 @@ def test_graphed_vocab_extract_matches_eager(dev):
     """run_kitti --train-vocab's extract as one CUDA graph against the
     eager extract on the card, over tests/fixtures/kitti_mini/'s six
     frames (SlamConfig.tiny()): each frame's valid descriptors equal,
-    one capture replayed a frame, one gather launch a frame, and one
-    host sync (the readback) a frame once captured."""
+    one capture replayed a frame, one gather launch and one FAST+NMS
+    launch a frame with fused_fast on or off (the flag selects nothing
+    in the port), and one host sync (the readback) a frame once
+    captured."""
     import dataclasses
     import os
 
@@ -1286,9 +1288,54 @@ def test_graphed_vocab_extract_matches_eager(dev):
         assert st["captures"] == 1 and st["replays"] == {
             "extract": len(imgs) + 1}
         assert patches.KERNEL.launches - g0 == len(imgs)
-        assert fast_kernel.KERNEL.launches - f0 == (len(imgs) if fused
-                                                    else 0)
+        assert fast_kernel.KERNEL.launches - f0 == len(imgs)
         assert syncs == len(imgs) - 1, syncs
+
+
+def test_main_path_chunk_fast_kernel_cuda(dev, monkeypatch):
+    """The main path's chunk graph at full width (SlamConfig(), chunks
+    of 16, one WHILE node a chunk) over the first 49 frames of a
+    rendered circuit (loop_track's 272-frame lap at 0.8 m a frame in a
+    box world): the fused FAST+NMS kernel launched once a frame across
+    the replays (a frame's 8 levels in one launch), and the rows and the
+    map bit-equal to the same chunks run with the plain detector
+    (fast_kernel.detect_levels swapped for detect_levels_plain) captured
+    in its place, which launches no FAST kernel."""
+    from slam_toolkit_tpu_torch.config import SlamConfig
+    from slam_toolkit_tpu_torch.data.synthetic import loop_track
+    from slam_toolkit_tpu_torch.ops import fast_kernel
+    from slam_toolkit_tpu_torch.pipeline.scan_engine import ChunkedSlamEngine
+    from slam_toolkit_tpu_torch.tools.bench import render_stack
+    cfg = SlamConfig()
+    world = dict(cfg=cfg, seed=7, half_width=66.4, half_length=66.4,
+                 ground_y=1.6, tex_size=2048, texels_per_m=12.0)
+    imgs = render_stack(world, loop_track(272, 0.8, 12)[:49]).astype(
+        np.float32)
+    out = {}
+    for plain in (False, True):
+        if plain:
+            monkeypatch.setattr(fast_kernel, "detect_levels",
+                                fast_kernel.detect_levels_plain)
+        eng = ChunkedSlamEngine(cfg, chunk_size=16, device=dev)
+        rows, launched = [eng.process_chunk(imgs[:17])], []
+        for a in (17, 33):
+            torch.cuda.synchronize()
+            n0 = fast_kernel.KERNEL.launches
+            rows.append(eng.process_chunk(imgs[a:a + 16]))
+            torch.cuda.synchronize()
+            launched.append(fast_kernel.KERNEL.launches - n0)
+        out[plain] = (eng, rows, launched)
+    (k_eng, k_rows, k_l), (p_eng, p_rows, p_l) = out[False], out[True]
+    assert k_l == [16, 16] and p_l == [0, 0], (k_l, p_l)
+    assert [len(r) for r in k_rows] == [16, 16, 16]
+    for a, b in zip(k_rows, p_rows):
+        np.testing.assert_array_equal(a, b)
+    for f in p_eng.map._fields:
+        assert torch.equal(getattr(k_eng.map, f), getattr(p_eng.map, f)), f
+    for eng in (k_eng, p_eng):
+        st = eng._chunk.graph_stats()
+        assert st["captures"] == 1 and st["replays"] == {"chunk": 3}
+        assert st["while_nodes"] == 1 and st["while_runs"] == {"frame": 48}
 
 
 @pytest.mark.parametrize("thread", [False, True])

@@ -99,14 +99,25 @@ def test_detect_levels_refuses():
             t_fk.detect_levels(bad, 20.0, 7.0, 16)
 
 
-@pytest.mark.parametrize("dual", [True, False])
-def test_extract_fused_fast_matches_jax(dual, monkeypatch):
-    """extract with fused_fast=True (the tiny camera, a rendered frame):
-    keypoints, octaves, validity and descriptors exact against the JAX
-    extract at the same setting; FAST runs as one detect_levels call."""
+@pytest.mark.parametrize("dual,fused,radius", [
+    pytest.param(True, True, None, id="True"),
+    pytest.param(False, True, None, id="False"),
+    pytest.param(True, False, None, id="True-fused_fast_off"),
+    pytest.param(False, False, None, id="False-fused_fast_off"),
+    pytest.param(True, False, 3, id="True-border4"),
+    pytest.param(False, False, 3, id="False-border4")])
+def test_extract_fused_fast_matches_jax(dual, fused, radius, monkeypatch):
+    """extract with fused_fast on or off (the tiny camera, a rendered
+    frame): keypoints, octaves, validity and descriptors exact against
+    the JAX extract at the same setting; FAST runs as one detect_levels
+    call over every budgeted level either way, as the flag selects
+    nothing in the port, and below border 5 too (patch_radius 3), where
+    the JAX package runs its XLA detector."""
     cfg = SlamConfig.tiny()
-    ecfg = dataclasses.replace(cfg.extractor, fused_fast=True,
+    ecfg = dataclasses.replace(cfg.extractor, fused_fast=fused,
                                dual_threshold=dual)
+    if radius is not None:
+        ecfg = dataclasses.replace(ecfg, patch_radius=radius)
     world = make_world(cfg, seed=7)
     T = np.eye(4, dtype=np.float32)
     T[2, 3] = -0.7
