@@ -44,11 +44,12 @@ def readings(setup, seed: int, seconds: float, control: bool,
         torch.cuda.empty_cache()
     limits = setup.parts["limits"]
     out["numbers"] = judge(art, setup.circuit, setup.cfg_doc, setup.traffic,
-                           seed)
+                           seed, checks=setup.checks)
     out["correct"] = verdict(out["numbers"], limits)[0]
     if control:
         out["control"] = judge(art, setup.circuit, setup.cfg_doc,
-                               setup.traffic, seed, control=True)
+                               setup.traffic, seed, control=True,
+                               checks=setup.checks)
         out["control_correct"] = verdict(out["control"], limits)[0]
     return out
 

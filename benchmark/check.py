@@ -31,15 +31,23 @@ against what):
   motion and the ground truth's; chunk_motion_err_p50_m the median over
   spans of one chunk.
 
+A configuration's own checks (checks/<name>.py, named by its "checks"
+list) add their numbers(sessions, circuit, cfg_doc, traffic, seed) to
+these; a name that one of these already has, or another check's, raises
+instead of overwriting it.
+
 `control=True` puts the reference's tracking computed with TF32 matrix
 products, the precision below the configuration's float32, in the
 program's place: its pose, inliers and flags are judged against the
-float32 reference's from the same states.
+float32 reference's from the same states. A check whose numbers() takes
+a `control` argument is given it; the others judge the program's
+outputs in both modes.
 """
 
 from __future__ import annotations
 
 import contextlib
+import inspect
 import math
 from typing import Dict, List, NamedTuple, Optional
 
@@ -54,6 +62,12 @@ from benchmark.reference.tracking import track_frame
 
 STATE_FIELDS = ("T_cw", "velocity", "lm_Xw", "lm_desc", "lm_valid",
                 "inlier_peak")
+# every number judge computes itself (some only where the run gives them)
+NUMBERS = ("rows_missing", "drives", "track_pose_gap", "track_inlier_gap",
+           "track_flag_mismatch", "track_frames", "track_poses_compared",
+           "kf_frames", "kf_feature_mismatch", "kf_stereo_mismatch",
+           "mp_depth_err", "motion_err_m", "motion_err_p50_m",
+           "chunk_motion_err_p50_m")
 
 
 class Artifacts(NamedTuple):
@@ -68,6 +82,10 @@ class Artifacts(NamedTuple):
     states: Dict[int, dict]          # chunk's first frame -> state before
     keyframes: dict                  # the map's valid keyframes (numpy)
     mappoints: dict                  # the map's valid mappoints (numpy)
+    loop_events: List[dict]          # closures and relocalizations logged
+    closures_landed: List[int]       # frames dispatched as each landed
+    kept: Dict[str, dict]            # check -> {"after_chunk": {g: ...},
+    #                                  "at_end": ...}, on the host
 
 
 @contextlib.contextmanager
@@ -213,8 +231,11 @@ def motion_numbers(sessions: List[Artifacts], circuit, span: int) -> dict:
 
 
 def judge(sessions: List[Artifacts], circuit, cfg_doc: dict, traffic: dict,
-          seed: int, control: bool = False) -> dict:
-    """Every number the cell compares, by name, over a run's sessions."""
+          seed: int, control: bool = False,
+          checks: Optional[dict] = None) -> dict:
+    """Every number the cell compares, by name, over a run's sessions:
+    this module's, then each of the configuration's own checks' (checks:
+    name -> module, harness.check_modules)."""
     cfg = cfg_doc["slam"]
     n_track = int(traffic["check"]["track_frames"])
     n_kf = int(traffic["check"]["keyframes"])
@@ -224,6 +245,17 @@ def judge(sessions: List[Artifacts], circuit, cfg_doc: dict, traffic: dict,
     out.update(keyframe_numbers(sessions, circuit, cfg, seed, n_kf))
     out.update(motion_numbers(sessions, circuit,
                               int(cfg_doc["engine"]["chunk_size"])))
+    taken = set(NUMBERS) | set(out)
+    for name, mod in (checks or {}).items():
+        kw = {"control": control} if "control" in \
+            inspect.signature(mod.numbers).parameters else {}
+        got = mod.numbers(sessions, circuit, cfg_doc, traffic, seed, **kw)
+        clash = sorted(taken & set(got))
+        if clash:
+            raise ValueError(f"check {name!r} computes {clash}, which "
+                             "another check or the benchmark already has")
+        taken |= set(got)
+        out.update(got)
     return out
 
 

@@ -2,6 +2,7 @@
 as new files alone, BENCHMARK.json against the benchmark's contract,
 and the cyclic feeder at the lap seam."""
 
+import inspect
 import json
 import re
 import shutil
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 from benchmark import harness
+from benchmark.check import verdict
 from benchmark.feeder import Circuit, frame_seed
 from benchmark.reference import synthetic
 
@@ -59,23 +61,34 @@ def test_graph_counters_fail_loudly_on_a_renamed_member():
 
     chunk = Graphs({"captures": 2, "if_runs": {"keyframe": 7}})
     mapper = Graphs({"captures": 3})
-    eng = SimpleNamespace(_chunk=chunk, _mapper=mapper)
+    logs = dict(closures_landed=[160, 480], loop_events=[{}, {}, {}])
+    eng = SimpleNamespace(_chunk=chunk, _mapper=mapper, **logs)
     assert harness.graph_counters(eng) == {"captures": 5,
-                                           "keyframe_if_runs": 7}
-    off_card = SimpleNamespace(_chunk=Graphs(None), _mapper=Graphs(None))
+                                           "keyframe_if_runs": 7,
+                                           "closures_landed": 2,
+                                           "loop_events": 3}
+    off_card = SimpleNamespace(_chunk=Graphs(None), _mapper=Graphs(None),
+                               closures_landed=[], loop_events=[])
     assert harness.graph_counters(off_card) == {"captures": 0,
-                                                "keyframe_if_runs": None}
+                                                "keyframe_if_runs": None,
+                                                "closures_landed": 0,
+                                                "loop_events": 0}
     with pytest.raises(AttributeError):
-        harness.graph_counters(SimpleNamespace(_chunk=chunk))
+        harness.graph_counters(SimpleNamespace(_chunk=chunk, **logs))
+    with pytest.raises(AttributeError):
+        harness.graph_counters(SimpleNamespace(_chunk=chunk, _mapper=mapper))
     with pytest.raises(KeyError):
         harness.graph_counters(SimpleNamespace(
-            _chunk=Graphs({"captures": 1, "if_runs": {}}), _mapper=mapper))
+            _chunk=Graphs({"captures": 1, "if_runs": {}}), _mapper=mapper,
+            **logs))
 
 
 def test_a_cell_added_as_new_files_only(tmp_path, spec):
     """A later change adds a configuration, a traffic mix, a cell, its
     limits and a per-layer metric as files and entries; no file the
-    benchmark has is edited."""
+    benchmark has is edited. A loop configuration too: its vocabulary
+    recipe, its own check module with all three hooks, limits on that
+    module's numbers and a metric of the spans and loop counters."""
     root = tmp_path / "benchmark"
     for sub in ("configs", "traffic", "limits", "metrics"):
         shutil.copytree(ROOT / sub, root / sub)
@@ -91,18 +104,49 @@ def test_a_cell_added_as_new_files_only(tmp_path, spec):
         json.dumps({"rows_missing": {"max": 0}}))
     (root / "metrics" / "chunks_in_window.py").write_text(
         "def read(ctx):\n    return ctx.get('chunks')\n")
+    loop = json.loads((ROOT / "configs" / "kitti_stereo_vo.json").read_text())
+    loop.update(name="kitti_stereo_slam", checks=["closure_probe"],
+                vocabulary={"k": 10, "levels": 6, "every": 4, "seed": 0,
+                            "max_train": 100000})
+    loop["slam"]["loop"]["bow_mode"] = "topw"
+    (root / "configs" / "kitti_stereo_slam.json").write_text(json.dumps(loop))
+    (root / "checks").mkdir()
+    (root / "checks" / "closure_probe.py").write_text(
+        "def after_chunk(engine, g):\n"
+        "    return {'g': g, 'landed': list(engine.closures_landed)}\n"
+        "def at_end(engine):\n"
+        "    return len(engine.loop_events)\n"
+        "def numbers(sessions, circuit, cfg_doc, traffic, seed):\n"
+        "    return {'closures_landed': sum(len(a.closures_landed)\n"
+        "                                   for a in sessions)}\n")
+    (root / "limits" / "slam_loop.json").write_text(
+        json.dumps({"closures_landed": {"min": 1}}))
+    (root / "metrics" / "fold_spans_per_closure.py").write_text(
+        "def read(ctx):\n"
+        "    spans, n = ctx.get('spans'), ctx['counted']['closures_landed']\n"
+        "    if not spans or not n:\n"
+        "        return None\n"
+        "    return sum(s['name'] == 'fold' for ex in spans\n"
+        "               for s in ex['spans']) / n\n")
     new = json.loads(json.dumps(spec))
-    new["configs"].append({"name": "kitti_stereo_vo_o3", "source": "x",
-                           "file": "benchmark/configs/kitti_stereo_vo_o3.json",
-                           "reduced": [], "why": "x"})
-    new["workloads"].append({"name": "vo_o3_long",
-                             "config": "kitti_stereo_vo_o3",
-                             "traffic": "long_laps", "chips": 1, "why": "x"})
-    new["per_layer"].append({"name": "chunks_in_window", "unit": "chunks",
-                             "better": "higher", "source": "program_counter",
-                             "layer": "keyframe branch",
-                             "moves": "frames_per_s",
-                             "workloads": ["vo_o3_long"]})
+    new["configs"] += [
+        {"name": "kitti_stereo_vo_o3", "source": "x", "reduced": [],
+         "file": "benchmark/configs/kitti_stereo_vo_o3.json", "why": "x"},
+        {"name": "kitti_stereo_slam", "source": "x", "reduced": [],
+         "file": "benchmark/configs/kitti_stereo_slam.json", "why": "x"}]
+    new["workloads"] += [
+        {"name": "vo_o3_long", "config": "kitti_stereo_vo_o3",
+         "traffic": "long_laps", "chips": 1, "why": "x"},
+        {"name": "slam_loop", "config": "kitti_stereo_slam",
+         "traffic": "circuit_laps", "chips": 1, "why": "x"}]
+    new["per_layer"] += [
+        {"name": "chunks_in_window", "unit": "chunks", "better": "higher",
+         "source": "program_counter", "layer": "keyframe branch",
+         "moves": "frames_per_s", "workloads": ["vo_o3_long"]},
+        {"name": "fold_spans_per_closure", "unit": "folds",
+         "better": "lower", "source": "program_span",
+         "layer": "loop phases", "moves": "frames_per_s",
+         "workloads": ["slam_loop"]}]
     parts = harness.resolve(new, "vo_o3_long", root=root, repo=tmp_path)
     assert parts["config"]["slam"]["extractor"]["fused_fast"] is True
     assert parts["traffic"]["track"]["frames_per_lap"] == 544
@@ -110,9 +154,80 @@ def test_a_cell_added_as_new_files_only(tmp_path, spec):
     assert "chunks_in_window" in parts["per_layer"]
     assert harness.metric_reader("chunks_in_window", root)({"chunks": 7}) == 7
     assert harness.slam_config(parts["config"]["slam"]).extractor.fused_fast
+    assert harness.check_modules(parts["config"], root) == {}
     old = harness.resolve(new, "vo_circuit", root=root, repo=tmp_path)
     assert "chunks_in_window" not in old["per_layer"]
+    assert "fold_spans_per_closure" not in old["per_layer"]
+    # the loop cell
+    parts = harness.resolve(new, "slam_loop", root=root, repo=tmp_path)
+    assert parts["config"]["vocabulary"]["levels"] == 6
+    assert harness.slam_config(parts["config"]["slam"]).loop.bow_mode == \
+        "topw"
+    mods = harness.check_modules(parts["config"], root)
+    probe = mods["closure_probe"]
+    eng = SimpleNamespace(closures_landed=[161], loop_events=[{}, {}])
+    assert probe.after_chunk(eng, 160) == {"g": 160, "landed": [161]}
+    assert probe.at_end(eng) == 2
+    sessions = [SimpleNamespace(closures_landed=[161, 433]),
+                SimpleNamespace(closures_landed=[])]
+    got = probe.numbers(sessions, None, parts["config"], parts["traffic"], 1)
+    assert verdict(got, parts["limits"]) == (
+        True, [("closures_landed", 2, ">=", 1)])
+    read = harness.metric_reader("fold_spans_per_closure", root)
+    spans = [{"spans": [{"name": "fold"}, {"name": "fold"},
+                        {"name": "rows"}], "stamps": [], "setup_chunks": 0}]
+    assert read({"spans": spans, "counted": {"closures_landed": 2}}) == 1.0
+    assert read({"counted": {"closures_landed": 2}}) is None
+    assert "fold_spans_per_closure" in parts["per_layer"]
     assert all(p.read_bytes() == b for p, b in before.items())
+
+
+def test_a_check_module_without_numbers_is_refused(tmp_path):
+    (tmp_path / "checks").mkdir()
+    (tmp_path / "checks" / "hooks_only.py").write_text(
+        "def at_end(engine):\n    return None\n")
+    with pytest.raises(AttributeError):
+        harness.check_modules({"checks": ["hooks_only"]}, tmp_path)
+
+
+def test_the_vo_engine_gets_the_arguments_it_had(monkeypatch):
+    """kitti_stereo_vo has no vocabulary and no checks: its engine is
+    built with vocab=None and every other argument as before, and with
+    trace=True only where the run is traced."""
+    from slam_toolkit_tpu_torch.pipeline import scan_engine
+
+    import benchmark.feeder
+
+    class Circuit:                     # no render: the engine alone
+        def __init__(self, *args, **kw):
+            pass
+
+    class Built(Exception):
+        pass
+
+    seen = []
+    sig = inspect.signature(scan_engine.ChunkedSlamEngine.__init__)
+
+    def spy(self, *args, **kw):
+        bound = sig.bind(self, *args, **kw)
+        bound.apply_defaults()
+        seen.append({k: v for k, v in bound.arguments.items()
+                     if k != "self"})
+        raise Built
+    monkeypatch.setattr(benchmark.feeder, "Circuit", Circuit)
+    monkeypatch.setattr(scan_engine.ChunkedSlamEngine, "__init__", spy)
+    parts = harness.resolve(harness.load_spec(), "vo_circuit")
+    setup = harness.Setup(parts, "cpu")
+    assert setup.vocab is None and setup.checks == {}
+    for trace in (False, True):
+        with pytest.raises(Built):
+            setup.engine(trace)
+    e = parts["config"]["engine"]
+    before = {"cfg": setup.cfg, "cam": None, "vocab": None,
+              "chunk_size": e["chunk_size"], "device": setup.device,
+              "graphs": e["graphs"], "queue_depth": e["queue_depth"],
+              "loop_thread": e["loop_thread"], "trace": False}
+    assert seen == [before, dict(before, trace=True)]
 
 
 def test_benchmark_json_keeps_to_the_contract(spec):

@@ -15,8 +15,8 @@ ROOT = Path(__file__).resolve().parents[1]
 REPO = ROOT.parent
 REFERENCE = ("benchmark.reference.extractor", "benchmark.reference.geometry",
              "benchmark.reference.stereo", "benchmark.reference.synthetic",
-             "benchmark.reference.tracking",
-             "benchmark.check", "benchmark.roofline")
+             "benchmark.reference.tracking", "benchmark.reference.vocab_train",
+             "benchmark.check", "benchmark.roofline", "benchmark.spans")
 
 
 def top_levels_after(code: str) -> set:
@@ -55,7 +55,8 @@ def test_the_reference_imports_nothing_of_the_port():
 
 
 @pytest.mark.parametrize("path", sorted((ROOT / "reference").glob("*.py")) +
-                         [ROOT / "check.py", ROOT / "roofline.py"],
+                         [ROOT / "check.py", ROOT / "roofline.py",
+                          ROOT / "spans.py"],
                          ids=lambda p: p.name)
 def test_reference_sources_import_no_port_module(path):
     tree = ast.parse(path.read_text())

@@ -126,3 +126,70 @@ def test_verdict_limits():
     assert not verdict({"a": 1}, {"a": {"max": 0}})[0]
     assert not verdict({}, {"a": {"max": 0}})[0]
     assert not verdict({"c": 1}, {"c": {"min": 2}})[0]
+
+
+def _chunk(t0, frames, kf=()):
+    """A stamped chunk starting at t0 ns: each frame 1 ms of extraction,
+    0.5 ms of tracking, a 2 ms keyframe event on the frames in kf, and
+    0.1 ms around."""
+    slots = ("start", "extracted", "tracked", "kf_start", "kf_stereo",
+             "kf_inserted", "kf_ba", "kf_end", "stored")
+    rows, t = [], t0 + 100_000
+    for i in range(frames):
+        r = {"start": t, "extracted": t + 1_000_000,
+             "tracked": t + 1_500_000}
+        t = r["tracked"]
+        if i in kf:
+            r.update(kf_start=t, kf_stereo=t + 500_000,
+                     kf_inserted=t + 1_000_000, kf_ba=t + 1_500_000,
+                     kf_end=t + 2_000_000)
+            t += 2_000_000
+        r["stored"] = t + 100_000
+        t = r["stored"]
+        rows.append([r.get(s) for s in slots])
+    return {"span": 1, "root": 1, "slots": slots, "graph": (t0, t + 100_000),
+            "frames": rows}
+
+
+def test_span_figures_and_the_set_up_chunks_left_out():
+    from slam_toolkit_tpu_torch.tools import chunk_trace
+    from benchmark import spans
+    a = [_chunk(0, 4, kf=(1,)), _chunk(10_000_000, 4),
+         _chunk(20_000_000, 4, kf=(0, 3)), _chunk(35_000_000, 4)]
+    b = [_chunk(50_000_000, 4), _chunk(58_000_000, 4, kf=(2,))]
+    exports = [{"spans": [], "stamps": a, "clock": [], "setup_chunks": 1},
+               {"spans": [], "stamps": b, "clock": [], "setup_chunks": 0}]
+    got = spans.layer_metrics(exports)
+    # the frozen reduction is the program's, set-up chunks skipped alike
+    ref = chunk_trace.layer_metrics(
+        [exports[0], dict(exports[1], setup_chunks=0)], skip=1)
+    assert got == pytest.approx(ref)
+    assert got["chunks"] == 5 and got["frames"] == 20
+    assert got["extract_ms_per_frame"] == pytest.approx(1.0)
+    assert got["track_pose_ms_per_frame"] == pytest.approx(0.5)
+    assert got["keyframe_event_ms"] == pytest.approx(2.0)
+    assert got["keyframe_runs"] == 3
+    # chunks of 6.6 ms, 2 ms more a keyframe event; the gaps within a
+    # drive only, the set-up chunk's left out: 20.0 - 16.6, 35.0 - 30.6,
+    # 58.0 - 56.6 ms
+    assert got["device_gap_ms_per_chunk"] == pytest.approx(
+        (3.4 + 4.4 + 1.4) / 3)
+    assert got["chunk_graph_ms_p95"] == pytest.approx(10.6)
+    ctx = {"spans": exports}
+    for name in ("chunk_graph_ms_p95", "extract_ms_per_frame",
+                 "track_pose_ms_per_frame", "keyframe_event_ms",
+                 "device_gap_ms_per_chunk"):
+        assert read(name, ctx) == pytest.approx(got[name])
+        assert read(name, {}) is None
+        assert read(name, {"spans": [dict(exports[0], stamps=[])]}) is None
+    no_kf = [{"spans": [], "stamps": [_chunk(0, 2)], "setup_chunks": 0}]
+    assert read("keyframe_event_ms", {"spans": no_kf}) is None
+    assert read("device_gap_ms_per_chunk", {"spans": no_kf}) is None
+
+
+def test_loop_counts_reach_the_readers():
+    ctx = {"counted": {"captures": 1, "keyframe_if_runs": 0,
+                       "closures_landed": 0, "loop_events": 0},
+           "frames": 16}
+    assert read("captures_in_window", ctx) == 1
+    assert read("keyframe_event_runs_per_frame", ctx) == 0.0
